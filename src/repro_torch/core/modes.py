@@ -1,0 +1,61 @@
+"""Accelerator cache-coherence modes (paper §2).
+
+The four modes are defined independently of the specific coherence protocol.
+Each mode differs in (a) where accelerator memory requests are routed and
+(b) which software flushes the device driver must issue before launch.
+
+These integer codes index the action dimension of the Q-table and every
+per-mode lookup table in the SoC timing model, so their values are part of
+the on-disk checkpoint format — do not reorder.
+"""
+from __future__ import annotations
+
+import enum
+
+
+class CoherenceMode(enum.IntEnum):
+    """Paper §2 coherence modes, in the paper's presentation order."""
+
+    NON_COH_DMA = 0   # bypass caches, DMA straight to DRAM; full flush first
+    LLC_COH_DMA = 1   # DMA to the LLC; private (L2) caches flushed first
+    COH_DMA = 2       # DMA to the LLC; LLC recalls/invalidates L2 lines
+    FULLY_COH = 3     # private cache on the accelerator, full MESI coherence
+
+
+N_MODES = len(CoherenceMode)
+
+#: Modes whose driver path must flush the *entire* cache hierarchy before
+#: the accelerator may run (paper §2, Non-Coherent DMA).
+FULL_FLUSH_MODES = (CoherenceMode.NON_COH_DMA,)
+
+#: Modes whose driver path must flush only the processors' private caches.
+PRIVATE_FLUSH_MODES = (CoherenceMode.LLC_COH_DMA,)
+
+#: Modes that route requests through the LLC (and therefore contend for it).
+LLC_MODES = (
+    CoherenceMode.LLC_COH_DMA,
+    CoherenceMode.COH_DMA,
+    CoherenceMode.FULLY_COH,
+)
+
+#: Modes with no private cache on the accelerator side (DMA modes).
+DMA_MODES = (
+    CoherenceMode.NON_COH_DMA,
+    CoherenceMode.LLC_COH_DMA,
+    CoherenceMode.COH_DMA,
+)
+
+MODE_NAMES = tuple(m.name.lower().replace("_", "-") for m in CoherenceMode)
+
+
+def flush_kind(mode: CoherenceMode) -> str:
+    """Which software flush the driver issues for ``mode``.
+
+    Returns one of ``"full"`` (whole hierarchy), ``"private"`` (L2s only) or
+    ``"none"`` — paper §2 / §4.3 Actuate.
+    """
+    if mode in FULL_FLUSH_MODES:
+        return "full"
+    if mode in PRIVATE_FLUSH_MODES:
+        return "private"
+    return "none"

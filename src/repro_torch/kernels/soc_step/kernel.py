@@ -1,0 +1,158 @@
+"""ctypes wrapper of the CUDA ``soc_step_episode`` kernel.
+
+``csrc/soc_step.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C entry point, on first use (never at
+import), into ``build/repro_torch/soc_step-<hash of the source>/`` at the
+root of the checkout.  A missing ``nvcc`` raises: there is no fallback.
+
+:func:`soc_step_episode` launches the kernel on PyTorch's current stream
+for ``B`` episodes at once; the source's header note says what bounds it
+and how it is laid out.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.soc_step.ref import N_CONSTS, YCOLS
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "soc_step.cu"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "soc_step CUDA kernel is built from source on first use")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel (if this source has not been built yet) and
+    return the shared library's path."""
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out_dir = BUILD_ROOT / f"soc_step-{digest[:16]}"
+    lib = out_dir / "libsoc_step.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / lib.name
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp_lib),
+               str(SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
+        if verbose:
+            print(proc.stdout + proc.stderr)
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.soc_step_episode_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, dtype, ndim):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor (got {t.device}); "
+                         "CPU tensors take ref.episode_ref via ops")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
+                     n_threads: int, n_tiles: int, n_actions: int,
+                     ddr_attribution: bool = False, gated: bool = False,
+                     faulted: bool = False):
+    """Run ``B`` packed episodes through the CUDA kernel.
+
+    ``xf (B, S, NF)`` f32 / ``xi (B, S, 5)`` i32 are the packed step rows
+    (:func:`~repro_torch.kernels.soc_step.ref.pack_inputs`), ``consts
+    (B, 25)`` f32 (:func:`~repro_torch.kernels.soc_step.ref.pack_consts`),
+    ``qtable0 (B, 243, A)`` and ``extrema0 (B, 4, n_accs)`` f32.  Returns
+    ``(qtable_final (B, 243, A), y (B, S, 6))``.  The fault-injected and
+    MLP variants are not ported and raise."""
+    if faulted:
+        raise NotImplementedError(
+            "the faulted soc_step variant is not ported to CUDA yet")
+    if wpack0 is not None:
+        raise NotImplementedError(
+            "the MLP soc_step variant is not ported to CUDA yet")
+    _check("xf", xf, torch.float32, 3)
+    _check("xi", xi, torch.int32, 3)
+    _check("consts", consts, torch.float32, 2)
+    _check("qtable0", qtable0, torch.float32, 3)
+    _check("extrema0", extrema0, torch.float32, 3)
+    b, s, nf = xf.shape
+    n_states, n_a = qtable0.shape[1:]
+    n_accs = extrema0.shape[2]
+    n_feat = nf - 4 - n_tiles - n_threads - 3 * n_actions
+    devs = {t.device for t in (xf, xi, consts, qtable0, extrema0)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    if (tuple(xi.shape) != (b, s, 5) or tuple(consts.shape) != (b, N_CONSTS)
+            or qtable0.shape[0] != b or n_a != n_actions
+            or tuple(extrema0.shape[:2]) != (b, 4) or n_feat < 9):
+        raise ValueError(
+            f"inconsistent shapes xf={tuple(xf.shape)} "
+            f"xi={tuple(xi.shape)} consts={tuple(consts.shape)} "
+            f"qtable0={tuple(qtable0.shape)} "
+            f"extrema0={tuple(extrema0.shape)} for n_threads={n_threads} "
+            f"n_tiles={n_tiles} n_actions={n_actions}")
+    # The kernel indexes its shared-memory tables with these columns.
+    lo = xi.amin((0, 1)).tolist()
+    hi = xi.amax((0, 1)).tolist()
+    for col, limit in ((0, n_accs), (1, n_threads), (4, n_actions)):
+        if s and not (0 <= lo[col] and hi[col] < limit):
+            raise ValueError(f"xi column {col} outside [0, {limit}): "
+                             f"[{lo[col]}, {hi[col]}]")
+    lib = _load()
+    y = torch.empty((b, s, len(YCOLS)), dtype=torch.float32,
+                    device=xf.device)
+    qtable = torch.empty_like(qtable0)
+    with torch.cuda.device(xf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.soc_step_episode_launch(
+            xf.data_ptr(), xi.data_ptr(), consts.data_ptr(),
+            qtable0.data_ptr(), extrema0.data_ptr(), y.data_ptr(),
+            qtable.data_ptr(), b, s, nf, N_CONSTS, n_tiles, n_threads,
+            n_feat, n_actions, n_states, n_accs, int(ddr_attribution),
+            int(gated), stream)
+    if err != 0:
+        raise RuntimeError(f"soc_step_episode launch failed: CUDA error "
+                           f"{err}")
+    return qtable, y
