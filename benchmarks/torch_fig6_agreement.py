@@ -1,7 +1,8 @@
 """The port's full-width Fig. 6 sweep against the JAX reference.
 
     PYTHONPATH=src python -m benchmarks.torch_fig6_agreement \
-        [--chip-log chip_smoke.out] [--trace-weighting 0.2/0.2/0.6]
+        [--chip-log chip_smoke.out] [--trace-weighting 0.2/0.2/0.6] \
+        [--no-fma]
 
 Runs the reference (``repro``, on the CPU) at the width ``chip_smoke.py``
 drives — 15 weightings x 8 seeds, 10 iterations of the 540-step training
@@ -14,11 +15,20 @@ agents in both packages on the CPU, iteration by iteration, and reports
 the first (iteration, agent, step) where their mode or state traces part,
 and checks how the jitted reference rounds ``a*b + c`` (one rounding, as
 a fused multiply-add, or two, as the port's separate operations).
+``--no-fma`` compiles the reference for an ISA without fused multiply-add
+(``XLA_FLAGS=--xla_cpu_max_isa=AVX``), so it too rounds each operation
+(ROADMAP C1).
 """
 from __future__ import annotations
 
 import argparse
 import re
+import sys
+
+from benchmarks.torch_no_fma import use_reference_without_fma
+
+if "--no-fma" in sys.argv:    # before jax is imported below
+    use_reference_without_fma()
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +143,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--chip-log")
     ap.add_argument("--trace-weighting")
+    ap.add_argument("--no-fma", action="store_true")
     args = ap.parse_args()
     points, suite = reference_points()
     chip, chip_suite = (chip_points(args.chip_log) if args.chip_log

@@ -1,16 +1,20 @@
 """Where the port's main path spends its time on the card.
 
-    PYTHONPATH=src python -m benchmarks.torch_main_path_profile
+    PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
+        [--path fig6|fig9|fig11]
 
-Runs the full-width Fig. 6 slice (the one ``chip_smoke.py`` drives) once
-to warm up, then (1) times its host-side pieces one by one with the
-device synchronized around each, and (2) runs it again under
-``torch.profiler`` and prints the device's busy share of the wall time
-and the device time by kernel name.  Needs a CUDA card; prints the card's
-name and power limit beside every number.
+Runs one of the full-width paths ``chip_smoke.py`` drives (default the
+Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
+``fig11`` ``benchmarks/torch_fig11_serving.py``'s) once to warm up, then
+(1) times its wall and its host-side pieces one by one with the device
+synchronized around each, and (2) runs it again under ``torch.profiler``
+and prints the device's busy share of the wall time and the device time
+by kernel name.  Needs a CUDA card; prints the card's name and power
+limit beside every number.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -23,6 +27,7 @@ from repro_torch.core import orchestrator as orch
 from repro_torch.core import policies as pol
 from repro_torch.core import qlearn, rewards
 from repro_torch.core.modes import CoherenceMode
+from repro_torch.kernels.soc_step import ops as soc_ops
 from repro_torch.soc import apps, vecenv as vec
 from repro_torch.soc.config import SOC_MOTIV_PAR
 
@@ -58,20 +63,7 @@ def timed(fn, reps=3):
     return float(np.median(out)) * 1e3
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()
-    dev = torch.device("cuda")
-    env = vec.VecEnv(SOC_MOTIV_PAR, device=dev)
-    main_path(env)                                   # warm-up + build
-    wall = timed(lambda: main_path(env), reps=3)
-    print(f"card: {card}")
-    print(f"main path: {wall:.1f} ms wall (median of 3)")
-
+def fig6_pieces(env, dev):
     soc = SOC_MOTIV_PAR
     app = apps.make_application(soc, seed=11, n_phases=6)
     compiled = vec.compile_app(app, soc, seed=11)
@@ -82,7 +74,15 @@ def main():
     wb = rewards.stack_weights(WEIGHTS * 8, device=dev)
     spec = vec.learned_policy_spec(qlearn.init_qstate_batch(cfg, b, dev),
                                    sched)
-    pieces = {
+    xs, inc = vec.episode_inputs(env.params, sched, spec, cfg, keys)
+    extrema0 = rewards.init_reward_state(soc.n_accs, (b,), dev).extrema
+    kernel = lambda: soc_ops.fused_episode(
+        env.params.static, spec.learned.expand(b), wb, spec.qstate.qtable,
+        extrema0, xs, ddr_attribution=env.ddr_attribution)
+    qtable, ys = kernel()
+    segments = vec.phase_segments(sched, compiled.n_phases,
+                                  compiled.n_threads)
+    return {
         "make_application + compile_app (1 iteration)": lambda:
             vec.compile_app(apps.make_application(soc, seed=11, n_phases=6),
                             soc, seed=11),
@@ -92,7 +92,89 @@ def main():
             vec.episode_inputs(env.params, sched, spec, cfg, keys),
         "one training episode, B=120 (inputs + kernel + metric tail)":
             lambda: env._run(compiled, sched, spec, cfg, wb, keys),
+        "K1 alone, B=120": kernel,
+        "phase sum index (phase_segments, before each launch)": lambda:
+            vec.phase_segments(sched, compiled.n_phases, compiled.n_threads),
+        "metric tail, B=120 (visits replay + phase sums)": lambda:
+            vec.episode_tail(spec.qstate, qtable, ys, inc, vec.phase_metrics(
+                ys[3], ys[4], segments, n_phases=compiled.n_phases,
+                n_threads=compiled.n_threads, cycle_time=env.cycle_time)),
+        "visits replay alone, B=120": lambda:
+            qlearn.replay_visits(spec.qstate, qtable, ys[1], ys[2], inc),
     }
+
+
+def fig9_pieces(dev):
+    from benchmarks.torch_fig9_socs import SOC_FLAVORS
+    from repro_torch.soc.config import SOCS
+    from repro_torch.soc.stacked import StackedVecEnv
+    envs = [vec.VecEnv(SOCS[n], seed=1, flavor=f, device=dev)
+            for n, f in SOC_FLAVORS]
+    env = StackedVecEnv([e.soc for e in envs], envs=envs)
+    st = env.compile([apps.make_application(e.soc, seed=50, n_phases=8)
+                      for e in envs], seed=4)
+    return {
+        "profile_fixed_heterogeneous, 8 lanes (222 one-step launches)":
+            lambda: [orch.profile_fixed_heterogeneous(e) for e in envs],
+        "manual policy mode tables, 8 lanes (lower)": lambda:
+            env.lower(st, [pol.ManualPolicy()]),
+        "compile 8 training apps (1 iteration)": lambda:
+            env.compile([apps.make_application(e.soc, seed=0, n_phases=8)
+                         for e in envs], seed=0),
+    }
+
+
+def fig11_pieces(dev):
+    from benchmarks.torch_fig11_serving import _traffic
+    from repro_torch.soc import traffic
+    from repro_torch.soc.config import SOCS
+    soc = SOCS["SoC1"]
+    env = vec.VecEnv(soc, seed=1, device=dev)
+    app = vec.compile_app(apps.make_application(soc, seed=50, n_phases=8),
+                          soc, seed=4)
+    sched = env._sched(app)
+    specs = vec.stack_specs([vec.fixed_policy_spec(env.params, sched, m)
+                             for m in (0, 3, 1, 2)])
+    tspec = _traffic(traffic, 2.94e-6, 1.9e7, 6e5, device=dev)
+    serve_env = vec.ServeEnv(env, queue_cap=8, n_requests=1024)
+    return {
+        "sample_arrivals (1,024 requests)": lambda:
+            traffic.sample_arrivals(tspec, 1024, sched.acc_id.shape[0]),
+        "one serving call, B=4 x 1,024 requests (inputs + kernel + "
+        "results)": lambda: serve_env.serve_specs(app, specs, tspec),
+        "manual policy mode table (eval app)": lambda:
+            vec.manual_policy_spec(env.params, sched),
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", default="fig6",
+                    choices=("fig6", "fig9", "fig11"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    dev = torch.device("cuda")
+    if args.path == "fig6":
+        env = vec.VecEnv(SOC_MOTIV_PAR, device=dev)
+        run = lambda: main_path(env)
+        pieces = fig6_pieces(env, dev)
+    elif args.path == "fig9":
+        from benchmarks.torch_fig9_socs import run_port
+        run = lambda: run_port(dev)
+        pieces = fig9_pieces(dev)
+    else:
+        from benchmarks.torch_fig11_serving import run_port
+        run = lambda: run_port(dev)
+        pieces = fig11_pieces(dev)
+    run()                                            # warm-up + build
+    wall = timed(run, reps=3)
+    print(f"card: {card}")
+    print(f"{args.path} path: {wall:.1f} ms wall (median of 3)")
     for name, fn in pieces.items():
         print(f"{name}: {timed(fn):.2f} ms on {card}")
 
@@ -100,7 +182,8 @@ def main():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        main_path(env)
+        run()
+        torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
@@ -109,7 +192,7 @@ def main():
         if dev_us:
             rows.append((dev_us, evt.key, evt.count))
     busy = sum(r[0] for r in rows) / 1e3
-    print(f"traced main path: {traced:.1f} ms wall, device busy "
+    print(f"traced {args.path} path: {traced:.1f} ms wall, device busy "
           f"{busy:.1f} ms ({100 * busy / traced:.1f}%), idle "
           f"{100 * (1 - busy / traced):.1f}% on {card}")
     for dev_us, key, count in sorted(rows, reverse=True)[:8]:

@@ -6,7 +6,10 @@
   * :class:`BatchedTrainResult` — frozen-greedy evaluation of the trained
     agents against the Fixed NON_COH baseline;
   * :func:`compare_policies` — a whole policy suite plus the NON_COH
-    baseline replayed as ONE batched episode call, normalized per phase.
+    baseline replayed as ONE batched episode call, normalized per phase;
+  * :func:`profile_fixed_heterogeneous` / :func:`standard_policy_suite` —
+    the design-time per-accelerator baseline and the paper's comparison
+    set.
 
 The discrete-event backend of the reference waits for the simulator's
 port; these drivers take a :class:`~repro_torch.soc.vecenv.VecEnv` (or an
@@ -21,13 +24,77 @@ import numpy as np
 
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
-from repro_torch.core.modes import CoherenceMode
-from repro_torch.core.policies import FixedHomogeneous, Policy, QPolicy
+from repro_torch.core.modes import CoherenceMode, N_MODES
+from repro_torch.core.policies import (FixedHeterogeneous, FixedHomogeneous,
+                                       ManualPolicy, Policy, QPolicy,
+                                       RandomPolicy)
 from repro_torch.core.rewards import RewardWeights
 from repro_torch.soc import vecenv as vec
 from repro_torch.soc.apps import make_application
-from repro_torch.soc.config import SoCConfig
-from repro_torch.soc.des import Application
+from repro_torch.soc.config import (SoCConfig, WORKLOAD_LARGE,
+                                    WORKLOAD_MEDIUM, WORKLOAD_SMALL)
+from repro_torch.soc.des import Application, Invocation, Phase, Thread
+
+
+def _isolated_app(acc_id: int, footprint: float) -> Application:
+    return Application(
+        name="isolated",
+        phases=[Phase(name="only",
+                      threads=[Thread(chain=[Invocation(acc_id, footprint)])])])
+
+
+def profile_fixed_heterogeneous(
+    env: vec.VecEnv,
+    footprints: Sequence[float] = (WORKLOAD_SMALL, WORKLOAD_MEDIUM,
+                                   WORKLOAD_LARGE),
+    seed: int = 0,
+) -> FixedHeterogeneous:
+    """Design-time per-accelerator profiling (paper §4.3 Decide): each
+    accelerator alone, over the workload footprints, in every mode; the
+    mode with the best mean time normalized to NON_COH wins.
+
+    The four modes of one (accelerator, footprint) probe run as ONE
+    batched episode call (fixed policies are deterministic, so this equals
+    the reference's one call per mode).  This is the reference's
+    ``backend="vecenv"``; the discrete-event backend waits for ROADMAP
+    A8."""
+    assignment = {}
+    for acc_id, prof in enumerate(env.profiles):
+        if prof.name in assignment:
+            continue
+        times = np.zeros((len(footprints), N_MODES))
+        for i, fp in enumerate(footprints):
+            compiled = vec.compile_app(_isolated_app(acc_id, fp), env.soc,
+                                       seed=seed)
+            sched = env._sched(compiled)
+            specs = vec.stack_specs([vec.fixed_policy_spec(
+                env.params, sched, int(m)) for m in CoherenceMode])
+            res = env.episodes(compiled, specs)
+            times[i] = res.phase_time.sum(-1).cpu().numpy()
+        masks = env.masks[acc_id].cpu().numpy()
+        scores = np.zeros(N_MODES)
+        for mode in CoherenceMode:
+            if not masks[mode]:
+                scores[mode] = np.inf
+                continue
+            scores[mode] = float(np.mean([
+                float(times[i, mode]) / max(float(times[i, 0]), 1e-30)
+                for i in range(len(footprints))]))
+        assignment[prof.name] = CoherenceMode(int(np.argmin(scores)))
+    return FixedHeterogeneous(assignment)
+
+
+def standard_policy_suite(env: vec.VecEnv,
+                          include_profiled: bool = True) -> list[Policy]:
+    """The paper's comparison set: the 4 fixed-homogeneous policies, the
+    profiled heterogeneous one, random and manual (Cohmeleon is trained
+    separately)."""
+    suite: list[Policy] = [FixedHomogeneous(m) for m in CoherenceMode]
+    if include_profiled:
+        suite.append(profile_fixed_heterogeneous(env))
+    suite.append(RandomPolicy())
+    suite.append(ManualPolicy())
+    return suite
 
 
 @dataclasses.dataclass

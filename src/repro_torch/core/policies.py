@@ -73,6 +73,9 @@ class FixedHeterogeneous(Policy):
         from repro_torch.soc import vecenv as vec
         modes = [int(self.assignment.get(p.name, CoherenceMode.NON_COH_DMA))
                  for p in env.profiles]
+        # padded stacked lanes carry more accelerator rows than profiles
+        modes += [int(CoherenceMode.NON_COH_DMA)] * (
+            env.params.masks.shape[0] - len(modes))
         return vec.fixed_policy_spec(env.params, env._sched(compiled),
                                      torch.tensor(modes, dtype=torch.int32))
 

@@ -169,13 +169,22 @@ def row_update(row, alpha, action, reward):
     return torch.where(hot, blend, row)
 
 
+def _decay_steps_f32(cfg: QConfig):
+    """``cfg.decay_steps`` as float32: a number, or a ``(B,)`` tensor of
+    per-agent horizons shaped to broadcast over a ``(B, S)`` trace."""
+    if torch.is_tensor(cfg.decay_steps):
+        return cfg.decay_steps.to(torch.float32)[:, None]
+    return float(np.float32(cfg.decay_steps))
+
+
 def decay_arrays(cfg: QConfig, step0, frozen, inc):
     """Per-step ``(eps_t, alpha_t)`` over an episode, ``inc (B, S)`` the
-    per-step counter increments, ``step0``/``frozen (B,)``."""
+    per-step counter increments, ``step0``/``frozen (B,)``;
+    ``cfg.decay_steps`` may be a ``(B,)`` tensor."""
     inc = inc.to(torch.int32)
     step_t = step0[:, None] + torch.cumsum(inc, -1, dtype=torch.int32) - inc
     frac = torch.clamp(1.0 - step_t.to(torch.float32)
-                       / float(np.float32(cfg.decay_steps)), 0.0, 1.0)
+                       / _decay_steps_f32(cfg), 0.0, 1.0)
     fz = frozen[:, None]
     eps_t = torch.where(fz, 0.0, cfg.epsilon0 * frac)
     alpha_t = torch.where(fz, 0.0, cfg.alpha0 * frac)

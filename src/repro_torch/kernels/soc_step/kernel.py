@@ -1,12 +1,14 @@
-"""ctypes wrapper of the CUDA ``soc_step_episode`` kernel.
+"""ctypes wrappers of the CUDA ``soc_step_episode`` and ``soc_step_serve``
+kernels.
 
 ``csrc/soc_step.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, on first use (never at
+shared library with plain C entry points, on first use (never at
 import), into ``build/repro_torch/soc_step-<hash of the source>/`` at the
 root of the checkout.  A missing ``nvcc`` raises: there is no fallback.
 
-:func:`soc_step_episode` launches the kernel on PyTorch's current stream
-for ``B`` episodes at once; the source's header note says what bounds it
+:func:`soc_step_episode` launches the episode kernel on PyTorch's current
+stream for ``B`` episodes at once, :func:`soc_step_serve` the serving
+kernel for ``B`` arrival streams; the source's notes say what bounds each
 and how it is laid out.
 """
 from __future__ import annotations
@@ -21,7 +23,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.soc_step.ref import N_CONSTS, YCOLS
+from repro_torch.kernels.soc_step.ref import (N_CONSTS, N_SERVE_CONSTS,
+                                              SERVE_YCOLS, ServeCarry, YCOLS)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "soc_step.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -78,6 +81,10 @@ def _load():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.soc_step_serve_launch
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -85,13 +92,25 @@ def _load():
 def _check(name, t, dtype, ndim):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor (got {t.device}); "
-                         "CPU tensors take ref.episode_ref via ops")
+                         "CPU tensors take the plain version via ops")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_xi(xi, limits):
+    """The kernels index their shared-memory tables with these columns."""
+    if xi.numel() == 0:
+        return
+    lo = xi.amin((0, 1)).tolist()
+    hi = xi.amax((0, 1)).tolist()
+    for col, limit in limits:
+        if not (0 <= lo[col] and hi[col] < limit):
+            raise ValueError(f"xi column {col} outside [0, {limit}): "
+                             f"[{lo[col]}, {hi[col]}]")
 
 
 def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
@@ -133,13 +152,7 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
             f"qtable0={tuple(qtable0.shape)} "
             f"extrema0={tuple(extrema0.shape)} for n_threads={n_threads} "
             f"n_tiles={n_tiles} n_actions={n_actions}")
-    # The kernel indexes its shared-memory tables with these columns.
-    lo = xi.amin((0, 1)).tolist()
-    hi = xi.amax((0, 1)).tolist()
-    for col, limit in ((0, n_accs), (1, n_threads), (4, n_actions)):
-        if s and not (0 <= lo[col] and hi[col] < limit):
-            raise ValueError(f"xi column {col} outside [0, {limit}): "
-                             f"[{lo[col]}, {hi[col]}]")
+    _check_xi(xi, ((0, n_accs), (1, n_threads), (4, n_actions)))
     lib = _load()
     y = torch.empty((b, s, len(YCOLS)), dtype=torch.float32,
                     device=xf.device)
@@ -156,3 +169,83 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
         raise RuntimeError(f"soc_step_episode launch failed: CUDA error "
                            f"{err}")
     return qtable, y
+
+
+def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
+                   n_actions: int, ddr_attribution: bool = False,
+                   faulted: bool = False):
+    """Run ``B`` packed arrival-stream chunks through the CUDA kernel.
+
+    ``xf (B, S, NF)`` f32 / ``xi (B, S, 5)`` i32 are the packed step rows
+    with a placeholder ``others`` block of width ``n_accs``, ``xv (B, S,
+    3)`` f32 the ``[t_arr, deadline, priority]`` rows
+    (:func:`~repro_torch.kernels.soc_step.ref.pack_serve_rows`), ``consts
+    (B, 34)`` f32 (:func:`~repro_torch.kernels.soc_step.ref.
+    pack_serve_consts`) and ``carry0`` a
+    :class:`~repro_torch.kernels.soc_step.ref.ServeCarry` of CUDA tensors.
+    Returns ``(carry_final, y (B, S, 13))``.  The fault-injected variant is
+    not ported and raises."""
+    if faulted:
+        raise NotImplementedError(
+            "the faulted soc_step_serve variant is not ported to CUDA yet "
+            "(ROADMAP B2)")
+    c = carry0
+    for name, t, dt, nd in (
+            ("xf", xf, torch.float32, 3), ("xi", xi, torch.int32, 3),
+            ("xv", xv, torch.float32, 3), ("consts", consts, torch.float32,
+                                           2),
+            ("qtable", c.qtable, torch.float32, 3),
+            ("extrema", c.extrema, torch.float32, 3),
+            ("tbl", c.tbl, torch.float32, 3),
+            ("busy", c.busy, torch.float32, 2),
+            ("fin", c.fin, torch.float32, 3),
+            ("head", c.head, torch.int32, 2),
+            ("pressure", c.pressure, torch.float32, 1),
+            ("tripped", c.tripped, torch.float32, 1),
+            ("step", c.step, torch.int32, 1)):
+        _check(name, t, dt, nd)
+    b, s, nf = xf.shape
+    n_states, n_a = c.qtable.shape[1:]
+    n_accs = c.busy.shape[1]
+    queue_cap = c.fin.shape[2]
+    n_feat = nf - 4 - n_tiles - n_accs - 3 * n_actions
+    devs = {t.device for t in (xf, xi, xv, consts, *c)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    if (tuple(xi.shape) != (b, s, 5) or tuple(xv.shape) != (b, s, 3)
+            or tuple(consts.shape) != (b, N_SERVE_CONSTS)
+            or c.qtable.shape[0] != b or n_a != n_actions
+            or tuple(c.extrema.shape) != (b, 4, n_accs)
+            or tuple(c.tbl.shape) != (b, n_accs, 6 + n_tiles)
+            or tuple(c.fin.shape[:2]) != (b, n_accs)
+            or tuple(c.head.shape) != (b, n_accs)
+            or any(t.shape != (b,) for t in (c.pressure, c.tripped, c.step))
+            or n_feat < 9):
+        raise ValueError(
+            f"inconsistent shapes xf={tuple(xf.shape)} xi={tuple(xi.shape)} "
+            f"xv={tuple(xv.shape)} consts={tuple(consts.shape)} carry="
+            f"{[tuple(t.shape) for t in c]} for n_tiles={n_tiles} "
+            f"n_actions={n_actions}")
+    _check_xi(xi, ((0, n_accs), (4, n_actions)))
+    lib = _load()
+    y = torch.empty((b, s, len(SERVE_YCOLS)), dtype=torch.float32,
+                    device=xf.device)
+    misc0 = torch.stack([c.pressure, c.tripped], dim=-1).contiguous()
+    out = ServeCarry(*(torch.empty_like(t) for t in c))
+    misc = torch.empty_like(misc0)
+    with torch.cuda.device(xf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.soc_step_serve_launch(
+            xf.data_ptr(), xi.data_ptr(), xv.data_ptr(), consts.data_ptr(),
+            c.qtable.data_ptr(), c.extrema.data_ptr(), c.tbl.data_ptr(),
+            c.busy.data_ptr(), c.fin.data_ptr(), c.head.data_ptr(),
+            misc0.data_ptr(), c.step.data_ptr(), y.data_ptr(),
+            out.qtable.data_ptr(), out.extrema.data_ptr(),
+            out.tbl.data_ptr(), out.busy.data_ptr(), out.fin.data_ptr(),
+            out.head.data_ptr(), misc.data_ptr(), out.step.data_ptr(),
+            b, s, nf, N_SERVE_CONSTS, n_tiles, n_accs, n_feat, n_actions,
+            n_states, queue_cap, int(ddr_attribution), stream)
+    if err != 0:
+        raise RuntimeError(f"soc_step_serve launch failed: CUDA error {err}")
+    return out._replace(pressure=misc[:, 0].contiguous(),
+                        tripped=misc[:, 1].contiguous()), y

@@ -1,28 +1,35 @@
-"""Public entry point of the fused SoC episode step.
+"""Public entry points of the fused SoC step.
 
-:func:`fused_episode` dispatches by where the tensors lie: CUDA tensors
-launch the hand-written kernel (:mod:`.kernel`), CPU tensors take the
-plain PyTorch version (:func:`~repro_torch.kernels.soc_step.ref.
-episode_ref`).  There is no fallback between them: a CUDA call that
-cannot launch raises.  :data:`launches` counts kernel launches, so a run
-can show that its episodes went through the kernel.
+:func:`fused_episode` and :func:`fused_serve_episode` dispatch by where
+the tensors lie: CUDA tensors launch the hand-written kernels
+(:mod:`.kernel`), CPU tensors take the plain PyTorch versions
+(:func:`~repro_torch.kernels.soc_step.ref.episode_ref`,
+:func:`~repro_torch.kernels.soc_step.ref.serve_episode_ref`).  There is no
+fallback between them: a CUDA call that cannot launch raises.
+:data:`launches` and :data:`serve_launches` count kernel launches, so a
+run can show that it went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.soc_step import kernel as _kernel
-from repro_torch.kernels.soc_step.ref import (StepInputs, episode_ref,
+from repro_torch.kernels.soc_step.ref import (ServeCarry, ServeParams,
+                                              StepInputs, episode_ref,
                                               pack_consts, pack_inputs,
-                                              unpack_ys)
+                                              pack_serve_consts,
+                                              pack_serve_rows,
+                                              serve_episode_ref, unpack_ys)
 from repro_torch.soc.memsys import SoCStatic
 
 launches = 0
+serve_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, serve_launches
     launches = 0
+    serve_launches = 0
 
 
 def fused_episode(s: SoCStatic, learned, weights, qtable0, extrema0,
@@ -50,3 +57,31 @@ def fused_episode(s: SoCStatic, learned, weights, qtable0, extrema0,
         gated=gated, faulted=xs.f_exec is not None)
     launches += 1
     return qtable, unpack_ys(y)
+
+
+def fused_serve_episode(s: SoCStatic, learned, weights, sp: ServeParams,
+                        carry0: ServeCarry, xs: StepInputs, t_arr, deadline,
+                        priority, *, ddr_attribution: bool = False):
+    """Run ``B`` arrival-stream chunks through the serving step; returns
+    ``(carry_final, ys (B, S, 13))``.
+
+    ``xs`` is a ``(B, S)``-leading :class:`StepInputs` whose thread/fresh/
+    others/valid/eps/alpha columns are placeholders (``others`` of width
+    ``n_accs``) the serve step owns; ``t_arr``/``deadline``/``priority``
+    are ``(B, S)``; ``carry0`` a :class:`ServeCarry` of ``B`` streams."""
+    global serve_launches
+    if carry0.qtable.device.type != "cuda":
+        return serve_episode_ref(s, learned, weights, sp, carry0, xs, t_arr,
+                                 deadline, priority,
+                                 ddr_attribution=ddr_attribution)
+    b = carry0.qtable.shape[0]
+    dev = carry0.qtable.device
+    xf, xi = pack_inputs(xs)
+    consts = pack_serve_consts(s, learned, weights, sp, b, dev)
+    xv = pack_serve_rows(t_arr, deadline, priority)
+    carry, y = _kernel.soc_step_serve(
+        xf, xi, xv, consts, ServeCarry(*(v.contiguous() for v in carry0)),
+        n_tiles=xs.tiles.shape[-1], n_actions=xs.avail.shape[-1],
+        ddr_attribution=ddr_attribution, faulted=xs.f_exec is not None)
+    serve_launches += 1
+    return carry, y

@@ -279,3 +279,252 @@ def episode_ref(s: SoCStatic, learned, weights, qtable0, extrema0,
                            ddr_attribution=ddr_attribution, gated=gated)
         ys.append(y)
     return qtable, unpack_ys(torch.stack(ys, dim=1))
+
+
+# --------------------------------------------------------------------------
+# Serving: the same fused step driven by an arrival stream.  One step is one
+# OFFERED request in arrival order; the carry adds per-accelerator admission
+# rings of finish times, the shed-pressure EMA and the in-carry decay
+# counter (the overload watchdog may rewind it mid-stream).
+# --------------------------------------------------------------------------
+
+# Per-request serving trace columns, appended after YCOLS.  ``executed``
+# gates the other columns; ``retries`` is the admitted attempt index, or
+# SERVE_MAX_RETRIES + 1 when every attempt was shed; ``depth`` the victim
+# accelerator's queue depth at arrival.
+SERVE_YCOLS = YCOLS + ("executed", "latency", "retries", "depth",
+                       "degraded", "start", "finish")
+
+# Retry budget shared with the fault model of the reference.
+SERVE_MAX_RETRIES = 3
+_SHED_RETRIES = float(SERVE_MAX_RETRIES + 1)
+
+
+class ServeParams(NamedTuple):
+    """Serving scalars of each stream, ``(B,)`` float32 leaves.  The decay
+    schedule is evaluated against the carried counter, which the overload
+    watchdog can rewind, so its scalars ride here."""
+
+    eps0: torch.Tensor
+    alpha0: torch.Tensor
+    decay_steps: torch.Tensor
+    reopen_frac: torch.Tensor
+    frozen: torch.Tensor          # {0, 1}
+    backoff: torch.Tensor         # retry backoff cycles
+    overload_frac: torch.Tensor   # shed-EMA trip level (0 disables)
+    pressure_beta: torch.Tensor   # shed-EMA coefficient
+    prio_reserve: torch.Tensor    # queue fraction reserved by priority
+
+
+N_SERVE_CONSTS = N_CONSTS + len(ServeParams._fields)
+
+
+class ServeCarry(NamedTuple):
+    """The long-lived serving state of ``B`` streams.
+
+    ``fin`` is each accelerator's ring of admitted finish times
+    (``queue_cap`` slots; the queue depth at time t is the count of entries
+    > t), ``busy`` the finish time of its last admitted request, ``head``
+    the ring cursor.  ``pressure`` is the shed-rate EMA, ``tripped`` its
+    {0, 1} latch, ``step`` the decay counter."""
+
+    qtable: torch.Tensor    # (B, 243, A) float32
+    extrema: torch.Tensor   # (B, 4, n_accs) float32
+    tbl: torch.Tensor       # (B, n_accs, 6 + n_tiles) float32
+    busy: torch.Tensor      # (B, n_accs) float32
+    fin: torch.Tensor       # (B, n_accs, queue_cap) float32
+    head: torch.Tensor      # (B, n_accs) int32
+    pressure: torch.Tensor  # (B,) float32
+    tripped: torch.Tensor   # (B,) float32
+    step: torch.Tensor      # (B,) int32
+
+
+def init_serve_carry(qtable0, extrema0, n_accs: int, n_tiles: int,
+                     queue_cap: int, step0) -> ServeCarry:
+    """Fresh streams: idle devices, empty rings, no pressure.  Serving
+    slots are accelerators, so the slot table has ``n_accs`` rows."""
+    b = qtable0.shape[0]
+    dev = qtable0.device
+    f32 = torch.float32
+    return ServeCarry(
+        qtable=qtable0.to(f32).clone(), extrema=extrema0.to(f32).clone(),
+        tbl=init_slot_table(n_accs, n_tiles, b, dev),
+        busy=torch.zeros((b, n_accs), dtype=f32, device=dev),
+        fin=torch.zeros((b, n_accs, queue_cap), dtype=f32, device=dev),
+        head=torch.zeros((b, n_accs), dtype=torch.int32, device=dev),
+        pressure=torch.zeros((b,), dtype=f32, device=dev),
+        tripped=torch.zeros((b,), dtype=f32, device=dev),
+        step=torch.as_tensor(step0, device=dev).to(torch.int32)
+        .expand(b).clone())
+
+
+def _backoff_cycles(backoff, retries: int):
+    """Bounded exponential backoff (``2**r - 1`` is exact)."""
+    return backoff * float(2.0 ** retries - 1.0)
+
+
+def serve_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
+               weights, sp: ServeParams, carry: ServeCarry, x: StepInputs,
+               t_arr, deadline, priority, *,
+               ddr_attribution: bool = False):
+    """One offered request of ``B`` streams: admit or shed, then the gated
+    fused step.  Same semantics, order and association as
+    ``repro.kernels.soc_step.ref.serve_step``.
+
+    A request tries ``SERVE_MAX_RETRIES + 1`` candidates (arrival, then
+    backed-off retries); a candidate is admissible when the accelerator's
+    queue depth at that time is under its priority-weighted capacity and
+    the request would start by its deadline.  The first admissible
+    candidate is taken; a shed request leaves every carry untouched.
+    Sustained shedding raises ``pressure``; crossing ``overload_frac``
+    forces NON_COH and, on the rising edge, rewinds the decay counter to
+    the epsilon-reopen point.  ``x``'s thread/fresh/others/valid/eps/alpha
+    fields are placeholders the step owns.  Carry tensors are updated in
+    place (they are the caller's copies); returns ``(carry, y (B, 13))``.
+    """
+    f32 = torch.float32
+    b = carry.busy.shape[0]
+    dev = carry.busy.device
+    ar = torch.arange(b, device=dev)
+    n_accs = carry.busy.shape[1]
+    queue_cap = carry.fin.shape[-1]
+    acc = x.acc_id.long()
+    busy_a = carry.busy[ar, acc]
+    frow = carry.fin[ar, acc]
+    degraded = carry.tripped != 0.0
+    live = sp.frozen == 0.0
+
+    # ---- admission with bounded retry-with-backoff
+    qc = float(queue_cap)
+    cap_eff = qc - sp.prio_reserve * qc * (1.0 - priority)
+    oks, starts = [], []
+    for r in range(SERVE_MAX_RETRIES + 1):
+        t_r = t_arr + _backoff_cycles(sp.backoff, r)
+        depth_r = (frow > t_r[:, None]).to(f32).sum(-1)
+        start_r = torch.maximum(t_r, busy_a)
+        oks.append((depth_r < cap_eff) & (start_r <= deadline))
+        starts.append(start_r)
+    ok = torch.stack(oks, -1)
+    executed = ok.any(-1)
+    attempt = torch.where(executed, ok.to(torch.int64).argmax(-1), 0)
+    start = torch.stack(starts, -1)[ar, attempt]
+    retries = torch.where(executed, attempt.to(f32), _SHED_RETRIES)
+    depth0 = (frow > t_arr[:, None]).to(f32).sum(-1)
+
+    # ---- decay schedule from the carried counter
+    frac = torch.clamp(1.0 - carry.step.to(f32) / sp.decay_steps, 0.0, 1.0)
+    eps = torch.where(live, sp.eps0 * frac, 0.0)
+    alpha = torch.where(live, sp.alpha0 * frac, 0.0)
+
+    # ---- the gated fused step; overload forces NON_COH through pre_mode
+    others = ((carry.busy > start[:, None])
+              & (torch.arange(n_accs, device=dev)[None, :] != acc[:, None]))
+    si = x._replace(
+        thread=x.acc_id, fresh=torch.ones_like(executed), others=others,
+        valid=executed, eps=eps, alpha=alpha,
+        pre_mode=torch.where(degraded, int(CoherenceMode.NON_COH_DMA),
+                             x.pre_mode.to(torch.int32)).to(torch.int32))
+    rs, y = fused_step(s, geom, warm_cap, learned & ~degraded, weights,
+                       carry.qtable, rewards.RewardState(
+                           extrema=carry.extrema), carry.tbl, si,
+                       ddr_attribution=ddr_attribution, gated=True)
+
+    # ---- queue / ring bookkeeping
+    ex_f = executed.to(f32)
+    finish = start + y[:, 3]
+    head_a = carry.head[ar, acc]
+    slot_hot = ((torch.arange(queue_cap, device=dev)[None, :]
+                 == head_a[:, None].long()) & executed[:, None])
+    carry.fin[ar, acc] = torch.where(slot_hot, finish[:, None], frow)
+    nxt = head_a + 1
+    carry.head[ar, acc] = torch.where(
+        executed, torch.where(nxt >= queue_cap, 0, nxt), head_a).to(
+            torch.int32)
+    carry.busy[ar, acc] = torch.where(executed, finish, busy_a)
+
+    # ---- overload watchdog
+    pressure = ((1.0 - sp.pressure_beta) * carry.pressure
+                + sp.pressure_beta * (1.0 - ex_f))
+    over = (sp.overload_frac > 0.0) & (pressure > sp.overload_frac)
+    rising = over & (carry.tripped == 0.0)
+    reopened = torch.minimum(
+        carry.step,
+        (sp.decay_steps * (1.0 - sp.reopen_frac)).to(torch.int32))
+    step = torch.where(rising & live, reopened, carry.step)
+    step = step + (executed & live).to(torch.int32)
+    tripped = torch.where(
+        over, 1.0,
+        torch.where(pressure >= 0.5 * sp.overload_frac, carry.tripped, 0.0))
+
+    y_serve = torch.stack([
+        torch.where(executed, y[:, 0], -1.0),
+        torch.where(executed, y[:, 1], -1.0),
+        torch.where(executed, y[:, 2], -1.0),
+        y[:, 3] * ex_f, y[:, 4] * ex_f, y[:, 5] * ex_f,
+        ex_f,
+        (finish - t_arr) * ex_f,
+        retries,
+        depth0,
+        degraded.to(f32),
+        start * ex_f,
+        finish * ex_f], dim=-1)
+    new_carry = carry._replace(extrema=rs.extrema, pressure=pressure,
+                               tripped=tripped, step=step.to(torch.int32))
+    return new_carry, y_serve
+
+
+def serve_params_tensors(sp: ServeParams, batch: int,
+                         device=None) -> ServeParams:
+    """Each leaf as a ``(batch,)`` float32 tensor."""
+    def leaf(v):
+        t = torch.as_tensor(v, device=device).to(torch.float32)
+        return t.expand(batch).contiguous() if t.dim() == 0 else t
+    return ServeParams(*(leaf(v) for v in sp))
+
+
+def serve_episode_ref(s: SoCStatic, learned, weights, sp: ServeParams,
+                      carry0: ServeCarry, xs: StepInputs, t_arr, deadline,
+                      priority, *, ddr_attribution: bool = False):
+    """Loop :func:`serve_step` over ``B`` arrival-stream chunks.
+
+    ``xs`` leaves and ``t_arr``/``deadline``/``priority`` are ``(B, S,
+    ...)``; ``s``, ``learned``, the weights and ``sp`` leaves numbers or
+    ``(B,)`` tensors.  Returns ``(carry_final, ys (B, S, 13))`` (columns
+    :data:`SERVE_YCOLS`); the carry continues into the next chunk."""
+    if xs.f_exec is not None:
+        raise NotImplementedError(
+            "fault-injected serving is not ported yet (ROADMAP A9/B2)")
+    dev = carry0.qtable.device
+    b, n_steps = xs.acc_id.shape
+    f32 = torch.float32
+    st = static_tensors(s, b, dev)
+    learned_t = torch.as_tensor(learned, device=dev).to(torch.bool).expand(b)
+    w = rewards.RewardWeights(*(
+        torch.as_tensor(v, device=dev).to(f32).expand(b) for v in weights))
+    spt = serve_params_tensors(sp, b, dev)
+    geom, warm_cap = derive_geom(st)
+    carry = ServeCarry(*(v.clone() for v in carry0))
+    ys = []
+    for i in range(n_steps):
+        carry, y = serve_step(st, geom, warm_cap, learned_t, w, spt, carry,
+                              step_slice(xs, i), t_arr[:, i],
+                              deadline[:, i], priority[:, i],
+                              ddr_attribution=ddr_attribution)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+def pack_serve_consts(s: SoCStatic, learned, weights, sp: ServeParams,
+                      batch: int, device=None) -> torch.Tensor:
+    """The serve kernel's ``(B, 34)`` consts rows: :func:`pack_consts`
+    followed by the nine :class:`ServeParams` scalars."""
+    spt = serve_params_tensors(sp, batch, device)
+    return torch.cat([pack_consts(s, learned, weights, batch, device),
+                      torch.stack(list(spt), dim=-1)], dim=-1).contiguous()
+
+
+def pack_serve_rows(t_arr, deadline, priority) -> torch.Tensor:
+    """The serve kernel's ``(B, S, 3)`` float32 request rows ``[t_arr,
+    deadline, priority]``."""
+    return torch.stack([t_arr, deadline, priority], dim=-1).to(
+        torch.float32).contiguous()

@@ -18,6 +18,11 @@ Batching is explicit: a :class:`PolicySpec` or :class:`~repro_torch.core.
 qlearn.QState` whose leaves carry a leading axis ``N`` runs ``N``
 episodes in one kernel launch, where the JAX package ``vmap``s.
 
+:class:`ServeEnv` keeps the SoC always on: requests arrive from a
+:class:`~repro_torch.soc.traffic.TrafficSpec`, are admitted to bounded
+per-accelerator queues or shed, and run through the serving step
+(:func:`repro_torch.kernels.soc_step.ops.fused_serve_episode`).
+
 Concurrency model (the reference's one deliberate approximation): threads
 of a phase advance in lockstep *rounds*; thread ``t`` of round ``r`` senses
 threads ``< t`` of its own round and threads ``> t`` of round ``r-1``.
@@ -37,12 +42,14 @@ from repro_torch.core import qlearn, rewards
 from repro_torch.core.modes import CoherenceMode, N_MODES
 from repro_torch.core.policies import EXTRA_SMALL_THRESHOLD
 from repro_torch.kernels.soc_step import ops as soc_step_ops
+from repro_torch.kernels.soc_step import ref as soc_step_ref
 from repro_torch.kernels.soc_step.ref import StepInputs
 from repro_torch.ordered import seqsum
 from repro_torch.soc.accelerators import (AccProfile, profile_matrix,
                                           resolve_profiles)
 from repro_torch.soc.config import SoCConfig
 from repro_torch.soc.des import Application, stripe_tiles
+from repro_torch.soc import traffic as traffic_mod
 from repro_torch.soc.memsys import SoCStatic
 
 _NC = int(CoherenceMode.NON_COH_DMA)
@@ -166,17 +173,25 @@ class EpisodeResult(NamedTuple):
         return EpisodeResult(*(v[i] for v in self))
 
 
-def normalized_metrics(res: EpisodeResult, base: EpisodeResult):
+def normalized_metrics(res: EpisodeResult, base: EpisodeResult,
+                       phase_mask=None):
     """Per-phase geomean (time, offchip) of ``res`` normalized to a
     baseline episode — the paper's Fixed-NON_COH normalization.  ``res``
-    leaves may carry a batch axis; ``base`` broadcasts against it."""
+    leaves may carry a batch axis; ``base`` broadcasts against it.
+    ``phase_mask`` restricts the geomean to the real phases of a lane
+    padded to a common phase count."""
     lt = torch.log(torch.clamp(
         res.phase_time / torch.clamp(base.phase_time, min=1e-30),
         min=1e-12))
     lm = torch.log(torch.clamp(
         (res.phase_offchip + 1.0)
         / torch.clamp(base.phase_offchip + 1.0, min=1e-30), min=1e-12))
-    return torch.exp(lt.mean(-1)), torch.exp(lm.mean(-1))
+    if phase_mask is None:
+        return torch.exp(lt.mean(-1)), torch.exp(lm.mean(-1))
+    w = phase_mask.to(lt.dtype)
+    n = torch.clamp(w.sum(-1), min=1.0)
+    return (torch.exp((lt * w).sum(-1) / n),
+            torch.exp((lm * w).sum(-1) / n))
 
 
 def _manual_select(s: SoCStatic, footprint, active_modes, active_fp, avail):
@@ -341,6 +356,68 @@ def episode_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
     return xs, inc
 
 
+def phase_segments(sched: Schedule, n_phases: int,
+                   n_threads: int) -> torch.Tensor:
+    """The gather index of an episode's per-phase sums, built on the host
+    from the schedule before the launch: ``(P*T + P, L)`` int64 on the
+    schedule's device.  Row ``p*T + t`` lists the valid rows of thread
+    ``t`` in phase ``p``; row ``P*T + p`` lists those of phase ``p``,
+    offset by ``S`` (the off-chip half of :func:`phase_metrics`'s
+    ``[secs | offchip | 0]`` rows); each row keeps row order and is padded
+    with ``2S``, the zero column."""
+    T, P = n_threads, n_phases
+    phase = sched.phase_id.cpu().numpy().astype(np.int64)
+    real = np.nonzero(sched.valid.cpu().numpy())[0]
+    n_steps = phase.shape[0]
+    slot = np.concatenate([
+        phase[real] * T + sched.thread.cpu().numpy()[real],
+        P * T + phase[real]])
+    src = np.concatenate([real, n_steps + real])
+    order = np.argsort(slot, kind="stable")
+    slot, src = slot[order], src[order]
+    counts = np.bincount(slot, minlength=P * T + P)
+    first = np.cumsum(counts) - counts
+    idx = np.full((P * T + P, max(int(counts.max(initial=0)), 1)),
+                  2 * n_steps, np.int64)
+    idx[slot, np.arange(slot.shape[0]) - first[slot]] = src
+    return torch.from_numpy(idx).to(sched.valid.device)
+
+
+def phase_metrics(exec_c, off, segments, *, n_phases: int, n_threads: int,
+                  cycle_time: float):
+    """``(phase_time (N, P), phase_offchip (N, P))`` of ``N`` episodes'
+    ``(N, S)`` exec and off-chip traces; ``segments`` is a schedule's
+    :func:`phase_segments`, or ``(N, P*T + P, L)`` of them for episodes on
+    several schedules.
+
+    Per-phase wall clock is the max over threads of per-thread busy time.
+    Each sum runs left to right over its rows, as the reference's
+    scatter-add does (CUDA's ``index_add_`` adds with atomics in no fixed
+    order), on the device: one gather and ``L - 1`` adds, no round trip to
+    the host."""
+    T, P = n_threads, n_phases
+    n = exec_c.shape[0]
+    rows = torch.cat([exec_c * cycle_time, off,
+                      torch.zeros((n, 1), dtype=off.dtype,
+                                  device=off.device)], dim=1)
+    g, length = segments.shape[-2:]
+    idx = segments.expand(n, g, length).reshape(n, g * length)
+    sums = seqsum(rows.gather(1, idx).reshape(n, g, length), dim=-1)
+    return sums[:, :P * T].reshape(n, P, T).amax(-1), sums[:, P * T:]
+
+
+def episode_tail(qs0: qlearn.QState, qtable, ys, inc, phases):
+    """The post-kernel half of ``N`` episodes: the visits/step replay and
+    the result, with ``phases`` from :func:`phase_metrics`.  Returns
+    ``(QState (N), EpisodeResult (N, ...))``."""
+    mode, state_idx, action, exec_c, off, rew = ys
+    qs_final = qlearn.replay_visits(qs0, qtable, state_idx, action, inc)
+    res = EpisodeResult(phase_time=phases[0], phase_offchip=phases[1],
+                        mode=mode, state_idx=state_idx, exec_time=exec_c,
+                        offchip=off, reward=rew)
+    return qs_final, res
+
+
 def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
                  cfg: qlearn.QConfig, weights: rewards.RewardWeights, keys,
                  *, n_phases: int, n_threads: int, cycle_time: float,
@@ -355,26 +432,13 @@ def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
     xs, inc = episode_inputs(params, sched, specs, cfg, keys, gated=gated)
     extrema0 = rewards.init_reward_state(params.pmat.shape[0], (n,),
                                          dev).extrema
+    segments = phase_segments(sched, n_phases, n_threads)
     qtable, ys = soc_step_ops.fused_episode(
         params.static, specs.learned.expand(n), weights, qs0.qtable,
         extrema0, xs, ddr_attribution=ddr_attribution, gated=gated)
-    mode, state_idx, action, exec_c, off, rew = ys
-    qs_final = qlearn.replay_visits(qs0, qtable, state_idx, action, inc)
-
-    # Per-phase wall clock: max over threads of per-thread busy time.
-    T, P = n_threads, n_phases
-    secs = torch.where(sched.valid, exec_c, 0.0) * cycle_time
-    off_real = torch.where(sched.valid, off, 0.0)
-    slot = (sched.phase_id.long() * T + sched.thread.long())
-    per_thread = torch.zeros((n, P * T), dtype=secs.dtype, device=dev)
-    per_thread.index_add_(1, slot, secs)
-    phase_time = per_thread.reshape(n, P, T).amax(-1)
-    phase_off = torch.zeros((n, P), dtype=off.dtype, device=dev)
-    phase_off.index_add_(1, sched.phase_id.long(), off_real)
-    res = EpisodeResult(phase_time=phase_time, phase_offchip=phase_off,
-                        mode=mode, state_idx=state_idx, exec_time=exec_c,
-                        offchip=off, reward=rew)
-    return qs_final, res
+    phases = phase_metrics(ys[3], ys[4], segments, n_phases=n_phases,
+                           n_threads=n_threads, cycle_time=cycle_time)
+    return episode_tail(qs0, qtable, ys, inc, phases)
 
 
 class TrainCarry(NamedTuple):
@@ -530,3 +594,224 @@ class VecEnv:
                           cfg, rewards.PAPER_DEFAULT_WEIGHTS,
                           keys.to(self.device))
         return normalized_metrics(er, base)
+
+
+def not_ported(what: str, item: str):
+    """The error for a reference option the port does not have yet."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+# ===================================================================== serving
+class ServeResult(NamedTuple):
+    """Per-request traces of serving chunks (``(..., n_requests)`` leaves).
+
+    Shed requests carry ``executed=False``, ``-1`` mode/state/action and
+    zeroed timing columns; times are cycles; ``retries`` counts backed-off
+    admission attempts (``SERVE_MAX_RETRIES + 1`` marks a shed request)."""
+
+    t_arr: torch.Tensor      # float32 arrival time
+    tenant: torch.Tensor     # int32
+    mode: torch.Tensor       # int32 (-1 = shed)
+    state_idx: torch.Tensor  # int32 (-1 = shed)
+    action: torch.Tensor     # int32 (-1 = shed)
+    exec_time: torch.Tensor  # float32 cycles
+    offchip: torch.Tensor    # float32 line accesses
+    reward: torch.Tensor     # float32
+    executed: torch.Tensor   # bool: admitted and served
+    latency: torch.Tensor    # float32 finish - arrival (0 when shed)
+    retries: torch.Tensor    # float32 admission attempts used
+    depth: torch.Tensor      # float32 victim queue depth at arrival
+    degraded: torch.Tensor   # bool: served under forced NON_COH
+    start: torch.Tensor      # float32 admitted start time
+    finish: torch.Tensor     # float32 admitted finish time
+
+    @property
+    def t_end(self):
+        return self.t_arr[..., -1]
+
+    def index(self, i) -> "ServeResult":
+        return ServeResult(*(v[i] for v in self))
+
+
+def serve_params(cfg: qlearn.QConfig, frozen, tspec) -> \
+        soc_step_ref.ServeParams:
+    """The serving step's scalars for agents with ``frozen (N,)`` flags."""
+    f32 = torch.float32
+    dev = frozen.device
+    num = lambda v: torch.as_tensor(v, device=dev).to(f32)
+    return soc_step_ref.ServeParams(
+        eps0=num(float(np.float32(cfg.epsilon0))),
+        alpha0=num(float(np.float32(cfg.alpha0))),
+        decay_steps=num(float(np.float32(cfg.decay_steps))),
+        reopen_frac=num(float(np.float32(cfg.reopen_frac))),
+        frozen=frozen.to(f32), backoff=tspec.backoff,
+        overload_frac=tspec.overload_frac,
+        pressure_beta=tspec.pressure_beta, prio_reserve=tspec.prio_reserve)
+
+
+def serve_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
+                 arr: traffic_mod.Arrivals, keys) -> StepInputs:
+    """The serving step's ``(N, n_requests, ...)`` rows for ``N`` lowered
+    policies facing one arrival table.  thread/fresh/others/valid/eps/alpha
+    are placeholders the step owns (serving slots are accelerators and the
+    decay schedule runs on the carried counter)."""
+    n = specs.learned.shape[0]
+    n_req = arr.row.shape[0]
+    pmat, masks = params.pmat, params.masks
+    dev = pmat.device
+    row = arr.row.long()
+    acc = sched.acc_id[row]
+    noise = qlearn.sample_select_noise(keys, (n_req,), masks.shape[-1])
+    ex = lambda v: v.expand(n, *v.shape)
+    zf = torch.zeros((n, n_req), dtype=torch.float32, device=dev)
+    return StepInputs(
+        acc_id=ex(acc), footprint=ex(sched.footprint[row]),
+        tiles=ex(sched.tiles[row]),
+        thread=torch.zeros((n, n_req), dtype=torch.int32, device=dev),
+        fresh=torch.ones((n, n_req), dtype=torch.bool, device=dev),
+        others=torch.zeros((n, n_req, pmat.shape[0]), dtype=torch.bool,
+                           device=dev),
+        valid=torch.ones((n, n_req), dtype=torch.bool, device=dev),
+        pre_mode=specs.modes[:, row], profile=ex(pmat[acc]),
+        avail=ex(masks[acc]), eps=zf, alpha=zf,
+        u_explore=noise.u_explore, g_pick=noise.g_pick, g_tie=noise.g_tie)
+
+
+def serve_results(qs0: qlearn.QState, carry, ys, arr: traffic_mod.Arrivals):
+    """``(QState (N), ServeResult (N, n))`` from a serving call's outputs:
+    the trained table and watchdog-rewound counter from the carry, visits
+    replayed over the executed rows."""
+    cols = {name: ys[..., i]
+            for i, name in enumerate(soc_step_ref.SERVE_YCOLS)}
+    executed = cols["executed"] > 0.0
+    inc = (executed & ~qs0.frozen[:, None]).to(torch.int32)
+    sidx = torch.clamp(cols["state_idx"].to(torch.int32), min=0)
+    act = torch.clamp(cols["action"].to(torch.int32), min=0)
+    qs = qlearn.replay_visits(qs0, carry.qtable, sidx, act, inc)._replace(
+        step=carry.step)
+    n = ys.shape[0]
+    i32 = torch.int32
+    res = ServeResult(
+        t_arr=arr.t_arr.expand(n, -1), tenant=arr.tenant.expand(n, -1),
+        mode=cols["mode"].to(i32), state_idx=cols["state_idx"].to(i32),
+        action=cols["action"].to(i32), exec_time=cols["exec_time"],
+        offchip=cols["offchip"], reward=cols["reward"], executed=executed,
+        latency=cols["latency"], retries=cols["retries"],
+        depth=cols["depth"], degraded=cols["degraded"] > 0.0,
+        start=cols["start"], finish=cols["finish"])
+    return qs, res
+
+
+def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
+              cfg: qlearn.QConfig, weights, tspec, carry, keys, t0, *,
+              n_requests: int, queue_cap: int, n_real: int | None = None,
+              ddr_attribution: bool = False):
+    """``N`` serving chunks of a batched spec against one offered stream,
+    ONE kernel launch.  Arrivals sample rows over the first ``n_real``
+    schedule rows (default all; a padded stacked lane passes its real
+    length).  ``carry=None`` starts fresh streams.  Returns ``(ServeCarry
+    (N), QState (N), ServeResult (N, n_requests))``."""
+    specs = _batched(specs)
+    qs0 = specs.qstate
+    n = qs0.qtable.shape[0]
+    n_accs = params.pmat.shape[0]
+    arr = traffic_mod.sample_arrivals(
+        tspec, n_requests, sched.acc_id.shape[0] if n_real is None
+        else int(n_real), t0)
+    xs = serve_inputs(params, sched, specs, arr, keys)
+    if carry is None:
+        carry = soc_step_ref.init_serve_carry(
+            qs0.qtable, rewards.init_reward_state(
+                n_accs, (n,), qs0.qtable.device).extrema,
+            n_accs, sched.tiles.shape[-1], queue_cap, qs0.step)
+    carry, ys = soc_step_ops.fused_serve_episode(
+        params.static, specs.learned.expand(n), weights,
+        serve_params(cfg, qs0.frozen, tspec), carry, xs,
+        arr.t_arr.expand(n, -1), arr.deadline.expand(n, -1),
+        arr.priority.expand(n, -1), ddr_attribution=ddr_attribution)
+    qs, res = serve_results(qs0, carry, ys, arr)
+    return carry, qs, res
+
+
+class ServeEnv:
+    """Long-lived continuous-traffic serving over a :class:`VecEnv`.
+
+    Requests arrive from a :class:`~repro_torch.soc.traffic.TrafficSpec`,
+    are admitted to bounded per-accelerator queues (``queue_cap`` ring
+    slots), shed when their deadline cannot be met after bounded
+    retry-with-backoff, and, under sustained shedding, served in forced
+    NON_COH while the watchdog reopens exploration.  ``traffic=None``
+    delegates to :meth:`VecEnv.episode_spec`, the episodic path.  Chunks
+    chain: pass the returned carry and the last arrival time back in.
+    Fault injection (ROADMAP A9), MLP agents (A11) and checkpointed
+    serving (A10) are not ported."""
+
+    def __init__(self, env: VecEnv, *, queue_cap: int = 8,
+                 n_requests: int = 1024):
+        if queue_cap < 1:
+            raise ValueError("queue_cap must be >= 1")
+        self.env = env
+        self.queue_cap = int(queue_cap)
+        self.n_requests = int(n_requests)
+
+    def init_carry(self, qstate: qlearn.QState, mlp=None):
+        """Fresh streams (idle devices, the agents' Q-tables)."""
+        if mlp is not None:
+            raise not_ported("MLP-agent serving", "A11")
+        n_accs = self.env.pmat.shape[0]
+        n = qstate.qtable.shape[0]
+        return soc_step_ref.init_serve_carry(
+            qstate.qtable, rewards.init_reward_state(
+                n_accs, (n,), self.env.device).extrema,
+            n_accs, self.env.soc.n_mem_tiles, self.queue_cap, qstate.step)
+
+    def _call(self, compiled, specs, traffic, cfg, weights, keys, carry,
+              t0, n_requests, faults):
+        if faults is not None:
+            raise not_ported("fault-injected serving", "A9")
+        cfg = cfg or qlearn.QConfig()
+        weights = weights or rewards.PAPER_DEFAULT_WEIGHTS
+        return run_serve(
+            self.env.params, self.env._sched(compiled), specs, cfg, weights,
+            traffic.to(self.env.device), carry, keys, t0,
+            n_requests=int(n_requests or self.n_requests),
+            queue_cap=self.queue_cap,
+            ddr_attribution=self.env.ddr_attribution)
+
+    def serve(self, compiled: CompiledApp, spec: PolicySpec,
+              traffic: traffic_mod.TrafficSpec | None = None, *,
+              cfg: qlearn.QConfig | None = None,
+              weights: rewards.RewardWeights | None = None,
+              key=None, carry=None, t0=0.0,
+              n_requests: int | None = None, faults=None):
+        """Serve one chunk of offered traffic with a lowered policy:
+        ``(ServeCarry (batch of one), QState (batch of one), ServeResult
+        (unbatched))``.  With ``traffic=None`` this is
+        :meth:`VecEnv.episode_spec`, returning its ``(QState,
+        EpisodeResult)``."""
+        if traffic is None:
+            if faults is not None:
+                raise not_ported("fault-injected episodes", "A9")
+            return self.env.episode_spec(compiled, spec, cfg=cfg,
+                                         weights=weights, key=key)
+        key = (key if key is not None else prng.PRNGKey(0)).to(
+            self.env.device)
+        carry, qs, res = self._call(compiled, spec, traffic, cfg, weights,
+                                    key.reshape(1, 2), carry, t0,
+                                    n_requests, faults)
+        return carry, qs, res.index(0)
+
+    def serve_specs(self, compiled: CompiledApp, specs: PolicySpec,
+                    traffic: traffic_mod.TrafficSpec, *,
+                    cfg: qlearn.QConfig | None = None,
+                    weights: rewards.RewardWeights | None = None,
+                    keys=None, n_requests: int | None = None, faults=None):
+        """A batch of ``N`` lowered policies against one offered stream in
+        one kernel launch (keys default to ``PRNGKey(arange(N))``);
+        returns ``(ServeCarry, QState, ServeResult)`` with ``(N, ...)``
+        leaves."""
+        n = specs.learned.shape[0]
+        keys = (keys if keys is not None
+                else prng.PRNGKey(np.arange(n))).to(self.env.device)
+        return self._call(compiled, specs, traffic, cfg, weights, keys,
+                          None, 0.0, n_requests, faults)

@@ -1,4 +1,5 @@
-"""The CUDA soc_step kernel against its plain PyTorch version, on the card.
+"""The CUDA soc_step kernels (episode and serve) against their plain
+PyTorch versions, on the card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -15,9 +16,9 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
 from repro_torch.kernels.soc_step import ops, ref
-from repro_torch.soc import vecenv
-from repro_torch.soc.apps import make_phase
-from repro_torch.soc.config import SOC_MOTIV_PAR
+from repro_torch.soc import traffic, vecenv
+from repro_torch.soc.apps import make_application, make_phase
+from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
 from repro_torch.soc.des import Application
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -110,3 +111,77 @@ def test_cuda_wrapper_checks_inputs():
     bad[0, 0, 0] = 12
     with pytest.raises(ValueError, match="column 0"):
         kernel.soc_step_episode(xf, bad, consts, q0, ex0, **kw)
+
+
+def _serve_case(rate, device):
+    """Three streams (a learning agent, fixed NON_COH, manual) on SoC1
+    facing one two-tenant bursty stream; ``rate`` 4e-3 overloads it and
+    trips the watchdog."""
+    soc = SOCS["SoC1"]
+    env = vecenv.VecEnv(soc, seed=1, device=device)
+    app = vecenv.compile_app(make_application(soc, seed=50, n_phases=2),
+                             soc, seed=4)
+    sched = app.schedule.to(device)
+    specs = vecenv.stack_specs([
+        vecenv.learned_policy_spec(qlearn.init_qstate(device=device), sched),
+        vecenv.fixed_policy_spec(env.params, sched, 0),
+        vecenv.manual_policy_spec(env.params, sched)])
+    tspec = traffic.bursty(rate, mix=(0.7, 0.3), deadline=(6000.0, 0.0),
+                           priority=(1.0, 0.25), backoff=400.0,
+                           overload_frac=0.35, prio_reserve=0.25, seed=3,
+                           device=device)
+    cfg = qlearn.QConfig(decay_steps=200)
+    arr = traffic.sample_arrivals(tspec, 160, sched.acc_id.shape[0])
+    keys = prng.PRNGKey(np.arange(3), device=device)
+    xs = vecenv.serve_inputs(env.params, sched, specs, arr, keys)
+    qs0 = specs.qstate
+    carry0 = ref.init_serve_carry(
+        qs0.qtable, rewards.init_reward_state(soc.n_accs, (3,),
+                                              device).extrema,
+        soc.n_accs, soc.n_mem_tiles, 4, qs0.step)
+    sp = vecenv.serve_params(cfg, qs0.frozen, tspec)
+    rows = [v.expand(3, -1) for v in (arr.t_arr, arr.deadline,
+                                      arr.priority)]
+    return env.static, specs.learned, sp, carry0, xs, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [2e-7, 4e-3])
+def test_cuda_serve_kernel_matches_ref(rate):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    s, learned, sp, carry0, xs, rows = _serve_case(rate, "cuda")
+    w = rewards.PAPER_DEFAULT_WEIGHTS
+    ops.reset_launches()
+    h = 80
+    c1, y1 = ops.fused_serve_episode(
+        s, learned, w, sp, carry0, ref.StepInputs(*(v[:, :h]
+                                                    for v in xs[:15])),
+        *(r[:, :h] for r in rows))
+    kc, ky2 = ops.fused_serve_episode(
+        s, learned, w, sp, c1, ref.StepInputs(*(v[:, h:] for v in xs[:15])),
+        *(r[:, h:] for r in rows))
+    torch.cuda.synchronize()
+    assert ops.serve_launches == 2
+    ky = torch.cat([y1, ky2], 1).cpu().numpy()
+    cpu = lambda t: t.cpu()
+    rc, ry = ref.serve_episode_ref(
+        s, cpu(learned), w, ref.ServeParams(*map(cpu, sp)),
+        ref.ServeCarry(*map(cpu, carry0)),
+        ref.StepInputs(*(cpu(v) for v in xs[:15])), *map(cpu, rows))
+    ry = ry.numpy()
+    for c, name in enumerate(ref.SERVE_YCOLS):
+        if name in ("mode", "state_idx", "action", "executed", "retries",
+                    "depth", "degraded"):
+            np.testing.assert_array_equal(ky[..., c], ry[..., c],
+                                          err_msg=name)
+        else:
+            np.testing.assert_allclose(ky[..., c], ry[..., c], err_msg=name,
+                                       **TOL)
+    for name in ref.ServeCarry._fields:
+        np.testing.assert_allclose(getattr(kc, name).cpu().numpy(),
+                                   getattr(rc, name).numpy(), err_msg=name,
+                                   **TOL)
+    if rate > 1e-3:
+        assert ry[..., 10].max() == 1.0   # the watchdog tripped
