@@ -1,11 +1,12 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
-        [--path fig6|fig9|fig11]
+        [--path fig6|fig9|fig10|fig11]
 
 Runs one of the full-width paths ``chip_smoke.py`` drives (default the
 Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
-``fig11`` ``benchmarks/torch_fig11_serving.py``'s) once to warm up, then
+``fig10`` ``benchmarks/torch_fig10_faults.py``'s, ``fig11``
+``benchmarks/torch_fig11_serving.py``'s) once to warm up, then
 (1) times its wall and its host-side pieces one by one with the device
 synchronized around each, and (2) runs it again under ``torch.profiler``
 and prints the device's busy share of the wall time and the device time
@@ -147,10 +148,48 @@ def fig11_pieces(dev):
     }
 
 
+def fig10_pieces(dev):
+    from benchmarks.torch_fig10_faults import ITERS, N_PHASES
+    from repro_torch.soc import faults
+    from repro_torch.soc.config import SOCS
+    soc = SOCS["SoC1"]
+    env = vec.VecEnv(soc, seed=1, device=dev)
+    train = [vec.compile_app(apps.make_application(soc, seed=0,
+                                                   n_phases=N_PHASES),
+                             soc, seed=it) for it in range(ITERS)]
+    app = vec.compile_app(apps.make_application(soc, seed=50,
+                                                n_phases=N_PHASES),
+                          soc, seed=4)
+    sched = env._sched(app)
+    fs = faults.storm(app.n_steps, 1.0, prng.PRNGKey(42))
+    cfg = qlearn.QConfig(decay_steps=train[0].n_steps * ITERS,
+                         collapse_frac=0.25)
+    wb = rewards.stack_weights([rewards.PAPER_DEFAULT_WEIGHTS])
+    keys = prng.PRNGKey(np.arange(1))
+    spec = vec.learned_policy_spec(qlearn.init_qstate(device=dev), sched)
+    specs = vec.stack_specs(
+        [vec.fixed_policy_spec(env.params, sched, m) for m in range(4)]
+        + [vec.manual_policy_spec(env.params, sched), spec])
+    return {
+        "training under the severe storm (10 iterations, 21 K1f "
+        "launches)": lambda: env.train_batched(train, cfg, wb, keys,
+                                               eval_app=app, faults=fs),
+        "six-policy evaluation under the severe storm (one K1f launch)":
+            lambda: env.episodes(app, specs, cfg, faults=fs),
+        "fault rows of the eval app (sample_fault_arrays)": lambda:
+            faults.sample_fault_arrays(fs, sched.acc_id),
+        "faulted episode inputs, B=1 (noise, decay, pregather, rows)":
+            lambda: vec.episode_inputs(env.params, sched, spec, cfg,
+                                       keys.to(dev), faults=fs),
+        "manual policy mode table (eval app)": lambda:
+            vec.manual_policy_spec(env.params, sched),
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="fig6",
-                    choices=("fig6", "fig9", "fig11"))
+                    choices=("fig6", "fig9", "fig10", "fig11"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -167,6 +206,10 @@ def main():
         from benchmarks.torch_fig9_socs import run_port
         run = lambda: run_port(dev)
         pieces = fig9_pieces(dev)
+    elif args.path == "fig10":
+        from benchmarks.torch_fig10_faults import run_port
+        run = lambda: run_port(dev)
+        pieces = fig10_pieces(dev)
     else:
         from benchmarks.torch_fig11_serving import run_port
         run = lambda: run_port(dev)

@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (``soc_step_episode`` and
-``soc_step_serve``, one source) from this checkout and holds each against
-its plain PyTorch version at the shapes its paths give it; checks the card
-against the CPU plain path on small inputs (batched training, serving,
-stacked episodes on 2 lanes); then drives three paths at full width, each
-with the launch counts set to 0 just before it and read just after:
+``soc_step_serve``, each in a healthy and a faulted instantiation, one
+source) from this checkout and holds each against its plain PyTorch
+version at the shapes its paths give it; checks the card against the CPU
+plain path on small inputs (batched training, serving, stacked episodes on
+2 lanes, each also under a fault storm, and a killed and resumed
+checkpointed training and serving run); then drives five paths at full
+width, each with the launch counts set to 0 just before it and read just
+after:
 
   * Fig. 6, the reward sweep on SOC_MOTIV_PAR: 15 weightings x 8 seeds =
     120 agents trained for 10 iterations of a 540-step app, one launch per
@@ -17,7 +20,12 @@ with the launch counts set to 0 just before it and read just after:
     family on every lane in one launch;
   * Fig. 11, always-on serving on SoC1 (``benchmarks/
     torch_fig11_serving.py``): training, capacity calibration, four
-    policies serving 1,024 requests at five offered loads.
+    policies serving 1,024 requests at five offered loads;
+  * Fig. 10, robustness under injected faults on SoC1 (``benchmarks/
+    torch_fig10_faults.py``): an agent trained and six policies evaluated
+    inside a fault storm at four intensities (healthy, 0.25, 0.5, 1.0);
+  * storm serving: four policies serving 1,024 requests at Fig. 11's
+    capacity under ``storm(1024, 0.7, PRNGKey(42))``.
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -52,6 +61,10 @@ N_SEEDS, ITERS, N_PHASES, SEED = 8, 10, 6, 11
 TEST_SEED, TEST_TILE_SEED = 900, 5
 SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
                   "depth", "degraded")
+# per path: launches of (K1 episode, K2 serve, K1f faulted episode, K2f
+# faulted serve)
+KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
+           "soc_step_serve_faulted")
 
 
 def fail(msg: str, code: int = 1):
@@ -99,6 +112,28 @@ def compare_cols(torch, what, cols, got, want, int_cols):
     return err
 
 
+class _Crash(Exception):
+    """A simulated crash of a checkpointed run."""
+
+
+class _Killer:
+    """A checkpoint manager that dies before its ``die_after + 1``-th
+    save, as a killed host would."""
+
+    def __init__(self, inner, die_after: int):
+        self._inner, self._left = inner, die_after
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def save(self, step, tree):
+        if self._left <= 0:
+            raise _Crash(f"simulated crash before checkpoint {step}")
+        self._left -= 1
+        self._inner.save(step, tree)
+        self._inner.wait()
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     try:
@@ -112,8 +147,10 @@ def main() -> None:
     try:
         import numpy as np
         from benchmarks import torch_fig9_socs as fig9
+        from benchmarks import torch_fig10_faults as fig10
         from benchmarks import torch_fig11_serving as fig11
         from repro_torch import random as prng
+        from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.core import orchestrator as orch
         from repro_torch.core import policies as pol
         from repro_torch.core import qlearn, rewards
@@ -121,7 +158,7 @@ def main() -> None:
         from repro_torch.kernels.soc_step import kernel as soc_kernel
         from repro_torch.kernels.soc_step import ops as soc_ops
         from repro_torch.kernels.soc_step import ref as soc_ref
-        from repro_torch.soc import apps, traffic, vecenv as vec
+        from repro_torch.soc import apps, faults, traffic, vecenv as vec
         from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
         from repro_torch.soc.stacked import StackedVecEnv
     except ImportError as e:
@@ -163,43 +200,85 @@ def main() -> None:
         qstate=qlearn.QState(*(v.expand(b, *v.shape[1:]).contiguous()
                                for v in manual.qstate)))
     n_tiles, n_thr = soc.n_mem_tiles, compiled.n_threads
+
+    def episode_vs_plain(what, e, spec, w, xs, ddr=False, gated=False):
+        """The episode kernel (its faulted instantiation when ``xs`` has
+        fault columns) against ``ref.episode_ref`` on the same inputs;
+        returns ``(max abs err, plain ms, packed kernel arguments)``."""
+        n = spec.learned.shape[0]
+        extrema0 = rewards.init_reward_state(e.soc.n_accs, (n,),
+                                             dev).extrema
+        xf, xi = soc_ref.pack_inputs(xs)
+        consts = soc_ref.pack_consts(e.static, spec.learned, w, n, dev)
+        q0 = spec.qstate.qtable.contiguous()
+        kw = dict(n_threads=xs.others.shape[-1], n_tiles=xs.tiles.shape[-1],
+                  n_actions=4, ddr_attribution=ddr, gated=gated,
+                  faulted=xs.faulted)
+        kq, ky = soc_kernel.soc_step_episode(xf, xi, consts, q0, extrema0,
+                                             **kw)
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        rq, rys = soc_ref.episode_ref(e.static, spec.learned, w, q0,
+                                      extrema0, xs, ddr_attribution=ddr,
+                                      gated=gated)
+        ev1.record()
+        torch.cuda.synchronize()
+        err = compare_cols(torch, what, soc_ref.YCOLS, ky, torch.stack(
+            [c.to(torch.float32) for c in rys], -1),
+            ("mode", "state_idx", "action"))
+        if not torch.allclose(kq, rq, rtol=TOL, atol=TOL):
+            fail(f"{what}: Q-table max abs err "
+                 f"{(kq - rq).abs().max().item()}")
+        err = max(err, (kq - rq).abs().max().item())
+        print(f"{what} B={n} S={xs.acc_id.shape[1]}: integer traces equal, "
+              f"max abs err {err:.3e} (bound {TOL})")
+        return err, ev0.elapsed_time(ev1), ((xf, xi, consts, q0, extrema0),
+                                            kw)
+
     ep_err = 0.0
-    ep_plain_ms = None
-    packed_main = None
     for ddr, gated, learned in [(False, False, True), (True, True, True),
                                 (False, False, False)]:
         spec = learned_spec if learned else manual_spec
         xs, _ = vec.episode_inputs(env.params, sched, spec, cfg, keys,
                                    gated=gated)
-        extrema0 = rewards.init_reward_state(soc.n_accs, (b,), dev).extrema
-        xf, xi = soc_ref.pack_inputs(xs)
-        consts = soc_ref.pack_consts(env.static, spec.learned, wb, b, dev)
-        q0 = spec.qstate.qtable.contiguous()
-        kq, ky = soc_kernel.soc_step_episode(
-            xf, xi, consts, q0, extrema0, n_threads=n_thr, n_tiles=n_tiles,
-            n_actions=4, ddr_attribution=ddr, gated=gated)
-        torch.cuda.synchronize()
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        ev0.record()
-        rq, rys = soc_ref.episode_ref(env.static, spec.learned, wb, q0,
-                                      extrema0, xs, ddr_attribution=ddr,
-                                      gated=gated)
-        ev1.record()
-        torch.cuda.synchronize()
+        err, ms, packed = episode_vs_plain(
+            f"soc_step_episode vs plain ({ddr=}, {gated=}, {learned=})",
+            env, spec, wb, xs, ddr, gated)
+        ep_err = max(ep_err, err)
         if not (ddr or gated) and learned:
-            ep_plain_ms = ev0.elapsed_time(ev1)
-            packed_main = (xf, xi, consts, q0, extrema0)
-        what = f"soc_step_episode vs plain ({ddr=}, {gated=}, {learned=})"
-        ep_err = max(ep_err, compare_cols(
-            torch, what, soc_ref.YCOLS, ky, torch.stack(
-                [c.to(torch.float32) for c in rys], -1),
-            ("mode", "state_idx", "action")))
-        if not torch.allclose(kq, rq, rtol=TOL, atol=TOL):
-            fail(f"{what}: Q-table max abs err "
-                 f"{(kq - rq).abs().max().item()}")
-        ep_err = max(ep_err, (kq - rq).abs().max().item())
-        print(f"{what} B={b} S={s_len}: integer traces equal, max abs err "
-              f"{ep_err:.3e} (bound {TOL})")
+            ep_plain_ms, packed_main = ms, packed
+
+    # ---- 2b. the faulted episode kernel (K1f) vs plain: Fig. 6's shape
+    # under the severe storm, and Fig. 10's evaluation (6 policies) -------
+    storm6 = faults.storm(s_len, 1.0, prng.PRNGKey(42), device=dev)
+    xs, _ = vec.episode_inputs(env.params, sched, learned_spec, cfg, keys,
+                               faults=storm6)
+    epf_err, epf_plain_ms, packed_f = episode_vs_plain(
+        "soc_step_episode_faulted vs plain (storm 1.0)", env, learned_spec,
+        wb, xs)
+    if torch.equal(xs.f_exec, torch.ones_like(xs.f_exec)):
+        fail("the severe storm left every step healthy")
+    s1 = SOCS["SoC1"]
+    env1 = vec.VecEnv(s1, seed=1, device=dev)
+    app1 = vec.compile_app(apps.make_application(s1, seed=50, n_phases=8),
+                           s1, seed=4)
+    sched1 = env1._sched(app1)
+    specs10 = vec.stack_specs(
+        [vec.fixed_policy_spec(env1.params, sched1, int(m))
+         for m in CoherenceMode]
+        + [vec.manual_policy_spec(env1.params, sched1),
+           vec.learned_policy_spec(qlearn.frozen_qstate(device=dev),
+                                   sched1)])
+    xs, _ = vec.episode_inputs(
+        env1.params, sched1, specs10, qlearn.QConfig(),
+        prng.PRNGKey(np.arange(6), device=dev),
+        faults=faults.storm(app1.n_steps, 1.0, prng.PRNGKey(42),
+                            device=dev))
+    err, _, _ = episode_vs_plain(
+        "soc_step_episode_faulted vs plain (Fig. 10 evaluation, storm 1.0)",
+        env1, specs10, rewards.PAPER_DEFAULT_WEIGHTS, xs)
+    epf_err = max(epf_err, err)
 
     # ---- 3. the card equals the CPU plain path on small inputs ------------
     small = dict(iterations=2, seed=SEED, weights=WEIGHTS[:2], n_seeds=2,
@@ -216,8 +295,7 @@ def main() -> None:
     print("small training (2 phases, 2 iterations, 4 agents): card == CPU "
           "plain path (visits/steps equal, Q-tables within bound)")
 
-    def small_serve(device):
-        s1 = SOCS["SoC1"]
+    def small_serve(device, storm):
         e = vec.VecEnv(s1, seed=1, device=device)
         app = vec.compile_app(apps.make_application(s1, seed=50,
                                                     n_phases=2), s1, seed=4)
@@ -229,44 +307,141 @@ def main() -> None:
         tspec = traffic.bursty(4e-3, mix=(0.7, 0.3), deadline=(6000.0, 0.0),
                                priority=(1.0, 0.25), backoff=400.0,
                                overload_frac=0.35, prio_reserve=0.25, seed=3)
+        fs = (faults.storm(128, 0.7, prng.PRNGKey(42), device=device)
+              if storm else None)
         return vec.ServeEnv(e, queue_cap=4, n_requests=128).serve_specs(
-            app, specs, tspec, cfg=qlearn.QConfig(decay_steps=200))
+            app, specs, tspec, cfg=qlearn.QConfig(decay_steps=200),
+            faults=fs)
 
-    (gc, gq, gr), (cc, cq, cr) = small_serve(dev), small_serve("cpu")
-    for f in vec.ServeResult._fields:
-        a, r = getattr(gr, f).cpu(), getattr(cr, f)
-        ok = (torch.equal(a, r) if not a.is_floating_point()
-              or f in ("retries", "depth")
-              else torch.allclose(a, r, rtol=TOL, atol=TOL))
-        if not ok:
-            fail(f"small serving: card and CPU {f} differ")
-    if not (torch.equal(gq.visits.cpu(), cq.visits)
-            and torch.equal(gq.step.cpu(), cq.step)):
-        fail("small serving: card and CPU visits/steps differ")
-    print("small serving (SoC1, 3 policies, 128 requests, overloaded): "
-          "card == CPU plain path")
+    def same_tree(what, got, want, exact_float=()):
+        """Integer leaves equal, floats within TOL (or equal when named
+        in ``exact_float``)."""
+        for f in want._fields:
+            a, r = getattr(got, f).cpu(), getattr(want, f).cpu()
+            ok = (torch.equal(a, r) if not a.is_floating_point()
+                  or f in exact_float
+                  else torch.allclose(a, r, rtol=TOL, atol=TOL))
+            if not ok:
+                fail(f"{what}: {f} differs")
 
-    def small_stacked(device):
+    for storm in (False, True):
+        (gc, gq, gr), (cc, cq, cr) = (small_serve(dev, storm),
+                                      small_serve("cpu", storm))
+        tag = " under storm 0.7" if storm else ""
+        same_tree(f"small serving{tag}: card vs CPU", gr, cr,
+                  ("retries", "depth"))
+        same_tree(f"small serving{tag}: card vs CPU", gq, cq)
+        print(f"small serving (SoC1, 3 policies, 128 requests, "
+              f"overloaded){tag}: card == CPU plain path")
+
+    def small_stacked(device, storm):
         socs = [SOCS["SoC1"], SOCS["SoC2"]]
         st_env = StackedVecEnv(socs, seed=1, device=device)
         st = st_env.compile([apps.make_application(s, seed=7, n_phases=2)
                              for s in socs], seed=3)
         suite = ([pol.FixedHomogeneous(m) for m in CoherenceMode]
                  + [pol.RandomPolicy(), pol.ManualPolicy()])
-        return st_env.episodes(st, st_env.lower(st, suite))
+        fs = (faults.storm(st.schedule.acc_id.shape[-1], 0.7,
+                           prng.PRNGKey(42), device=device)
+              if storm else None)
+        return st_env.episodes(st, st_env.lower(st, suite), faults=fs)
 
-    g_ep, c_ep = small_stacked(dev), small_stacked("cpu")
-    for f in vec.EpisodeResult._fields:
-        a, r = getattr(g_ep, f).cpu(), getattr(c_ep, f)
-        ok = (torch.equal(a, r) if not a.is_floating_point()
-              else torch.allclose(a, r, rtol=TOL, atol=TOL))
-        if not ok:
-            fail(f"small stacked episodes: card and CPU {f} differ")
-    print("small stacked episodes (SoC1 + SoC2 lanes, 6 policies): card == "
-          "CPU plain path")
+    for storm in (False, True):
+        tag = " under storm 0.7" if storm else ""
+        same_tree(f"small stacked episodes{tag}: card vs CPU",
+                  small_stacked(dev, storm), small_stacked("cpu", storm))
+        print(f"small stacked episodes (SoC1 + SoC2 lanes, 6 policies)"
+              f"{tag}: card == CPU plain path")
+
+    def small_storm_setup(device):
+        e = vec.VecEnv(s1, seed=1, device=device)
+        app = apps.make_application(s1, seed=0, n_phases=2)
+        train = [vec.compile_app(app, s1, seed=it) for it in range(2)]
+        ev = vec.compile_app(apps.make_application(s1, seed=50, n_phases=2),
+                             s1, seed=4)
+        cfg_s = qlearn.QConfig(decay_steps=2 * train[0].n_steps,
+                               collapse_frac=0.25)
+        fs = faults.storm(ev.n_steps, 1.0, prng.PRNGKey(42), device=device)
+        args = (train, cfg_s, rewards.stack_weights(WEIGHTS[:2]),
+                prng.PRNGKey(np.arange(2)))
+        return e, args, ev, fs
+
+    def small_storm_train(device):
+        e, args, ev, fs = small_storm_setup(device)
+        return e.train_batched(*args, eval_app=ev, faults=fs)
+
+    (g_qs, g_h), (c_qs, c_h) = (small_storm_train(dev),
+                                small_storm_train("cpu"))
+    same_tree("small storm training: card vs CPU", g_qs, c_qs)
+    if not all(torch.allclose(a.cpu(), r, rtol=TOL, atol=TOL)
+               for a, r in zip(g_h, c_h)):
+        fail("small storm training: card and CPU histories differ")
+    print("small storm training (SoC1, 2 agents, 2 iterations, storm 1.0): "
+          "card == CPU plain path")
+
+    # kill-and-resume of the checkpointed training and serving on the card
+    ck_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    e, args, ev, fs = small_storm_setup(dev)
+    try:
+        e.train_batched_checkpointed(
+            *args, _Killer(CheckpointManager(str(ck_root / "train")), 1),
+            eval_app=ev, faults=fs)
+        fail("the killed checkpointed training did not stop")
+    except _Crash:
+        pass
+    mgr = CheckpointManager(str(ck_root / "train"))
+    if mgr.latest_step() != 1:
+        fail(f"killed training left checkpoint {mgr.latest_step()}, not 1")
+    r_qs, r_h = e.train_batched_checkpointed(*args, mgr, eval_app=ev,
+                                             faults=fs)
+    same_tree("resumed training vs uninterrupted (card)", r_qs, g_qs,
+              qlearn.QState._fields)
+    if not all(torch.equal(a, r) for a, r in zip(r_h, g_h)):
+        fail("resumed training: histories differ from the uninterrupted "
+             "run")
+    same_tree("resumed training on the card vs CPU", r_qs, c_qs)
+
+    def small_stream(device, directory, die_after=None):
+        e = vec.VecEnv(s1, seed=1, device=device)
+        app = vec.compile_app(apps.make_application(s1, seed=50,
+                                                    n_phases=2), s1, seed=4)
+        spec = vec.learned_policy_spec(qlearn.init_qstate(device=device),
+                                       e._sched(app))
+        tspec = traffic.bursty(4e-3, mix=(0.7, 0.3), deadline=(6000.0, 0.0),
+                               priority=(1.0, 0.25), backoff=400.0,
+                               overload_frac=0.35, prio_reserve=0.25, seed=3)
+        mgr = CheckpointManager(str(directory))
+        if die_after is not None:
+            mgr = _Killer(mgr, die_after)
+        return vec.ServeEnv(e, queue_cap=4, n_requests=64).serve_checkpointed(
+            app, spec, tspec, mgr, n_chunks=3,
+            cfg=qlearn.QConfig(decay_steps=200), key=prng.PRNGKey(8),
+            faults=faults.storm(64, 0.7, prng.PRNGKey(42), device=device))
+
+    whole = small_stream(dev, ck_root / "whole")
+    try:
+        small_stream(dev, ck_root / "serve", die_after=1)
+        fail("the killed checkpointed serving did not stop")
+    except _Crash:
+        pass
+    resumed = small_stream(dev, ck_root / "serve")
+    on_cpu = small_stream("cpu", ck_root / "cpu")
+    for cls, a, r, c in zip((soc_ref.ServeCarry, qlearn.QState,
+                             vec.ServeResult), resumed, whole, on_cpu):
+        same_tree("resumed serving vs uninterrupted (card)", a, r,
+                  cls._fields)
+        same_tree("resumed serving on the card vs CPU", a, c,
+                  ("retries", "depth"))
+    shutil.rmtree(ck_root, ignore_errors=True)
+    print("checkpointed storm training (killed after 1 of 2 iterations) and "
+          "serving (killed after 1 of 3 chunks), resumed on the card: "
+          "bitwise equal to uninterrupted runs, == CPU plain path")
 
     # ---- 4. Fig. 6 at full width ------------------------------------------
     counts = {}
+    read = lambda: (soc_ops.launches, soc_ops.serve_launches,
+                    soc_ops.fault_launches, soc_ops.fault_serve_launches)
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
     soc_ops.reset_launches()
@@ -283,11 +458,11 @@ def main() -> None:
     cmp = orch.compare_policies(env, test_app, suite, seed=TEST_TILE_SEED)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    counts["fig6"] = (soc_ops.launches, soc_ops.serve_launches)
+    counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0):
-        fail(f"Fig. 6 launched (episode, serve) {counts['fig6']}, expected "
-             f"({expected}, 0)")
+    if counts["fig6"] != (expected, 0, 0, 0):
+        fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
+             f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
         fail(f"unexpected batch: {tuple(res.qstates.qtable.shape)}")
     if not bool(torch.isfinite(res.qstates.qtable).all()):
@@ -311,8 +486,8 @@ def main() -> None:
     fig6_s = t_end - t_main
     print(f"fig6 path on {card}: {fig6_s:.3f} s wall (train "
           f"{t_train - t_main:.3f} s, evaluate {t_eval - t_train:.3f} s, "
-          f"suite {t_end - t_eval:.3f} s), launches (episode, serve) "
-          f"{counts['fig6']}")
+          f"suite {t_end - t_eval:.3f} s), launches "
+          f"{dict(zip(KERNELS, counts['fig6']))}")
 
     # ---- 5. Fig. 9 at full width ------------------------------------------
     torch.cuda.synchronize()
@@ -321,11 +496,11 @@ def main() -> None:
     r9 = fig9.run_port(dev)
     torch.cuda.synchronize()
     fig9_s = time.perf_counter() - t9
-    counts["fig9"] = (soc_ops.launches, soc_ops.serve_launches)
+    counts["fig9"] = read()
     e9 = r9["_engine"]
-    if counts["fig9"] != (e9["expected_launches"], 0):
-        fail(f"Fig. 9 launched (episode, serve) {counts['fig9']}, expected "
-             f"({e9['expected_launches']}, 0)")
+    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0):
+        fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
+             f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
         fail(f"Fig. 9 took {e9['train_calls']} training and "
              f"{e9['eval_calls']} evaluation calls, expected 1 and 1")
@@ -344,8 +519,9 @@ def main() -> None:
     print(f"fig9 path on {card}: {fig9_s:.3f} s wall (train "
           f"{e9['train_s']:.3f} s, profiling {e9['profile_s']:.3f} s in "
           f"{e9['launches_profile']} launches, evaluate "
-          f"{e9['evaluate_s']:.3f} s), launches (episode, serve) "
-          f"{counts['fig9']}, {e9['lanes']} lanes padded to "
+          f"{e9['evaluate_s']:.3f} s), launches "
+          f"{dict(zip(KERNELS, counts['fig9']))}, {e9['lanes']} lanes "
+          f"padded to "
           f"{e9['padded_steps']} steps")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "fig9_port.json").write_text(
@@ -358,13 +534,13 @@ def main() -> None:
     r11 = fig11.run_port(dev)
     torch.cuda.synchronize()
     fig11_s = time.perf_counter() - t11
-    counts["fig11"] = (soc_ops.launches, soc_ops.serve_launches)
+    counts["fig11"] = read()
     e11 = r11["_engine"]
     want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"])
+              e11["expected_serve_launches"], 0, 0)
     if counts["fig11"] != want11:
-        fail(f"Fig. 11 launched (episode, serve) {counts['fig11']}, "
-             f"expected {want11}")
+        fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
+             f"expected {dict(zip(KERNELS, want11))}")
     if not r11["_identity"]["traffic_none_bitwise"]:
         fail("Fig. 11: serving without traffic is not the episode: "
              f"{r11['_identity']['differing']} differ")
@@ -386,17 +562,13 @@ def main() -> None:
           f"Mcycle, service {cap['effective_service_cycles']:.6g} cycles")
     print(f"fig11 path on {card}: {fig11_s:.3f} s wall (train "
           f"{e11['train_s']:.3f} s, calibrate {e11['calibrate_s']:.3f} s, "
-          f"sweep {e11['sweep_s']:.3f} s), launches (episode, serve) "
-          f"{counts['fig11']}")
+          f"sweep {e11['sweep_s']:.3f} s), launches "
+          f"{dict(zip(KERNELS, counts['fig11']))}")
     (ROOT / "chiprun_out" / "fig11_port.json").write_text(
         json.dumps(r11, indent=1))
 
-    # ---- 7. soc_step_serve vs plain at the Fig. 11 shapes -----------------
-    s1 = SOCS["SoC1"]
-    env1 = vec.VecEnv(s1, seed=1, device=dev)
-    app1 = vec.compile_app(apps.make_application(s1, seed=50, n_phases=8),
-                           s1, seed=4)
-    sched1 = env1._sched(app1)
+    # ---- 7. soc_step_serve vs plain at the Fig. 11 shapes, healthy (K2)
+    # and under storm(1024, 0.7, PRNGKey(42)) (K2f) ------------------------
     specs1 = vec.stack_specs([
         vec.fixed_policy_spec(env1.params, sched1, 0),
         vec.fixed_policy_spec(env1.params, sched1, 3),
@@ -404,15 +576,19 @@ def main() -> None:
         vec.learned_policy_spec(qlearn.init_qstate(device=dev), sched1)])
     cfg1 = qlearn.QConfig(decay_steps=4000)
     svc, n_req = cap["effective_service_cycles"], fig11.N_REQUESTS
-    sv_err, sv_plain_ms, sv_packed = 0.0, None, None
-    for mult in (0.2, 2.0):
+    storm11 = faults.storm(n_req, 0.7, prng.PRNGKey(42), device=dev)
+
+    def serve_vs_plain(mult, fs):
+        """The serve kernel (faulted when ``fs`` is given) against
+        ``ref.serve_episode_ref`` at ``mult`` x Fig. 11's capacity; returns
+        ``(max abs err, plain ms, packed kernel arguments)``."""
         tspec = fig11._traffic(traffic, mult * cap["capacity_per_mcycle"]
                                * 1e-6, fig11.QUEUE_CAP * svc, 0.25 * svc,
                                device=dev)
         arr = traffic.sample_arrivals(tspec, n_req,
                                       sched1.acc_id.shape[0])
         xs = vec.serve_inputs(env1.params, sched1, specs1, arr,
-                              prng.PRNGKey(np.arange(4), device=dev))
+                              prng.PRNGKey(np.arange(4), device=dev), fs)
         qs0 = specs1.qstate
         carry0 = soc_ref.init_serve_carry(
             qs0.qtable, rewards.init_reward_state(s1.n_accs, (4,),
@@ -426,9 +602,8 @@ def main() -> None:
         rows = [v.expand(4, -1) for v in (arr.t_arr, arr.deadline,
                                           arr.priority)]
         xv = soc_ref.pack_serve_rows(*rows)
-        kc, ky = soc_kernel.soc_step_serve(xf, xi, xv, consts, carry0,
-                                           n_tiles=s1.n_mem_tiles,
-                                           n_actions=4)
+        kw = dict(n_tiles=s1.n_mem_tiles, n_actions=4, faulted=xs.faulted)
+        kc, ky = soc_kernel.soc_step_serve(xf, xi, xv, consts, carry0, **kw)
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
@@ -437,115 +612,208 @@ def main() -> None:
             carry0, xs, *rows)
         ev1.record()
         torch.cuda.synchronize()
-        what = f"soc_step_serve vs plain ({mult:g}x load)"
-        sv_err = max(sv_err, compare_cols(torch, what, soc_ref.SERVE_YCOLS,
-                                          ky, ry, SERVE_INT_COLS))
-        for name in soc_ref.ServeCarry._fields:
-            a, r = getattr(kc, name), getattr(rc, name)
+        name = "soc_step_serve_faulted" if fs is not None else \
+            "soc_step_serve"
+        what = f"{name} vs plain ({mult:g}x load)"
+        err = compare_cols(torch, what, soc_ref.SERVE_YCOLS, ky, ry,
+                           SERVE_INT_COLS)
+        for f in soc_ref.ServeCarry._fields:
+            a, r = getattr(kc, f), getattr(rc, f)
             if not torch.allclose(a.float(), r.float(), rtol=TOL, atol=TOL):
-                fail(f"{what}: carry {name} differs")
-            sv_err = max(sv_err, (a.float() - r.float()).abs().max().item())
+                fail(f"{what}: carry {f} differs")
+            err = max(err, (a.float() - r.float()).abs().max().item())
         ex = ry[..., soc_ref.SERVE_YCOLS.index("executed")]
         deg = ry[..., soc_ref.SERVE_YCOLS.index("degraded")]
         print(f"{what} B=4 S={n_req}: integer columns equal, max abs err "
-              f"{sv_err:.3e} (bound {TOL}); served "
-              f"{int(ex.sum())}/{ex.numel()}, degraded steps "
-              f"{int(deg.sum())}")
-        if mult > 1.0:
-            if not (float(ex.mean()) < 1.0 and float(deg.max()) == 1.0):
-                fail(f"{what}: the overload neither shed nor tripped the "
-                     "watchdog")
-            sv_plain_ms = ev0.elapsed_time(ev1)
-            sv_packed = (xf, xi, xv, consts, carry0)
+              f"{err:.3e} (bound {TOL}); served {int(ex.sum())}/"
+              f"{ex.numel()}, degraded steps {int(deg.sum())}")
+        if mult > 1.0 and not (float(ex.mean()) < 1.0
+                               and float(deg.max()) == 1.0):
+            fail(f"{what}: the overload neither shed nor tripped the "
+                 "watchdog")
+        if fs is not None:
+            # one chunk split in two chains through the carry, bitwise
+            h = n_req // 2
+            c1, y1 = soc_kernel.soc_step_serve(
+                xf[:, :h].contiguous(), xi[:, :h].contiguous(),
+                xv[:, :h].contiguous(), consts, carry0, **kw)
+            c2, y2 = soc_kernel.soc_step_serve(
+                xf[:, h:].contiguous(), xi[:, h:].contiguous(),
+                xv[:, h:].contiguous(), consts, c1, **kw)
+            if not (torch.equal(torch.cat([y1, y2], 1), ky)
+                    and all(torch.equal(a, r) for a, r in zip(c2, kc))):
+                fail(f"{what}: two chained half chunks differ from one")
+            print(f"{what}: two chained chunks of {h} requests == one of "
+                  f"{n_req}, bitwise")
+        return err, ev0.elapsed_time(ev1), ((xf, xi, xv, consts, carry0),
+                                            kw)
 
-    # ---- 8. times and bounds ----------------------------------------------
-    xf, xi, consts, q0, extrema0 = packed_main
-    run_ep = lambda: soc_kernel.soc_step_episode(
-        xf, xi, consts, q0, extrema0, n_threads=n_thr, n_tiles=n_tiles,
-        n_actions=4)
-    for _ in range(3):
-        run_ep()
-    torch.cuda.synchronize()
-    ep_ms = event_ms(torch, run_ep, 20)
-    nf = xf.shape[-1]
-    ep_bytes = 4 * (b * s_len * (nf + 5) + b * 25 + 2 * q0.numel()
-                    + extrema0.numel() + b * s_len * 6)
-    ep_flops = b * s_len * (200 + n_thr * (9 + 5 * n_tiles))
-    ep_bytes_ms = ep_bytes / H100_BYTES_PER_S * 1e3
-    ep_ops_ms = ep_flops / H100_F32_FLOPS * 1e3
-    ep_bound = max(ep_bytes_ms, ep_ops_ms)
-    print(f"soc_step_episode on {card}: kernel {ep_ms:.4f} ms/launch "
-          f"(B={b}, S={s_len}), plain version {ep_plain_ms:.1f} ms, bound "
-          f"{ep_bound:.5f} ms ({ep_bytes} bytes -> {ep_bytes_ms:.5f} ms; "
-          f"{ep_flops} f32 ops -> {ep_ops_ms:.5f} ms); serial chain of "
-          f"{s_len} dependent steps, {ep_ms / s_len * 1e3:.2f} us/step")
+    sv_err, _, _ = serve_vs_plain(0.2, None)
+    err, sv_plain_ms, sv_packed = serve_vs_plain(2.0, None)
+    sv_err = max(sv_err, err)
+    svf_err, _, _ = serve_vs_plain(0.2, storm11)
+    err, svf_plain_ms, svf_packed = serve_vs_plain(2.0, storm11)
+    svf_err = max(svf_err, err)
 
-    sxf, sxi, sxv, sconsts, scarry = sv_packed
-    run_sv = lambda: soc_kernel.soc_step_serve(
-        sxf, sxi, sxv, sconsts, scarry, n_tiles=s1.n_mem_tiles, n_actions=4)
-    for _ in range(3):
-        run_sv()
+    # ---- 8. Fig. 10 at full width -----------------------------------------
     torch.cuda.synchronize()
-    sv_ms = event_ms(torch, run_sv, 20)
-    carry_bytes = sum(4 * t.numel() for t in scarry)
-    # the step reads footprint, u_explore, tiles, profile, avail and the
-    # gumbel columns of xf (it makes eps, alpha and the n_accs-wide others
-    # block itself) and acc_id and pre_mode of xi
-    xf_used = sxf.shape[-1] - 2 - s1.n_accs
-    sv_bytes = (4 * (4 * n_req * (xf_used + 2 + sxv.shape[-1]
+    soc_ops.reset_launches()
+    t10 = time.perf_counter()
+    r10 = fig10.run_port(dev)
+    torch.cuda.synchronize()
+    fig10_s = time.perf_counter() - t10
+    counts["fig10"] = read()
+    e10 = r10["_engine"]
+    want10 = (e10["expected_episode_launches"], 0,
+              e10["expected_fault_episode_launches"], 0)
+    if counts["fig10"] != want10 or 0 in want10[::2]:
+        fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
+             f"expected {dict(zip(KERNELS, want10))}")
+    for label, _ in fig10.INTENSITIES:
+        row = r10[label]
+        vals = ([v for fam in fig10.FAMILIES for v in row[fam]]
+                + [row[k] for k in fig10.SCALARS])
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"Fig. 10 {label}: non-finite metrics")
+        print(f"fig10 {label}: " + " ".join(
+            f"{fam}=({row[fam][0]:.6f}, {row[fam][1]:.6f})"
+            for fam in fig10.FAMILIES)
+            + f" q_delta={row['q_delta_vs_fixed']:.6f} "
+            f"storm_slowdown={row['storm_slowdown']:.6f}")
+    if not r10["severe"]["storm_slowdown"] > 1.0:
+        fail("Fig. 10: the severe storm did not slow the NON_COH baseline")
+    print(f"fig10 path on {card}: {fig10_s:.3f} s wall ("
+          + ", ".join(f"{k} {v:.3f} s"
+                      for k, v in e10["intensity_s"].items())
+          + f"), launches {dict(zip(KERNELS, counts['fig10']))}; DES "
+          f"cross-check: {r10['_des_crosscheck']['status']}")
+    (ROOT / "chiprun_out" / "fig10_port.json").write_text(
+        json.dumps(r10, indent=1))
+
+    # ---- 9. storm serving through ServeEnv at full width -------------------
+    torch.cuda.synchronize()
+    soc_ops.reset_launches()
+    t_st = time.perf_counter()
+    _, st_qs, st_res = vec.ServeEnv(
+        env1, queue_cap=fig11.QUEUE_CAP, n_requests=n_req).serve_specs(
+        app1, specs1, fig11._traffic(
+            traffic, cap["capacity_per_mcycle"] * 1e-6,
+            fig11.QUEUE_CAP * svc, 0.25 * svc), cfg=cfg1, faults=storm11)
+    torch.cuda.synchronize()
+    storm_s = time.perf_counter() - t_st
+    counts["storm_serving"] = read()
+    if counts["storm_serving"] != (0, 0, 0, 1):
+        fail(f"storm serving launched "
+             f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
+             f"{KERNELS[3]}")
+    ex = st_res.executed
+    if not (bool(torch.isfinite(st_res.latency).all())
+            and bool(torch.isfinite(st_qs.qtable).all())
+            and int(ex.sum()) > 0):
+        fail("storm serving: non-finite or empty results")
+    for i, name in enumerate(fig11.POLICIES):
+        lat = st_res.latency[i][ex[i]].double()
+        print(f"storm serving {name}: served {int(ex[i].sum())}/{n_req}, "
+              f"p99 latency {float(torch.quantile(lat, 0.99)):.6g} cycles, "
+              f"mean exec {float(st_res.exec_time[i][ex[i]].mean()):.6g}")
+    print(f"storm serving path on {card}: {storm_s:.3f} s wall, launches "
+          f"{dict(zip(KERNELS, counts['storm_serving']))}")
+
+    # ---- 10. times and bounds ---------------------------------------------
+    def time_kernel(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        return event_ms(torch, fn, 20)
+
+    def episode_numbers(packed, shape):
+        """(ms, bound ms, bytes ms, ops ms) of the episode kernel on
+        ``packed``: the bytes each input is read and each output written
+        once; per step the fused step's ~200 scalar operations, the
+        concurrent slots' reductions and, faulted, 6 more."""
+        (xf, xi, consts, q0, extrema0), kw = packed
+        ms = time_kernel(lambda: soc_kernel.soc_step_episode(
+            xf, xi, consts, q0, extrema0, **kw))
+        nb, ns, nf = xf.shape
+        nbytes = 4 * (nb * ns * (nf + 5) + consts.numel() + 2 * q0.numel()
+                      + extrema0.numel() + nb * ns * 6)
+        flops = nb * ns * (200 + kw["n_threads"] * (9 + 5 * kw["n_tiles"])
+                           + (6 if kw["faulted"] else 0))
+        by = nbytes / H100_BYTES_PER_S * 1e3
+        op = flops / H100_F32_FLOPS * 1e3
+        print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
+              f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
+              f"{flops} f32 ops -> {op:.6f} ms); serial chain of {ns} "
+              f"dependent steps, {ms / ns * 1e3:.2f} us/step")
+        return ms, max(by, op), by, op
+
+    def serve_numbers(packed, shape):
+        """The same for the serve kernel: it reads footprint, u_explore,
+        tiles, profile, avail, the gumbel and (faulted) the fault columns
+        of xf (it makes eps, alpha and the n_accs-wide others block
+        itself), acc_id and pre_mode of xi; per request four admission
+        attempts over a queue_cap ring, the watchdog and the fused step."""
+        (xf, xi, xv, consts, carry), kw = packed
+        ms = time_kernel(lambda: soc_kernel.soc_step_serve(
+            xf, xi, xv, consts, carry, **kw))
+        nb, ns, nf = xf.shape
+        carry_bytes = sum(4 * t.numel() for t in carry)
+        nbytes = (4 * (nb * ns * ((nf - 2 - s1.n_accs) + 2 + xv.shape[-1]
                                   + len(soc_ref.SERVE_YCOLS))
-                     + sconsts.numel())
-                + 2 * carry_bytes)
-    # per request: four admission attempts over a queue_cap ring, the
-    # watchdog, and the fused step over n_accs slots (as for the episode)
-    sv_flops = 4 * n_req * (4 * (fig11.QUEUE_CAP + 4) + 30
-                            + 200 + s1.n_accs * (9 + 5 * s1.n_mem_tiles))
-    sv_bytes_ms = sv_bytes / H100_BYTES_PER_S * 1e3
-    sv_ops_ms = sv_flops / H100_F32_FLOPS * 1e3
-    sv_bound = max(sv_bytes_ms, sv_ops_ms)
-    print(f"soc_step_serve on {card}: kernel {sv_ms:.4f} ms/launch "
-          f"(B=4, S={n_req}), plain version {sv_plain_ms:.1f} ms, bound "
-          f"{sv_bound:.6f} ms ({sv_bytes} bytes -> {sv_bytes_ms:.6f} ms; "
-          f"{sv_flops} f32 ops -> {sv_ops_ms:.6f} ms); serial chain of "
-          f"{n_req} dependent requests, {sv_ms / n_req * 1e3:.2f} "
-          f"us/request; library_ms null for both kernels (no single "
-          f"PyTorch call computes either step)")
-    print(f"paths on {card}: fig6 {fig6_s:.3f} s, fig9 {fig9_s:.3f} s, "
-          f"fig11 {fig11_s:.3f} s")
+                       + consts.numel()) + 2 * carry_bytes)
+        flops = nb * ns * (4 * (fig11.QUEUE_CAP + 4) + 30 + 200
+                           + s1.n_accs * (9 + 5 * s1.n_mem_tiles)
+                           + (6 if kw["faulted"] else 0))
+        by = nbytes / H100_BYTES_PER_S * 1e3
+        op = flops / H100_F32_FLOPS * 1e3
+        print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
+              f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
+              f"{flops} f32 ops -> {op:.6f} ms); serial chain of {ns} "
+              f"dependent requests, {ms / ns * 1e3:.2f} us/request")
+        return ms, max(by, op), by, op
 
-    paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s}
+    nums = [
+        episode_numbers(packed_main, f"soc_step_episode B={b} S={s_len}"),
+        serve_numbers(sv_packed, f"soc_step_serve B=4 S={n_req}"),
+        episode_numbers(packed_f,
+                        f"soc_step_episode_faulted B={b} S={s_len}"),
+        serve_numbers(svf_packed, f"soc_step_serve_faulted B=4 S={n_req}"),
+    ]
+    plain = [ep_plain_ms, sv_plain_ms, epf_plain_ms, svf_plain_ms]
+    errs = [ep_err, sv_err, epf_err, svf_err]
+    shapes = [f"B={b} S={s_len}", f"B=4 S={n_req}", f"B={b} S={s_len}",
+              f"B=4 S={n_req}"]
+    for name, ms in zip(KERNELS, plain):
+        print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
+              f"library_ms null (no single PyTorch call computes the step)")
+    paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
+               "fig10": fig10_s, "storm_serving": storm_s}
+    print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
+                                           for p, t in paths_s.items()))
+
     # launches: the sum over the paths; main_path_s: the summed wall time
     # of the paths that launched the kernel
     by_path = lambda j: {p: c[j] for p, c in counts.items()}
     on_paths = lambda j: sum(paths_s[p] for p, c in counts.items() if c[j])
     kernels = {"kernels": [
-        {"name": "soc_step_episode", "route": "cuda",
+        {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/soc_step/csrc/soc_step.cu",
-         "replaces": "src/repro/kernels/soc_step/kernel.py:113",
-         "tpu": "kernels/soc_step/kernel.py:113",
-         "launches": sum(c[0] for c in counts.values()),
-         "launches_by_path": by_path(0), "max_abs_err": ep_err,
-         "ms": ep_ms, "plain_ms": ep_plain_ms, "bound_ms": ep_bound,
-         "bound_by": "bytes" if ep_bytes_ms >= ep_ops_ms else "operations",
-         "library_ms": None, "main_path_s": on_paths(0),
-         "shape": f"B={b} S={s_len}", "card": card},
-        {"name": "soc_step_serve", "route": "cuda",
-         "source": "src/repro_torch/kernels/soc_step/csrc/soc_step.cu",
-         "replaces": "src/repro/kernels/soc_step/kernel.py:258",
-         "tpu": "kernels/soc_step/kernel.py:258",
-         "launches": sum(c[1] for c in counts.values()),
-         "launches_by_path": by_path(1), "max_abs_err": sv_err,
-         "ms": sv_ms, "plain_ms": sv_plain_ms, "bound_ms": sv_bound,
-         "bound_by": "bytes" if sv_bytes_ms >= sv_ops_ms else "operations",
-         "library_ms": None, "main_path_s": on_paths(1),
-         "shape": f"B=4 S={n_req}", "card": card},
-    ], "paths_s": paths_s}
+         "replaces": ("src/repro/kernels/soc_step/kernel.py:113" if j % 2 == 0
+                      else "src/repro/kernels/soc_step/kernel.py:258"),
+         "variant": "faulted=True" if j >= 2 else "healthy",
+         "launches": sum(c[j] for c in counts.values()),
+         "launches_by_path": by_path(j), "max_abs_err": errs[j],
+         "ms": nums[j][0], "plain_ms": plain[j], "bound_ms": nums[j][1],
+         "bound_by": "bytes" if nums[j][2] >= nums[j][3] else "operations",
+         "library_ms": None, "main_path_s": on_paths(j),
+         "shape": shapes[j], "card": card}
+        for j, name in enumerate(KERNELS)], "paths_s": paths_s}
     for k in kernels["kernels"]:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                   "bound_ms")):
             fail(f"{k['name']}: non-finite timing")
-    if counts["fig11"][1] == 0 or any(c[0] == 0 for c in counts.values()):
-        fail(f"a path did not launch its kernels: {counts}")
+        if k["launches"] == 0:
+            fail(f"{k['name']} was launched on no path: {counts}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -229,3 +229,13 @@ def reward_watchdog(cfg: QConfig, qs: QState, ep_reward, best):
     new_best = torch.where(collapsed, ep_reward,
                            torch.maximum(best, ep_reward))
     return new_qs, new_best
+
+
+def debug_finite_check(tag: str, **tensors) -> None:
+    """Raise ``FloatingPointError`` naming ``tag`` and every named tensor
+    that holds a non-finite value.  It synchronizes with the card, so the
+    environments call it only when built with ``debug_finite=True``."""
+    bad = sorted(k for k, v in tensors.items()
+                 if not bool(torch.isfinite(v).all()))
+    if bad:
+        raise FloatingPointError(f"{tag}: non-finite {', '.join(bad)}")

@@ -8,8 +8,9 @@ root of the checkout.  A missing ``nvcc`` raises: there is no fallback.
 
 :func:`soc_step_episode` launches the episode kernel on PyTorch's current
 stream for ``B`` episodes at once, :func:`soc_step_serve` the serving
-kernel for ``B`` arrival streams; the source's notes say what bounds each
-and how it is laid out.
+kernel for ``B`` arrival streams; ``faulted=True`` launches each kernel's
+fault-injected instantiation, which reads four more float columns per
+row.  The source's notes say what bounds each and how it is laid out.
 """
 from __future__ import annotations
 
@@ -78,11 +79,11 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.soc_step_episode_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.soc_step_serve_launch
-        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -122,12 +123,10 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
     ``xf (B, S, NF)`` f32 / ``xi (B, S, 5)`` i32 are the packed step rows
     (:func:`~repro_torch.kernels.soc_step.ref.pack_inputs`), ``consts
     (B, 25)`` f32 (:func:`~repro_torch.kernels.soc_step.ref.pack_consts`),
-    ``qtable0 (B, 243, A)`` and ``extrema0 (B, 4, n_accs)`` f32.  Returns
-    ``(qtable_final (B, 243, A), y (B, S, 6))``.  The fault-injected and
-    MLP variants are not ported and raise."""
-    if faulted:
-        raise NotImplementedError(
-            "the faulted soc_step variant is not ported to CUDA yet")
+    ``qtable0 (B, 243, A)`` and ``extrema0 (B, 4, n_accs)`` f32.  With
+    ``faulted`` the rows end in the four fault columns.  Returns
+    ``(qtable_final (B, 243, A), y (B, S, 6))``.  The MLP variant is not
+    ported and raises."""
     if wpack0 is not None:
         raise NotImplementedError(
             "the MLP soc_step variant is not ported to CUDA yet")
@@ -139,7 +138,8 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
     b, s, nf = xf.shape
     n_states, n_a = qtable0.shape[1:]
     n_accs = extrema0.shape[2]
-    n_feat = nf - 4 - n_tiles - n_threads - 3 * n_actions
+    n_feat = (nf - 4 - n_tiles - n_threads - 3 * n_actions
+              - (4 if faulted else 0))
     devs = {t.device for t in (xf, xi, consts, qtable0, extrema0)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
@@ -164,7 +164,7 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
             qtable0.data_ptr(), extrema0.data_ptr(), y.data_ptr(),
             qtable.data_ptr(), b, s, nf, N_CONSTS, n_tiles, n_threads,
             n_feat, n_actions, n_states, n_accs, int(ddr_attribution),
-            int(gated), stream)
+            int(gated), int(faulted), stream)
     if err != 0:
         raise RuntimeError(f"soc_step_episode launch failed: CUDA error "
                            f"{err}")
@@ -183,12 +183,8 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
     (B, 34)`` f32 (:func:`~repro_torch.kernels.soc_step.ref.
     pack_serve_consts`) and ``carry0`` a
     :class:`~repro_torch.kernels.soc_step.ref.ServeCarry` of CUDA tensors.
-    Returns ``(carry_final, y (B, S, 13))``.  The fault-injected variant is
-    not ported and raises."""
-    if faulted:
-        raise NotImplementedError(
-            "the faulted soc_step_serve variant is not ported to CUDA yet "
-            "(ROADMAP B2)")
+    With ``faulted`` the rows of ``xf`` end in the four fault columns.
+    Returns ``(carry_final, y (B, S, 13))``."""
     c = carry0
     for name, t, dt, nd in (
             ("xf", xf, torch.float32, 3), ("xi", xi, torch.int32, 3),
@@ -208,7 +204,8 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
     n_states, n_a = c.qtable.shape[1:]
     n_accs = c.busy.shape[1]
     queue_cap = c.fin.shape[2]
-    n_feat = nf - 4 - n_tiles - n_accs - 3 * n_actions
+    n_feat = (nf - 4 - n_tiles - n_accs - 3 * n_actions
+              - (4 if faulted else 0))
     devs = {t.device for t in (xf, xi, xv, consts, *c)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
@@ -244,7 +241,7 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
             out.tbl.data_ptr(), out.busy.data_ptr(), out.fin.data_ptr(),
             out.head.data_ptr(), misc.data_ptr(), out.step.data_ptr(),
             b, s, nf, N_SERVE_CONSTS, n_tiles, n_accs, n_feat, n_actions,
-            n_states, queue_cap, int(ddr_attribution), stream)
+            n_states, queue_cap, int(ddr_attribution), int(faulted), stream)
     if err != 0:
         raise RuntimeError(f"soc_step_serve launch failed: CUDA error {err}")
     return out._replace(pressure=misc[:, 0].contiguous(),

@@ -5,9 +5,12 @@ the tensors lie: CUDA tensors launch the hand-written kernels
 (:mod:`.kernel`), CPU tensors take the plain PyTorch versions
 (:func:`~repro_torch.kernels.soc_step.ref.episode_ref`,
 :func:`~repro_torch.kernels.soc_step.ref.serve_episode_ref`).  There is no
-fallback between them: a CUDA call that cannot launch raises.
-:data:`launches` and :data:`serve_launches` count kernel launches, so a
-run can show that it went through the kernels.
+fallback between them: a CUDA call that cannot launch raises.  Inputs
+with fault columns (``xs.f_exec`` set) take the kernels' faulted
+instantiations.  :data:`launches` and :data:`serve_launches` count the
+healthy kernels' launches, :data:`fault_launches` and
+:data:`fault_serve_launches` the faulted ones', so a run can show that it
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ from repro_torch.soc.memsys import SoCStatic
 
 launches = 0
 serve_launches = 0
+fault_launches = 0
+fault_serve_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, serve_launches
-    launches = 0
-    serve_launches = 0
+    global launches, serve_launches, fault_launches, fault_serve_launches
+    launches = serve_launches = fault_launches = fault_serve_launches = 0
 
 
 def fused_episode(s: SoCStatic, learned, weights, qtable0, extrema0,
@@ -42,7 +46,7 @@ def fused_episode(s: SoCStatic, learned, weights, qtable0, extrema0,
     ``(B,)`` tensors or numbers.  ``ys`` is the ``(B, S)`` per-step
     ``(mode, state_idx, action, exec_cycles, offchip, reward)`` tuple with
     integer columns as int32."""
-    global launches
+    global launches, fault_launches
     if qtable0.device.type != "cuda":
         return episode_ref(s, learned, weights, qtable0, extrema0, xs,
                            ddr_attribution=ddr_attribution, gated=gated)
@@ -54,8 +58,11 @@ def fused_episode(s: SoCStatic, learned, weights, qtable0, extrema0,
         extrema0.to(torch.float32).contiguous(),
         n_threads=xs.others.shape[-1], n_tiles=xs.tiles.shape[-1],
         n_actions=xs.avail.shape[-1], ddr_attribution=ddr_attribution,
-        gated=gated, faulted=xs.f_exec is not None)
-    launches += 1
+        gated=gated, faulted=xs.faulted)
+    if xs.faulted:
+        fault_launches += 1
+    else:
+        launches += 1
     return qtable, unpack_ys(y)
 
 
@@ -69,7 +76,7 @@ def fused_serve_episode(s: SoCStatic, learned, weights, sp: ServeParams,
     others/valid/eps/alpha columns are placeholders (``others`` of width
     ``n_accs``) the serve step owns; ``t_arr``/``deadline``/``priority``
     are ``(B, S)``; ``carry0`` a :class:`ServeCarry` of ``B`` streams."""
-    global serve_launches
+    global serve_launches, fault_serve_launches
     if carry0.qtable.device.type != "cuda":
         return serve_episode_ref(s, learned, weights, sp, carry0, xs, t_arr,
                                  deadline, priority,
@@ -82,6 +89,9 @@ def fused_serve_episode(s: SoCStatic, learned, weights, sp: ServeParams,
     carry, y = _kernel.soc_step_serve(
         xf, xi, xv, consts, ServeCarry(*(v.contiguous() for v in carry0)),
         n_tiles=xs.tiles.shape[-1], n_actions=xs.avail.shape[-1],
-        ddr_attribution=ddr_attribution, faulted=xs.f_exec is not None)
-    serve_launches += 1
+        ddr_attribution=ddr_attribution, faulted=xs.faulted)
+    if xs.faulted:
+        fault_serve_launches += 1
+    else:
+        serve_launches += 1
     return carry, y

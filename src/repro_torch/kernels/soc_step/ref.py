@@ -35,6 +35,7 @@ from repro_torch.core import qlearn, rewards, state as cstate
 from repro_torch.core.modes import CoherenceMode
 from repro_torch.core.state import CacheGeometry
 from repro_torch.ordered import seqsum
+from repro_torch.soc.faults import StepFault
 from repro_torch.soc.memsys import (SoCStatic, invocation_perf_cached,
                                     static_tensors, warmth_after)
 
@@ -80,8 +81,9 @@ class StepInputs(NamedTuple):
     A schedule row, the lowered policy's precomputed mode, the pregathered
     per-accelerator rows (``pmat[acc_id]`` / ``masks[acc_id]``), the
     precomputed decay schedule and the presampled select noise.  The
-    fault columns (``f_*``) belong to a variant that is not ported: the
-    kernel wrapper raises when they are set."""
+    optional ``f_*`` columns are a faulted episode's presampled
+    :class:`~repro_torch.soc.faults.StepFault` rows; None (the default) is
+    the healthy program."""
 
     acc_id: torch.Tensor      # int32
     footprint: torch.Tensor   # float32 bytes
@@ -98,10 +100,14 @@ class StepInputs(NamedTuple):
     u_explore: torch.Tensor   # float32
     g_pick: torch.Tensor      # (.., A) float32 gumbel
     g_tie: torch.Tensor       # (.., A) float32 gumbel
-    f_exec: torch.Tensor | None = None
-    f_ddr: torch.Tensor | None = None
-    f_llc: torch.Tensor | None = None
-    f_retry: torch.Tensor | None = None
+    f_exec: torch.Tensor | None = None    # float32 compute-cost multiplier
+    f_ddr: torch.Tensor | None = None     # float32 dram_bw multiplier
+    f_llc: torch.Tensor | None = None     # float32 extra LLC load
+    f_retry: torch.Tensor | None = None   # float32 retry backoff cycles
+
+    @property
+    def faulted(self) -> bool:
+        return self.f_exec is not None
 
 
 def step_slice(xs: StepInputs, i: int) -> StepInputs:
@@ -112,17 +118,23 @@ def step_slice(xs: StepInputs, i: int) -> StepInputs:
 def pack_inputs(xs: StepInputs) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack a StepInputs into the kernel's two rows per step.
 
-    ``xf`` is ``(..., 4 + n_tiles + T + F + 3A)`` float32 —
+    ``xf`` is ``(..., 4 + n_tiles + T + F + 3A [+ 4])`` float32 —
     ``[footprint, eps, alpha, u_explore, tiles, others, profile, avail,
-    g_pick, g_tie]`` — and ``xi`` is ``(..., 5)`` int32 (:data:`ICOLS`);
-    boolean masks ride as exact {0, 1} floats.  The same layout as
-    ``repro.kernels.soc_step.ref.pack_inputs``."""
+    g_pick, g_tie]`` plus, for a faulted episode, the four fault columns
+    ``[f_exec, f_ddr, f_llc, f_retry]`` — and ``xi`` is ``(..., 5)``
+    int32 (:data:`ICOLS`); boolean masks ride as exact {0, 1} floats.
+    The same layout as ``repro.kernels.soc_step.ref.pack_inputs``."""
     f32, i32 = torch.float32, torch.int32
-    xf = torch.cat([
+    cols = [
         torch.stack([xs.footprint.to(f32), xs.eps.to(f32),
                      xs.alpha.to(f32), xs.u_explore.to(f32)], dim=-1),
         xs.tiles.to(f32), xs.others.to(f32), xs.profile.to(f32),
-        xs.avail.to(f32), xs.g_pick.to(f32), xs.g_tie.to(f32)], dim=-1)
+        xs.avail.to(f32), xs.g_pick.to(f32), xs.g_tie.to(f32)]
+    if xs.faulted:
+        cols.append(torch.stack([xs.f_exec.to(f32), xs.f_ddr.to(f32),
+                                 xs.f_llc.to(f32), xs.f_retry.to(f32)],
+                                dim=-1))
+    xf = torch.cat(cols, dim=-1)
     xi = torch.stack([xs.acc_id.to(i32), xs.thread.to(i32),
                       xs.fresh.to(i32), xs.valid.to(i32),
                       xs.pre_mode.to(i32)], dim=-1)
@@ -204,9 +216,12 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
           & torch.isfinite(x.footprint))
     mode = torch.where(ok, action, int(CoherenceMode.NON_COH_DMA)).to(
         torch.int32)
+    fault = (StepFault(exec_scale=x.f_exec, ddr_scale=x.f_ddr,
+                       llc_extra=x.f_llc, retry_cycles=x.f_retry)
+             if x.faulted else None)
     m, aux = invocation_perf_cached(
         mode, x.profile, x.footprint, x.tiles, omodes, odram, ollc, ofps,
-        otiles, warm_t, s)
+        otiles, warm_t, s, fault=fault)
     off_reward = m.offchip_accesses
     if ddr_attribution:
         # Prorated per-tile DDR attribution (paper §4.1(4)).
@@ -257,10 +272,8 @@ def episode_ref(s: SoCStatic, learned, weights, qtable0, extrema0,
     ``extrema0 (B, 4, n_accs)``; ``s`` leaves, ``learned`` and the
     weights are numbers or ``(B,)`` tensors.  Returns ``(qtable_final,
     ys)`` with ``ys`` the ``(B, S)`` per-step ``(mode, state_idx, action,
-    exec_cycles, offchip, reward)`` arrays."""
-    if xs.f_exec is not None:
-        raise NotImplementedError(
-            "fault-injected episodes are not ported yet")
+    exec_cycles, offchip, reward)`` arrays.  Fault columns in ``xs``
+    perturb the timing of each step."""
     dev = qtable0.device
     b, n_steps = xs.acc_id.shape
     f32 = torch.float32
@@ -490,10 +503,8 @@ def serve_episode_ref(s: SoCStatic, learned, weights, sp: ServeParams,
     ``xs`` leaves and ``t_arr``/``deadline``/``priority`` are ``(B, S,
     ...)``; ``s``, ``learned``, the weights and ``sp`` leaves numbers or
     ``(B,)`` tensors.  Returns ``(carry_final, ys (B, S, 13))`` (columns
-    :data:`SERVE_YCOLS`); the carry continues into the next chunk."""
-    if xs.f_exec is not None:
-        raise NotImplementedError(
-            "fault-injected serving is not ported yet (ROADMAP A9/B2)")
+    :data:`SERVE_YCOLS`); the carry continues into the next chunk.  Fault
+    columns in ``xs`` perturb the timing of each request."""
     dev = carry0.qtable.device
     b, n_steps = xs.acc_id.shape
     f32 = torch.float32

@@ -10,7 +10,9 @@ model is analytical (service rates + proportional sharing of bandwidth).
 Every float operation follows ``repro.soc.memsys`` in order and
 association, and the float sums over concurrent slots run left to right
 (:func:`repro_torch.ordered.seqsum`), which is what the CUDA episode
-kernel does too.  Only the ``fault=None`` path is ported.
+kernel does too.  ``fault=None`` is the healthy program; a
+:class:`~repro_torch.soc.faults.StepFault` row perturbs the timing as
+``repro.soc.memsys`` does.
 """
 from __future__ import annotations
 
@@ -119,8 +121,11 @@ def _burst_bw(burst_bytes, lat, peak_bw, outstanding):
                          / t)
 
 
-def dma_demand(mode, profile, footprint, s: SoCStatic):
-    """Unconstrained (dram, llc) bytes/cycle an invocation asks for."""
+def dma_demand(mode, profile, footprint, s: SoCStatic, *,
+               compute_scale=None):
+    """Unconstrained (dram, llc) bytes/cycle an invocation asks for;
+    ``compute_scale`` multiplies the compute cost per byte (a faulted
+    slowdown lowers the demand the engine can generate)."""
     pattern = profile[..., PF.PATTERN]
     burst = _where(pattern == IRREGULAR, torch.full_like(pattern, _WORD),
                    profile[..., PF.BURST])
@@ -128,6 +133,8 @@ def dma_demand(mode, profile, footprint, s: SoCStatic):
     line_bw = _burst_bw(s.line, s.dram_lat + s.llc_hit_lat, s.dram_bw,
                         s.mshr)
     cpb = profile[..., PF.COMPUTE] / profile[..., PF.ENGINES]
+    if compute_scale is not None:
+        cpb = cpb * compute_scale
     compute_bw = 1.0 / torch.clamp(cpb, min=1e-3)
     is_nc = mode == _NC
     miss = torch.clamp(footprint / s.llc_slice_bytes, 0.05, 1.0)
@@ -144,7 +151,7 @@ def dma_demand(mode, profile, footprint, s: SoCStatic):
 def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
                            other_dram_demand, other_llc_demand,
                            other_footprints, other_tiles, warm_frac,
-                           s: SoCStatic):
+                           s: SoCStatic, fault=None):
     """Timing + monitor metrics of a batch of invocations.
 
     Shapes: ``mode (B,)`` int, ``profile (B, F)``, ``footprint (B,)``,
@@ -153,8 +160,19 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
     ``other_tiles (B, T, n_tiles)``, ``warm_frac (B,)``; ``s`` leaves are
     ``(B,)`` tensors or numbers.  Returns ``(Measurement, aux)`` with
     ``aux['demand_dram']``/``aux['demand_llc']`` this invocation's own
-    demand, which the caller caches for its slot."""
+    demand, which the caller caches for its slot.
+
+    ``fault`` (a :class:`~repro_torch.soc.faults.StepFault` of ``(B,)``
+    rows, or None for the healthy program) scales ``s.dram_bw`` by
+    ``ddr_scale`` wherever the timing reads it, the compute cost per byte
+    by ``exec_scale``, adds ``llc_extra`` to the concurrent LLC load and
+    ``retry_cycles`` to the driver overhead.  The reward and the sensed
+    state see the unscaled constants."""
     f32 = torch.float32
+    fault_scale = None
+    if fault is not None:
+        s = s._replace(dram_bw=s.dram_bw * fault.ddr_scale)
+        fault_scale = fault.exec_scale
     footprint = torch.clamp(footprint.to(f32), min=1.0)
     n_my_tiles = torch.clamp(seqsum(my_tiles.to(f32), -1), min=1.0)
 
@@ -167,6 +185,8 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
     in_place = profile[..., PF.IN_PLACE]
     compute_per_byte = (profile[..., PF.COMPUTE]
                         / torch.clamp(profile[..., PF.ENGINES], min=1.0))
+    if fault is not None:
+        compute_per_byte = compute_per_byte * fault.exec_scale
 
     read_bytes = footprint * read_frac * reuse
     write_bytes = footprint * (1.0 - read_frac)
@@ -178,7 +198,8 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
     overlap = (seqsum(ot * my_tiles[..., None, :].to(f32), -1)
                / torch.clamp(seqsum(ot, -1), min=1.0))
 
-    my_dram, my_llc = dma_demand(mode, profile, footprint, s)
+    my_dram, my_llc = dma_demand(mode, profile, footprint, s,
+                                 compute_scale=fault_scale)
     dram_cap = s.dram_bw * n_my_tiles
     llc_cap = s.llc_bw * n_my_tiles
 
@@ -186,6 +207,8 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
                               torch.zeros_like(overlap)), -1)
     llc_load = seqsum(_where(other_active, other_llc_demand * overlap,
                              torch.zeros_like(overlap)), -1)
+    if fault is not None:
+        llc_load = llc_load + fault.llc_extra
     dram_slow = torch.clamp((dram_load + my_dram) / dram_cap, min=1.0)
     llc_slow = torch.clamp((llc_load + my_llc) / llc_cap, min=1.0)
 
@@ -235,6 +258,8 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
                         ovh_base + s.flush_base
                         + priv_flush_bytes / s.flush_bw,
                         ovh_base))
+    if fault is not None:
+        ovh = ovh + fault.retry_cycles
 
     # Per-mode communication cycles and off-chip bytes.
     nc_offchip = dma_read_bytes + write_bytes + full_flush_bytes

@@ -371,18 +371,20 @@ class StackedVecEnv:
                          device=self.device)
 
     def _episodes_lanes(self, scheds, specs, cfgs, weights, keys, *,
-                        n_phases: int, n_threads: int):
+                        n_phases: int, n_threads: int, faults=None):
         """Lane ``k``'s ``N_k`` episodes of ``specs[k]`` on ``scheds[k]``
         for every lane, in ONE kernel launch.  ``weights`` leaves and
-        ``keys`` cover the concatenated rows.  Returns per-lane lists of
-        ``(QState, EpisodeResult)``."""
+        ``keys`` cover the concatenated rows; ``faults`` perturbs every
+        episode, its drop coins drawn over the padded length.  Returns
+        per-lane lists of ``(QState, EpisodeResult)``."""
         specs = [vec._batched(spec) for spec in specs]
         xs_l, inc_l, counts = [], [], []
         row = 0
         for k, (sched, spec, cfg) in enumerate(zip(scheds, specs, cfgs)):
             n = spec.learned.shape[0]
             xs, inc = vec.episode_inputs(self._lane_params(k), sched, spec,
-                                         cfg, keys[row:row + n], gated=True)
+                                         cfg, keys[row:row + n], gated=True,
+                                         faults=faults)
             xs_l.append(xs)
             inc_l.append(inc)
             counts.append(n)
@@ -465,9 +467,7 @@ class StackedVecEnv:
         """Every (lane, policy) episode of a ``(K, N)`` spec batch —
         heterogeneous families welcome — in ONE kernel launch; the result
         has ``(K, N, ...)`` leaves.  Keys default to ``PRNGKey(arange(K *
-        N))``."""
-        if faults is not None:
-            raise vec.not_ported("fault-injected episodes", "A9")
+        N))``; one ``faults`` spec perturbs every (lane, policy) episode."""
         self.calls["episodes"] += 1
         cfg = cfg or qlearn.QConfig()
         k, n = specs.learned.shape
@@ -478,7 +478,8 @@ class StackedVecEnv:
             [_lane_rows(specs, i) for i in range(k)],
             [_lane_cfg(cfg, i) for i in range(k)],
             rewards.PAPER_DEFAULT_WEIGHTS, keys.reshape(k * n, 2),
-            n_phases=stacked.n_phases, n_threads=stacked.n_threads)
+            n_phases=stacked.n_phases, n_threads=stacked.n_threads,
+            faults=faults)
         return vec.EpisodeResult(*(torch.stack(vs) for vs in zip(
             *[res for _, res in outs])))
 
@@ -500,10 +501,9 @@ class StackedVecEnv:
         kernel launch.  The traffic replicates across lanes and policies
         (identical arrival times and tenants); each lane maps the row
         draws onto its own schedule over its REAL length, so padding rows
-        are never invoked.  Returns ``(ServeCarry, QState, ServeResult)``
-        with ``(K, N, ...)`` leaves."""
-        if faults is not None:
-            raise vec.not_ported("fault-injected serving", "A9")
+        are never invoked; ``faults`` rows follow each lane's request
+        accelerators.  Returns ``(ServeCarry, QState, ServeResult)`` with
+        ``(K, N, ...)`` leaves."""
         self.calls["serve"] += 1
         cfg = cfg or qlearn.QConfig()
         k, n = specs.learned.shape
@@ -517,7 +517,7 @@ class StackedVecEnv:
             arr = traffic_mod.sample_arrivals(traffic, n_requests,
                                               stacked.n_steps[i])
             xs_l.append(vec.serve_inputs(self._lane_params(i), sched, spec,
-                                         arr, keys[i]))
+                                         arr, keys[i], faults))
             arrs.append(arr)
             lane_specs.append(spec)
             qs0 = spec.qstate
@@ -537,8 +537,8 @@ class StackedVecEnv:
             self._rows_static([n] * k), specs.learned.reshape(k * n),
             rewards.PAPER_DEFAULT_WEIGHTS, sp,
             soc_step_ref.ServeCarry(*cat(carries)),
-            StepInputs(*(torch.cat(vs) for vs in zip(
-                *[x[:15] for x in xs_l]))),
+            StepInputs(*(None if vs[0] is None else torch.cat(vs)
+                         for vs in zip(*xs_l))),
             lane_rows("t_arr"), lane_rows("deadline"),
             lane_rows("priority"))
         outs = []
@@ -564,12 +564,12 @@ class StackedVecEnv:
         own tile seed); ``weights_batch`` has ``(B,)`` leaves, ``keys`` is
         ``(K, B, 2)``; ``cfg.decay_steps`` may be a ``(K,)`` tensor of
         per-lane horizons.  Each iteration splits every agent's key 3 ways
-        (next key, training episode, evaluation episode).  Returns a QState
-        with ``(K, B, ...)`` leaves and, with ``eval_stacked``,
+        (next key, training episode, evaluation episode); ``faults``
+        perturbs every lane's training and evaluation episodes, iteration
+        ``i`` drawing from the spec's key folded with ``i``.  Returns a
+        QState with ``(K, B, ...)`` leaves and, with ``eval_stacked``,
         per-iteration ``(norm_time, norm_mem)`` histories ``(K, B,
         iterations)``."""
-        if faults is not None:
-            raise vec.not_ported("fault-injected training", "A9")
         self.calls["train"] += 1
         keys = keys.to(self.device)
         k, b = keys.shape[:2]
@@ -579,7 +579,7 @@ class StackedVecEnv:
         cfgs = [_lane_cfg(cfg, i) for i in range(k)]
         base = None
         if eval_stacked is not None:
-            base = self.baseline(eval_stacked)
+            base = self.baseline(eval_stacked, faults=faults)
             eval_scheds = [self._lane_sched(eval_stacked, i)
                            for i in range(k)]
             pmask = eval_stacked.phase_mask.to(self.device)
@@ -589,14 +589,15 @@ class StackedVecEnv:
         best = torch.full((k * b,), -float("inf"), dtype=torch.float32,
                           device=self.device)
         hist_t, hist_m = [], []
-        for st in stacked_iters:
+        for it, st in enumerate(stacked_iters):
             scheds = [self._lane_sched(st, i) for i in range(k)]
             ks = prng.split(key, 3)
+            f_i = vec.iteration_faults(faults, it)
             outs = self._episodes_lanes(
                 scheds, [vec.learned_policy_spec(q, s)
                          for q, s in zip(qs, scheds)],
                 cfgs, wb, ks[:, 1], n_phases=st.n_phases,
-                n_threads=st.n_threads)
+                n_threads=st.n_threads, faults=f_i)
             new_qs, new_best = [], []
             for i, ((q, er), sched) in enumerate(zip(outs, scheds)):
                 valid = sched.valid
@@ -614,7 +615,7 @@ class StackedVecEnv:
                                                           s)
                                   for q, s in zip(qs, eval_scheds)],
                     cfgs, wb, ks[:, 2], n_phases=eval_stacked.n_phases,
-                    n_threads=eval_stacked.n_threads)
+                    n_threads=eval_stacked.n_threads, faults=f_i)
                 nt, nm = zip(*[vec.normalized_metrics(
                     er, vec.EpisodeResult(*(v[i] for v in base)), pmask[i])
                     for i, (_, er) in enumerate(evals)])

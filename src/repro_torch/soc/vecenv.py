@@ -23,6 +23,14 @@ episodes in one kernel launch, where the JAX package ``vmap``s.
 per-accelerator queues or shed, and run through the serving step
 (:func:`repro_torch.kernels.soc_step.ops.fused_serve_episode`).
 
+Every entry point takes ``faults=``, a :class:`~repro_torch.soc.faults.
+FaultSpec` whose presampled rows join the step inputs (``None`` is the
+healthy program; a zero spec is bitwise the same episode).  Training and
+serving have crash-resumable forms that checkpoint through a
+:class:`~repro_torch.checkpoint.manager.CheckpointManager`
+(:meth:`VecEnv.train_batched_checkpointed`,
+:meth:`ServeEnv.serve_checkpointed`).
+
 Concurrency model (the reference's one deliberate approximation): threads
 of a phase advance in lockstep *rounds*; thread ``t`` of round ``r`` senses
 threads ``< t`` of its own round and threads ``> t`` of round ``r-1``.
@@ -49,6 +57,7 @@ from repro_torch.soc.accelerators import (AccProfile, profile_matrix,
                                           resolve_profiles)
 from repro_torch.soc.config import SoCConfig
 from repro_torch.soc.des import Application, stripe_tiles
+from repro_torch.soc import faults as fault_mod
 from repro_torch.soc import traffic as traffic_mod
 from repro_torch.soc.memsys import SoCStatic
 
@@ -327,11 +336,25 @@ def _batched(spec: PolicySpec) -> PolicySpec:
     return spec
 
 
+def _fault_columns(faults, acc_id, n: int) -> dict:
+    """The ``f_*`` StepInputs columns of ``faults`` over an ``(S,)``
+    accelerator column, the same rows for each of ``n`` episodes (one
+    spec perturbs every policy of a batch alike); empty for ``None``."""
+    if faults is None:
+        return {}
+    fr = fault_mod.sample_fault_arrays(faults, acc_id)
+    ex = lambda v: v.expand(n, *v.shape)
+    return dict(f_exec=ex(fr.exec_scale), f_ddr=ex(fr.ddr_scale),
+                f_llc=ex(fr.llc_extra), f_retry=ex(fr.retry_cycles))
+
+
 def episode_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
-                   cfg: qlearn.QConfig, keys, *, gated: bool = False):
+                   cfg: qlearn.QConfig, keys, *, gated: bool = False,
+                   faults=None):
     """The fused step's per-step inputs for ``N`` episodes of a batched
     spec: ``(StepInputs (N, S, ...), inc (N, S))``, ``inc`` being the
-    decay-counter increments the episode applies."""
+    decay-counter increments the episode applies.  ``faults`` adds the
+    spec's presampled fault rows over the schedule's (padded) length."""
     qs0 = specs.qstate
     pmat, masks = params.pmat, params.masks
     n = qs0.qtable.shape[0]
@@ -352,7 +375,7 @@ def episode_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
         valid=ex(sched.valid), pre_mode=specs.modes.expand(n, n_steps),
         profile=ex(pmat[acc]), avail=ex(masks[acc]), eps=eps_t,
         alpha=alpha_t, u_explore=noise.u_explore, g_pick=noise.g_pick,
-        g_tie=noise.g_tie)
+        g_tie=noise.g_tie, **_fault_columns(faults, sched.acc_id, n))
     return xs, inc
 
 
@@ -421,21 +444,28 @@ def episode_tail(qs0: qlearn.QState, qtable, ys, inc, phases):
 def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
                  cfg: qlearn.QConfig, weights: rewards.RewardWeights, keys,
                  *, n_phases: int, n_threads: int, cycle_time: float,
-                 gated: bool = False, ddr_attribution: bool = False):
+                 gated: bool = False, ddr_attribution: bool = False,
+                 faults=None, debug_finite: bool = False):
     """``N`` fused episodes of a batched spec on one schedule, ONE kernel
-    launch.  ``weights`` leaves are ``(N,)`` or numbers, ``keys (N, 2)``.
+    launch.  ``weights`` leaves are ``(N,)`` or numbers, ``keys (N, 2)``;
+    ``faults`` perturbs every episode alike.  ``debug_finite`` raises
+    ``FloatingPointError`` on a non-finite reward or trained Q-table.
     Returns ``(QState (N), EpisodeResult (N, ...))``."""
     specs = _batched(specs)
     qs0 = specs.qstate
     n = qs0.qtable.shape[0]
     dev = params.pmat.device
-    xs, inc = episode_inputs(params, sched, specs, cfg, keys, gated=gated)
+    xs, inc = episode_inputs(params, sched, specs, cfg, keys, gated=gated,
+                             faults=faults)
     extrema0 = rewards.init_reward_state(params.pmat.shape[0], (n,),
                                          dev).extrema
     segments = phase_segments(sched, n_phases, n_threads)
     qtable, ys = soc_step_ops.fused_episode(
         params.static, specs.learned.expand(n), weights, qs0.qtable,
         extrema0, xs, ddr_attribution=ddr_attribution, gated=gated)
+    if debug_finite:
+        qlearn.debug_finite_check("vecenv.episode", reward=ys[5],
+                                  qtable=qtable)
     phases = phase_metrics(ys[3], ys[4], segments, n_phases=n_phases,
                            n_threads=n_threads, cycle_time=cycle_time)
     return episode_tail(qs0, qtable, ys, inc, phases)
@@ -443,8 +473,10 @@ def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
 
 class TrainCarry(NamedTuple):
     """Cross-iteration training state beyond the Q-state: the main key
-    stream (split 3 ways per iteration), the iteration index and the
-    running best mean episode reward (reward-collapse watchdog)."""
+    stream (split 3 ways per iteration), the iteration index (folded into
+    a fault spec's own key, so each iteration draws fresh drop coins) and
+    the running best mean episode reward (reward-collapse watchdog).  It
+    crosses checkpoints unchanged."""
 
     key: torch.Tensor    # (B, 2)
     it: int
@@ -458,19 +490,30 @@ def init_train_carry(keys) -> TrainCarry:
                                       device=keys.device))
 
 
+def iteration_faults(faults, it: int):
+    """Training iteration ``it``'s spec: the iteration folded into the
+    spec's own key (the main key stream is untouched)."""
+    if faults is None:
+        return None
+    return faults._replace(key=prng.fold_in(faults.key, it))
+
+
 class VecEnv:
     """Batched SoC environment over one SoC + accelerator set.
 
     Same profile resolution, action masks and timing constants as
     ``repro.soc.vecenv.VecEnv``.  ``device=None`` means the CUDA card
     (raises without one); ``device="cpu"`` runs the plain PyTorch step.
+    ``debug_finite=True`` checks every episode's rewards and trained
+    Q-table and raises ``FloatingPointError`` on a non-finite value (it
+    synchronizes with the card after each launch).
     """
 
     def __init__(self, soc: SoCConfig,
                  profiles: Sequence[AccProfile] | None = None,
                  seed: int = 0, flavor: str = "mixed",
                  cycle_time: float = 1e-8, ddr_attribution: bool = False,
-                 device=None):
+                 debug_finite: bool = False, device=None):
         self.soc = soc
         self.device = resolve_device(device)
         rng = np.random.default_rng(seed)
@@ -483,6 +526,7 @@ class VecEnv:
         self.geom = soc.geometry
         self.cycle_time = float(cycle_time)
         self.ddr_attribution = bool(ddr_attribution)
+        self.debug_finite = bool(debug_finite)
         masks = np.ones((soc.n_accs, N_MODES), bool)
         for i in soc.no_private_cache:
             masks[i, CoherenceMode.FULLY_COH] = False
@@ -494,105 +538,171 @@ class VecEnv:
         return compiled.schedule.to(self.device)
 
     def _run(self, compiled: CompiledApp, sched: Schedule, specs, cfg,
-             weights, keys):
+             weights, keys, faults=None):
         return run_episodes(
             self.params, sched, specs, cfg, weights, keys,
             n_phases=compiled.n_phases, n_threads=compiled.n_threads,
             cycle_time=self.cycle_time,
-            ddr_attribution=self.ddr_attribution)
+            ddr_attribution=self.ddr_attribution, faults=faults,
+            debug_finite=self.debug_finite)
 
     # ----------------------------------------------------- public episodes
     def episode_spec(self, compiled: CompiledApp, spec: PolicySpec,
                      cfg: qlearn.QConfig | None = None,
                      weights: rewards.RewardWeights | None = None,
-                     key=None) -> tuple[qlearn.QState, EpisodeResult]:
+                     key=None, faults=None
+                     ) -> tuple[qlearn.QState, EpisodeResult]:
         """One lowered spec's episode: ``(QState (batch of one),
         EpisodeResult (unbatched))``."""
         cfg = cfg or qlearn.QConfig()
         weights = weights or rewards.PAPER_DEFAULT_WEIGHTS
         key = (key if key is not None else prng.PRNGKey(0)).to(self.device)
         qs, res = self._run(compiled, self._sched(compiled), spec, cfg,
-                            weights, key.reshape(1, 2))
+                            weights, key.reshape(1, 2), faults)
         return qs, res.index(0)
 
     def episodes(self, compiled: CompiledApp, specs: PolicySpec,
                  cfg: qlearn.QConfig | None = None,
                  weights: rewards.RewardWeights | None = None,
-                 keys=None) -> EpisodeResult:
+                 keys=None, faults=None) -> EpisodeResult:
         """A heterogeneous batch of lowered policies on one app, one
-        kernel launch; ``keys`` default to ``PRNGKey(arange(N))``."""
+        kernel launch; ``keys`` default to ``PRNGKey(arange(N))`` and
+        ``faults`` perturbs every policy alike."""
         cfg = cfg or qlearn.QConfig()
         weights = weights or rewards.PAPER_DEFAULT_WEIGHTS
         n = specs.learned.shape[0]
         keys = (keys if keys is not None
                 else prng.PRNGKey(np.arange(n))).to(self.device)
         _, res = self._run(compiled, self._sched(compiled), specs, cfg,
-                           weights, keys)
+                           weights, keys, faults)
         return res
 
-    def baseline_episode(self, compiled: CompiledApp) -> EpisodeResult:
-        """Fixed NON_COH_DMA episode — the paper's normalization baseline."""
+    def baseline_episode(self, compiled: CompiledApp,
+                         faults=None) -> EpisodeResult:
+        """Fixed NON_COH_DMA episode — the paper's normalization baseline
+        (under ``faults``, so ratios isolate the policy from the storm)."""
         spec = fixed_policy_spec(self.params, self._sched(compiled), _NC)
-        _, res = self.episode_spec(compiled, spec)
+        _, res = self.episode_spec(compiled, spec, faults=faults)
         return res
 
     # ------------------------------------------------------------ training
-    def train_batched(self, train_apps: Sequence[CompiledApp],
-                      cfg: qlearn.QConfig,
-                      weights_batch: rewards.RewardWeights, keys,
-                      eval_app: CompiledApp | None = None):
-        """Train ``B`` agents, one kernel launch per iteration: agent ``b``
-        trains with ``weights_batch[b]`` from ``keys[b]``.  Each iteration
-        splits every agent's key 3 ways (next key, training episode,
-        evaluation episode), as the reference does.  Returns the batched
-        QState and, with ``eval_app``, per-iteration ``(norm_time,
-        norm_mem)`` histories of shape ``(B, iterations)``."""
+    def _train_setup(self, cfg, weights_batch, keys, eval_app, faults):
         keys = keys.to(self.device)
         b = keys.shape[0]
         wb = rewards.RewardWeights(*(torch.as_tensor(
             v, dtype=torch.float32, device=self.device).expand(b)
             for v in weights_batch))
-        eval_sched = base = None
+        ev = None
         if eval_app is not None:
-            eval_sched = self._sched(eval_app)
-            base = self.baseline_episode(eval_app)
-        qs = qlearn.init_qstate_batch(cfg, b, self.device)
-        tc = init_train_carry(keys)
+            ev = (eval_app, self._sched(eval_app),
+                  self.baseline_episode(eval_app, faults=faults))
+        return keys, wb, ev, qlearn.init_qstate_batch(cfg, b, self.device)
+
+    def _train_iters(self, apps, cfg, wb, qs, tc: TrainCarry, ev, faults):
+        """Iterations ``tc.it ...`` of training, one launch per training
+        and per evaluation episode; returns ``(qs, tc, hist_t, hist_m)``
+        with the histories as lists of ``(B,)`` tensors."""
         hist_t, hist_m = [], []
-        for app in train_apps:
+        for app in apps:
             sched = self._sched(app)
             ks = prng.split(tc.key, 3)
             k_train, k_eval = ks[:, 1], ks[:, 2]
+            f_i = iteration_faults(faults, tc.it)
             qs, er = self._run(app, sched, learned_policy_spec(qs, sched),
-                               cfg, wb, k_train)
+                               cfg, wb, k_train, f_i)
             valid = sched.valid
             ep_r = (torch.where(valid, er.reward, 0.0).sum(-1)
                     / torch.clamp(valid.to(torch.float32).sum(), min=1.0))
             qs, best = qlearn.reward_watchdog(cfg, qs, ep_r, tc.best)
-            if eval_app is not None:
+            if ev is not None:
+                eval_app, eval_sched, base = ev
                 _, er2 = self._run(
                     eval_app, eval_sched,
                     learned_policy_spec(qlearn.freeze(qs), eval_sched),
-                    cfg, wb, k_eval)
+                    cfg, wb, k_eval, f_i)
                 nt, nm = normalized_metrics(er2, base)
                 hist_t.append(nt)
                 hist_m.append(nm)
             tc = TrainCarry(key=ks[:, 0], it=tc.it + 1, best=best)
+        return qs, tc, hist_t, hist_m
+
+    def train_batched(self, train_apps: Sequence[CompiledApp],
+                      cfg: qlearn.QConfig,
+                      weights_batch: rewards.RewardWeights, keys,
+                      eval_app: CompiledApp | None = None, faults=None):
+        """Train ``B`` agents, one kernel launch per iteration: agent ``b``
+        trains with ``weights_batch[b]`` from ``keys[b]``.  Each iteration
+        splits every agent's key 3 ways (next key, training episode,
+        evaluation episode), as the reference does; ``faults`` perturbs
+        the training and evaluation episodes, iteration ``i`` drawing from
+        the spec's key folded with ``i``, and the baseline.  Returns the
+        batched QState and, with ``eval_app``, per-iteration ``(norm_time,
+        norm_mem)`` histories of shape ``(B, iterations)``."""
+        keys, wb, ev, qs = self._train_setup(cfg, weights_batch, keys,
+                                             eval_app, faults)
+        qs, _, hist_t, hist_m = self._train_iters(
+            train_apps, cfg, wb, qs, init_train_carry(keys), ev, faults)
         hist = ((torch.stack(hist_t, -1), torch.stack(hist_m, -1))
                 if eval_app is not None else None)
         return qs, hist
 
+    def train_batched_checkpointed(self, train_apps: Sequence[CompiledApp],
+                                   cfg: qlearn.QConfig,
+                                   weights_batch: rewards.RewardWeights,
+                                   keys, manager, *, ckpt_every: int = 1,
+                                   eval_app: CompiledApp | None = None,
+                                   faults=None):
+        """Crash-resumable :meth:`train_batched`.
+
+        Training runs in chunks of ``ckpt_every`` iterations; after each
+        the ``(QState, TrainCarry, histories, iterations done)`` snapshot
+        is saved through ``manager`` (a :class:`~repro_torch.checkpoint.
+        manager.CheckpointManager`).  On entry the newest restorable
+        checkpoint, if any, is loaded and training continues from its
+        iteration: the carry crosses chunks unchanged, so an interrupted
+        and resumed run returns Q-states and histories bitwise equal to
+        an uninterrupted :meth:`train_batched`.  The histories are
+        ``(B, iterations)`` tensors from the start (zeros without
+        ``eval_app``), so every checkpoint has the same structure."""
+        iters = len(train_apps)
+        if ckpt_every < 1:
+            raise ValueError("ckpt_every must be >= 1")
+        keys, wb, ev, qs = self._train_setup(cfg, weights_batch, keys,
+                                             eval_app, faults)
+        zeros = torch.zeros((keys.shape[0], iters), dtype=torch.float32,
+                            device=self.device)
+        state = {"qstate": qs, "carry": init_train_carry(keys),
+                 "hist_t": zeros, "hist_m": zeros.clone(), "done": 0}
+        if manager.latest_step() is not None:
+            state = manager.restore(state)
+        qs, tc, done = state["qstate"], state["carry"], state["done"]
+        hist_t, hist_m = state["hist_t"], state["hist_m"]
+        while done < iters:
+            n = min(ckpt_every, iters - done)
+            qs, tc, ht, hm = self._train_iters(
+                train_apps[done:done + n], cfg, wb, qs, tc, ev, faults)
+            if ht:
+                hist_t[:, done:done + n] = torch.stack(ht, -1)
+                hist_m[:, done:done + n] = torch.stack(hm, -1)
+            done += n
+            manager.save(done, {"qstate": qs, "carry": tc,
+                                "hist_t": hist_t, "hist_m": hist_m,
+                                "done": done})
+        manager.wait()
+        return qs, (hist_t, hist_m)
+
     def evaluate_batched(self, compiled: CompiledApp,
-                         qstates: qlearn.QState, cfg: qlearn.QConfig, keys):
+                         qstates: qlearn.QState, cfg: qlearn.QConfig, keys,
+                         faults=None):
         """Frozen-greedy evaluation of ``B`` agents on one app in one
-        launch (plus the NON_COH baseline's); returns ``(norm_time,
-        norm_mem)`` of shape ``(B,)``."""
-        base = self.baseline_episode(compiled)
+        launch (plus the NON_COH baseline's, under the same ``faults``);
+        returns ``(norm_time, norm_mem)`` of shape ``(B,)``."""
+        base = self.baseline_episode(compiled, faults=faults)
         sched = self._sched(compiled)
         _, er = self._run(compiled, sched,
                           learned_policy_spec(qlearn.freeze(qstates), sched),
                           cfg, rewards.PAPER_DEFAULT_WEIGHTS,
-                          keys.to(self.device))
+                          keys.to(self.device), faults)
         return normalized_metrics(er, base)
 
 
@@ -633,6 +743,21 @@ class ServeResult(NamedTuple):
         return ServeResult(*(v[i] for v in self))
 
 
+_SERVE_RESULT_DTYPES = (
+    torch.float32, torch.int32, torch.int32, torch.int32, torch.int32,
+    torch.float32, torch.float32, torch.float32, torch.bool, torch.float32,
+    torch.float32, torch.float32, torch.bool, torch.float32, torch.float32)
+
+
+def _zero_serve_results(n_chunks: int, n_requests: int,
+                        device=None) -> ServeResult:
+    """``(n_chunks, n_requests)`` zero leaves of each field's dtype: the
+    fixed structure of a checkpointed stream's results."""
+    return ServeResult(*(torch.zeros((n_chunks, n_requests), dtype=dt,
+                                     device=device)
+                         for dt in _SERVE_RESULT_DTYPES))
+
+
 def serve_params(cfg: qlearn.QConfig, frozen, tspec) -> \
         soc_step_ref.ServeParams:
     """The serving step's scalars for agents with ``frozen (N,)`` flags."""
@@ -650,11 +775,13 @@ def serve_params(cfg: qlearn.QConfig, frozen, tspec) -> \
 
 
 def serve_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
-                 arr: traffic_mod.Arrivals, keys) -> StepInputs:
+                 arr: traffic_mod.Arrivals, keys, faults=None) -> StepInputs:
     """The serving step's ``(N, n_requests, ...)`` rows for ``N`` lowered
     policies facing one arrival table.  thread/fresh/others/valid/eps/alpha
     are placeholders the step owns (serving slots are accelerators and the
-    decay schedule runs on the carried counter)."""
+    decay schedule runs on the carried counter).  ``faults`` rows are
+    drawn over the requests' accelerator column, so a storm composes with
+    admission request by request."""
     n = specs.learned.shape[0]
     n_req = arr.row.shape[0]
     pmat, masks = params.pmat, params.masks
@@ -674,7 +801,8 @@ def serve_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
         valid=torch.ones((n, n_req), dtype=torch.bool, device=dev),
         pre_mode=specs.modes[:, row], profile=ex(pmat[acc]),
         avail=ex(masks[acc]), eps=zf, alpha=zf,
-        u_explore=noise.u_explore, g_pick=noise.g_pick, g_tie=noise.g_tie)
+        u_explore=noise.u_explore, g_pick=noise.g_pick, g_tie=noise.g_tie,
+        **_fault_columns(faults, acc, n))
 
 
 def serve_results(qs0: qlearn.QState, carry, ys, arr: traffic_mod.Arrivals):
@@ -705,12 +833,14 @@ def serve_results(qs0: qlearn.QState, carry, ys, arr: traffic_mod.Arrivals):
 def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
               cfg: qlearn.QConfig, weights, tspec, carry, keys, t0, *,
               n_requests: int, queue_cap: int, n_real: int | None = None,
-              ddr_attribution: bool = False):
+              ddr_attribution: bool = False, faults=None,
+              debug_finite: bool = False):
     """``N`` serving chunks of a batched spec against one offered stream,
     ONE kernel launch.  Arrivals sample rows over the first ``n_real``
     schedule rows (default all; a padded stacked lane passes its real
-    length).  ``carry=None`` starts fresh streams.  Returns ``(ServeCarry
-    (N), QState (N), ServeResult (N, n_requests))``."""
+    length).  ``carry=None`` starts fresh streams; ``faults`` perturbs
+    every stream alike.  Returns ``(ServeCarry (N), QState (N),
+    ServeResult (N, n_requests))``."""
     specs = _batched(specs)
     qs0 = specs.qstate
     n = qs0.qtable.shape[0]
@@ -718,7 +848,7 @@ def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
     arr = traffic_mod.sample_arrivals(
         tspec, n_requests, sched.acc_id.shape[0] if n_real is None
         else int(n_real), t0)
-    xs = serve_inputs(params, sched, specs, arr, keys)
+    xs = serve_inputs(params, sched, specs, arr, keys, faults)
     if carry is None:
         carry = soc_step_ref.init_serve_carry(
             qs0.qtable, rewards.init_reward_state(
@@ -730,6 +860,9 @@ def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
         arr.t_arr.expand(n, -1), arr.deadline.expand(n, -1),
         arr.priority.expand(n, -1), ddr_attribution=ddr_attribution)
     qs, res = serve_results(qs0, carry, ys, arr)
+    if debug_finite:
+        qlearn.debug_finite_check("vecenv.serve", reward=res.reward,
+                                  qtable=qs.qtable)
     return carry, qs, res
 
 
@@ -742,9 +875,9 @@ class ServeEnv:
     retry-with-backoff, and, under sustained shedding, served in forced
     NON_COH while the watchdog reopens exploration.  ``traffic=None``
     delegates to :meth:`VecEnv.episode_spec`, the episodic path.  Chunks
-    chain: pass the returned carry and the last arrival time back in.
-    Fault injection (ROADMAP A9), MLP agents (A11) and checkpointed
-    serving (A10) are not ported."""
+    chain: pass the returned carry and the last arrival time back in;
+    :meth:`serve_checkpointed` does so through a checkpoint manager.
+    MLP agents (ROADMAP A11) are not ported."""
 
     def __init__(self, env: VecEnv, *, queue_cap: int = 8,
                  n_requests: int = 1024):
@@ -767,8 +900,6 @@ class ServeEnv:
 
     def _call(self, compiled, specs, traffic, cfg, weights, keys, carry,
               t0, n_requests, faults):
-        if faults is not None:
-            raise not_ported("fault-injected serving", "A9")
         cfg = cfg or qlearn.QConfig()
         weights = weights or rewards.PAPER_DEFAULT_WEIGHTS
         return run_serve(
@@ -776,7 +907,8 @@ class ServeEnv:
             traffic.to(self.env.device), carry, keys, t0,
             n_requests=int(n_requests or self.n_requests),
             queue_cap=self.queue_cap,
-            ddr_attribution=self.env.ddr_attribution)
+            ddr_attribution=self.env.ddr_attribution, faults=faults,
+            debug_finite=self.env.debug_finite)
 
     def serve(self, compiled: CompiledApp, spec: PolicySpec,
               traffic: traffic_mod.TrafficSpec | None = None, *,
@@ -790,10 +922,9 @@ class ServeEnv:
         :meth:`VecEnv.episode_spec`, returning its ``(QState,
         EpisodeResult)``."""
         if traffic is None:
-            if faults is not None:
-                raise not_ported("fault-injected episodes", "A9")
             return self.env.episode_spec(compiled, spec, cfg=cfg,
-                                         weights=weights, key=key)
+                                         weights=weights, key=key,
+                                         faults=faults)
         key = (key if key is not None else prng.PRNGKey(0)).to(
             self.env.device)
         carry, qs, res = self._call(compiled, spec, traffic, cfg, weights,
@@ -815,3 +946,52 @@ class ServeEnv:
                 else prng.PRNGKey(np.arange(n))).to(self.env.device)
         return self._call(compiled, specs, traffic, cfg, weights, keys,
                           None, 0.0, n_requests, faults)
+
+    def serve_checkpointed(self, compiled: CompiledApp, spec: PolicySpec,
+                           traffic: traffic_mod.TrafficSpec, manager, *,
+                           n_chunks: int, cfg: qlearn.QConfig | None = None,
+                           weights: rewards.RewardWeights | None = None,
+                           key=None, n_requests: int | None = None,
+                           faults=None):
+        """Crash-resumable serving of ``n_chunks`` chunks of one stream.
+
+        Chunk ``i`` draws its arrivals from ``traffic``'s key folded with
+        ``i`` (:func:`~repro_torch.soc.traffic.chunk_key`) and its select
+        noise from ``key`` folded with ``i``; the carry, the Q-state and
+        the arrival clock cross chunks, and after each chunk the snapshot
+        is saved through ``manager``.  On entry the newest restorable
+        checkpoint, if any, is loaded, so an interrupted and resumed
+        stream ends bitwise equal to an uninterrupted one.  Returns
+        ``(ServeCarry, QState, ServeResult)`` with the results flattened
+        to ``(n_chunks * n_requests,)`` request order."""
+        if n_chunks < 1:
+            raise ValueError("n_chunks must be >= 1")
+        key = (key if key is not None else prng.PRNGKey(0)).to(
+            self.env.device)
+        n = int(n_requests or self.n_requests)
+        state = {"carry": self.init_carry(spec.qstate),
+                 "qstate": spec.qstate,
+                 "results": _zero_serve_results(n_chunks, n,
+                                                self.env.device),
+                 "t0": torch.zeros((), dtype=torch.float32,
+                                   device=self.env.device),
+                 "done": 0}
+        if manager.latest_step() is not None:
+            state = manager.restore(state)
+        carry, qs, results = state["carry"], state["qstate"], state["results"]
+        t0, done = state["t0"], state["done"]
+        while done < n_chunks:
+            carry, qs, res = self.serve(
+                compiled, spec._replace(qstate=qs),
+                traffic_mod.chunk_key(traffic, done), cfg=cfg,
+                weights=weights, key=prng.fold_in(key, done), carry=carry,
+                t0=t0, n_requests=n, faults=faults)
+            for acc, r in zip(results, res):
+                acc[done] = r
+            t0 = res.t_arr[-1]
+            done += 1
+            manager.save(done, {"carry": carry, "qstate": qs,
+                                "results": results, "t0": t0,
+                                "done": done})
+        manager.wait()
+        return carry, qs, ServeResult(*(v.reshape(-1) for v in results))

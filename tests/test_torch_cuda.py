@@ -1,5 +1,5 @@
-"""The CUDA soc_step kernels (episode and serve) against their plain
-PyTorch versions, on the card.
+"""The CUDA soc_step kernels (episode and serve, healthy and faulted)
+against their plain PyTorch versions, on the card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -16,7 +16,7 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
 from repro_torch.kernels.soc_step import ops, ref
-from repro_torch.soc import traffic, vecenv
+from repro_torch.soc import faults, traffic, vecenv
 from repro_torch.soc.apps import make_application, make_phase
 from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
 from repro_torch.soc.des import Application
@@ -55,15 +55,24 @@ def _case(learned: bool, device):
     return env, sched, spec, cfg, keys, w
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ddr,gated,learned", COMBOS)
-def test_cuda_kernel_matches_ref(ddr, gated, learned):
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
                     "false)")
+
+
+def _slice(xs, sl):
+    return ref.StepInputs(*(None if v is None else v[:, sl] for v in xs))
+
+
+def _check_episode(ddr, gated, learned, intensity=None):
+    """One launch of the episode kernel (faulted under a storm of
+    ``intensity``) against ``ref.episode_ref`` on the CPU."""
     env, sched, spec, cfg, keys, w = _case(learned, "cuda")
+    fs = (None if intensity is None else faults.storm(
+        sched.acc_id.shape[0], intensity, prng.PRNGKey(42), device="cuda"))
     xs, _ = vecenv.episode_inputs(env.params, sched, spec, cfg, keys,
-                                  gated=gated)
+                                  gated=gated, faults=fs)
     b = keys.shape[0]
     ex0 = rewards.init_reward_state(SOC_MOTIV_PAR.n_accs, (b,),
                                     "cuda").extrema
@@ -72,7 +81,8 @@ def test_cuda_kernel_matches_ref(ddr, gated, learned):
     kq, kys = ops.fused_episode(env.static, spec.learned, w, q0, ex0, xs,
                                 ddr_attribution=ddr, gated=gated)
     torch.cuda.synchronize()
-    assert ops.launches == 1
+    counts = (ops.launches, ops.fault_launches)
+    assert counts == ((0, 1) if fs is not None else (1, 0))
     cpu = lambda t: t.cpu()
     rq, rys = ref.episode_ref(
         env.static, cpu(spec.learned),
@@ -89,10 +99,42 @@ def test_cuda_kernel_matches_ref(ddr, gated, learned):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ddr,gated,learned", COMBOS)
+def test_cuda_kernel_matches_ref(ddr, gated, learned):
+    _need_card()
+    _check_episode(ddr, gated, learned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddr,gated,learned", COMBOS)
+def test_cuda_faulted_kernel_matches_ref(ddr, gated, learned):
+    """The faulted instantiation (K1f) under the severe storm."""
+    _need_card()
+    _check_episode(ddr, gated, learned, intensity=1.0)
+
+
+@pytest.mark.cuda
+def test_cuda_faulted_zero_spec_is_healthy():
+    """A zero spec through K1f equals the healthy kernel, bitwise."""
+    _need_card()
+    env, sched, spec, cfg, keys, w = _case(True, "cuda")
+    b = keys.shape[0]
+    ex0 = rewards.init_reward_state(SOC_MOTIV_PAR.n_accs, (b,),
+                                    "cuda").extrema
+    outs = []
+    for fs in (None, faults.no_faults(device="cuda")):
+        xs, _ = vecenv.episode_inputs(env.params, sched, spec, cfg, keys,
+                                      faults=fs)
+        q, ys = ops.fused_episode(env.static, spec.learned, w,
+                                  spec.qstate.qtable.contiguous(), ex0, xs)
+        outs.append((q, *ys))
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_checks_inputs():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
-                    "false)")
+    _need_card()
     from repro_torch.kernels.soc_step import kernel
     env, sched, spec, cfg, keys, w = _case(True, "cuda")
     xs, _ = vecenv.episode_inputs(env.params, sched, spec, cfg, keys)
@@ -113,10 +155,10 @@ def test_cuda_wrapper_checks_inputs():
         kernel.soc_step_episode(xf, bad, consts, q0, ex0, **kw)
 
 
-def _serve_case(rate, device):
+def _serve_case(rate, device, intensity=None):
     """Three streams (a learning agent, fixed NON_COH, manual) on SoC1
     facing one two-tenant bursty stream; ``rate`` 4e-3 overloads it and
-    trips the watchdog."""
+    trips the watchdog.  ``intensity`` adds a fault storm."""
     soc = SOCS["SoC1"]
     env = vecenv.VecEnv(soc, seed=1, device=device)
     app = vecenv.compile_app(make_application(soc, seed=50, n_phases=2),
@@ -133,7 +175,9 @@ def _serve_case(rate, device):
     cfg = qlearn.QConfig(decay_steps=200)
     arr = traffic.sample_arrivals(tspec, 160, sched.acc_id.shape[0])
     keys = prng.PRNGKey(np.arange(3), device=device)
-    xs = vecenv.serve_inputs(env.params, sched, specs, arr, keys)
+    fs = (None if intensity is None else
+          faults.storm(160, intensity, prng.PRNGKey(42), device=device))
+    xs = vecenv.serve_inputs(env.params, sched, specs, arr, keys, fs)
     qs0 = specs.qstate
     carry0 = ref.init_serve_carry(
         qs0.qtable, rewards.init_reward_state(soc.n_accs, (3,),
@@ -145,31 +189,29 @@ def _serve_case(rate, device):
     return env.static, specs.learned, sp, carry0, xs, rows
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rate", [2e-7, 4e-3])
-def test_cuda_serve_kernel_matches_ref(rate):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
-                    "false)")
-    s, learned, sp, carry0, xs, rows = _serve_case(rate, "cuda")
+def _check_serve(rate, intensity=None):
+    """Two chained launches of the serve kernel (faulted under a storm of
+    ``intensity``) against ``ref.serve_episode_ref`` on the CPU."""
+    s, learned, sp, carry0, xs, rows = _serve_case(rate, "cuda", intensity)
     w = rewards.PAPER_DEFAULT_WEIGHTS
     ops.reset_launches()
     h = 80
     c1, y1 = ops.fused_serve_episode(
-        s, learned, w, sp, carry0, ref.StepInputs(*(v[:, :h]
-                                                    for v in xs[:15])),
+        s, learned, w, sp, carry0, _slice(xs, slice(None, h)),
         *(r[:, :h] for r in rows))
     kc, ky2 = ops.fused_serve_episode(
-        s, learned, w, sp, c1, ref.StepInputs(*(v[:, h:] for v in xs[:15])),
+        s, learned, w, sp, c1, _slice(xs, slice(h, None)),
         *(r[:, h:] for r in rows))
     torch.cuda.synchronize()
-    assert ops.serve_launches == 2
+    counts = (ops.serve_launches, ops.fault_serve_launches)
+    assert counts == ((0, 2) if intensity is not None else (2, 0))
     ky = torch.cat([y1, ky2], 1).cpu().numpy()
     cpu = lambda t: t.cpu()
     rc, ry = ref.serve_episode_ref(
         s, cpu(learned), w, ref.ServeParams(*map(cpu, sp)),
         ref.ServeCarry(*map(cpu, carry0)),
-        ref.StepInputs(*(cpu(v) for v in xs[:15])), *map(cpu, rows))
+        ref.StepInputs(*(None if v is None else cpu(v) for v in xs)),
+        *map(cpu, rows))
     ry = ry.numpy()
     for c, name in enumerate(ref.SERVE_YCOLS):
         if name in ("mode", "state_idx", "action", "executed", "retries",
@@ -185,3 +227,18 @@ def test_cuda_serve_kernel_matches_ref(rate):
                                    **TOL)
     if rate > 1e-3:
         assert ry[..., 10].max() == 1.0   # the watchdog tripped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [2e-7, 4e-3])
+def test_cuda_serve_kernel_matches_ref(rate):
+    _need_card()
+    _check_serve(rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [2e-7, 4e-3])
+def test_cuda_faulted_serve_kernel_matches_ref(rate):
+    """The faulted instantiation (K2f) under storm 0.7."""
+    _need_card()
+    _check_serve(rate, intensity=0.7)

@@ -1,11 +1,15 @@
-"""repro_torch stands alone: importing it and every submodule loads
-neither JAX nor anything of the reference package ``repro``."""
+"""repro_torch stands alone: importing it and every submodule, and running
+chip_smoke.py's port drivers, loads neither JAX nor anything of the
+reference package ``repro``; its entry points run on the card unless the
+caller asks for the CPU."""
 import os
 import pkgutil
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
@@ -41,3 +45,55 @@ def test_sources_name_no_jax_or_repro_import():
                      r"from\s+repro\.|import\s+repro\b)", re.M)
     hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
     assert not hits, hits
+
+
+def test_new_subpackages_are_covered():
+    """The fault model and the checkpoint package are among the modules
+    the import check above loads."""
+    mods = _modules()
+    for m in ("repro_torch.soc.faults", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.ckpt",
+              "repro_torch.checkpoint.manager"):
+        assert m in mods, m
+
+
+def test_chip_smoke_and_port_drivers_load_no_jax():
+    """chip_smoke.py and the port drivers it runs import neither JAX nor
+    repro, at import and on the port's path (Fig. 10 at a tiny size)."""
+    root = SRC.parent
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "from benchmarks import torch_fig9_socs, torch_fig11_serving\n"
+        "from benchmarks import torch_fig10_faults as f10\n"
+        "f10.run_port('cpu', iters=1, n_phases=2)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=f"{SRC}{os.pathsep}{root}")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """``device=None`` means CUDA: without a card every entry point
+    raises rather than running on the CPU."""
+    import torch
+    from benchmarks import torch_fig10_faults
+    from repro_torch.core import orchestrator
+    from repro_torch.soc import stacked, vecenv
+    from repro_torch.soc.config import SOCS
+    soc = SOCS["SoC1"]
+    makers = [lambda: vecenv.VecEnv(soc).device,
+              lambda: stacked.StackedVecEnv([soc]).device,
+              lambda: orchestrator.train_cohmeleon_batched(
+                  soc, iterations=1, n_phases=1).env.device]
+    if torch.cuda.is_available():
+        for make in makers:
+            assert make().type == "cuda"
+        return
+    for make in makers + [lambda: torch_fig10_faults.run_port()]:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

@@ -82,6 +82,10 @@ def _packed(args, device="cpu"):
 
 
 def test_kernel_wrapper_refuses_cpu_faulted_and_mlp():
+    """The CUDA wrappers refuse CPU tensors, the healthy and the faulted
+    instantiation alike, and the MLP variant (ROADMAP B3); the faulted
+    rows carry four more columns, and on the CPU ``ops`` runs them through
+    the plain version (neutral rows: the healthy result, bitwise)."""
     args, _ = _soc_step_case(True)
     xf, xi, consts, qt, ex, xs = _packed(args)
     assert xf.shape[-1] == 4 + 2 + xs.others.shape[-1] + 9 + 3 * 4
@@ -90,8 +94,6 @@ def test_kernel_wrapper_refuses_cpu_faulted_and_mlp():
               n_actions=4)
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.soc_step_episode(xf, xi, consts, qt, ex, **kw)
-    with pytest.raises(NotImplementedError, match="faulted"):
-        tkernel.soc_step_episode(xf, xi, consts, qt, ex, faulted=True, **kw)
     with pytest.raises(NotImplementedError, match="MLP"):
         tkernel.soc_step_episode(xf, xi, consts, qt, ex,
                                  wpack0=torch.zeros(4, 4), **kw)
@@ -99,6 +101,15 @@ def test_kernel_wrapper_refuses_cpu_faulted_and_mlp():
                          f_ddr=torch.ones_like(xs.footprint),
                          f_llc=torch.zeros_like(xs.footprint),
                          f_retry=torch.zeros_like(xs.footprint))
+    fxf, _ = tref.pack_inputs(faulty)
+    assert fxf.shape[-1] == xf.shape[-1] + 4
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.soc_step_episode(fxf, xi, consts, qt, ex, faulted=True,
+                                 **kw)
     ts, learned, tw, q0, e0, _ = _port_inputs(args)
-    with pytest.raises(NotImplementedError):
-        tops.fused_episode(ts, learned, tw, q0, e0, faulty)
+    tops.reset_launches()
+    got = tops.fused_episode(ts, learned, tw, q0, e0, faulty)
+    want = tops.fused_episode(ts, learned, tw, q0, e0, xs)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert (tops.launches, tops.fault_launches) == (0, 0)

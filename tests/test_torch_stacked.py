@@ -270,19 +270,27 @@ def test_profile_fixed_heterogeneous_matches_reference(name, runs):
 
 
 def test_faults_and_mlp_raise(envs):
+    """MLP agents (ROADMAP A11) raise; fault specs, which raised before
+    A9 was ported, are taken by every stacked and serving entry point: a
+    zero spec gives the healthy result bitwise (the storm cases are in
+    ``tests/test_torch_faults.py``)."""
+    from repro_torch.soc import faults as tfaults
     tenv, tapps = envs[4], envs[5]
     ts = tenv.compile(tapps, seed=4)
     specs = tenv.lower(ts, [tpol.ManualPolicy()])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tenv.episodes(ts, specs, faults=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        tenv.serve(ts, specs, ttraffic.poisson(1e-5), faults=object())
+    zero = tfaults.no_faults()
+    for a, b in zip(tenv.episodes(ts, specs, faults=zero),
+                    tenv.episodes(ts, specs)):
+        assert torch.equal(a, b)
+    tspec = ttraffic.poisson(1e-5)
+    for a, b in zip(tenv.serve(ts, specs, tspec, faults=zero, n_requests=8)[2],
+                    tenv.serve(ts, specs, tspec, n_requests=8)[2]):
+        assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="A11"):
         tenv.lower_mlps(ts, None)
     serve_env = tvec.ServeEnv(tenv.envs[0], queue_cap=2, n_requests=4)
     with pytest.raises(NotImplementedError, match="A11"):
         serve_env.init_carry(tq.init_qstate(), mlp=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        serve_env.serve(ts.compiled[0], tpol.ManualPolicy().lower(
-            tenv.envs[0], ts.compiled[0]), ttraffic.poisson(1e-5),
-            faults=object())
+    _, _, res = serve_env.serve(ts.compiled[0], tpol.ManualPolicy().lower(
+        tenv.envs[0], ts.compiled[0]), tspec, faults=zero)
+    assert res.executed.shape == (4,)
