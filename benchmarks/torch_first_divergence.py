@@ -1,8 +1,8 @@
-"""Where the port's full-width Fig. 9 / Fig. 11 runs first part from the
-reference's (ROADMAP C1-C3).
+"""Where the port's full-width Fig. 9 / Fig. 11 / Fig. 13 runs first part
+from the reference's (ROADMAP C1-C3, C5).
 
     PYTHONPATH=src python -m benchmarks.torch_first_divergence \
-        --fig 9|11 [--no-fma]
+        --fig 9|11|13 [--no-fma]
 
 Both packages run on the CPU with the figure's full-width protocol
 (``benchmarks/torch_fig9_socs.py`` / ``torch_fig11_serving.py``).
@@ -18,8 +18,16 @@ phase metrics element by element.
 ``--fig 11`` trains the agent in both packages, serves the four policies
 at 1.5x the calibrated capacity in both (each drawing its own arrivals
 from the same key) and prints, per column, how many requests differ and
-the first one.  ``--no-fma`` compiles the reference without fused
-multiply-add.
+the first one.
+
+``--fig 13`` builds Fig. 13's portfolio in both packages
+(``benchmarks/torch_fig13_generalize.py``), prints the gap between the two
+initial networks, then runs the first training iteration's episodes
+(every pair, every one of the 4 lanes, each package from its own initial
+network, then the port from the reference's) and prints, per pair, the
+first (lane, step) whose mode, state or action differs and the first
+whose reward differs, with both values, and the trained packs' gap.
+``--no-fma`` compiles the reference without fused multiply-add.
 """
 from __future__ import annotations
 
@@ -209,16 +217,73 @@ def fig11():
               f"reference, port) {first}")
 
 
+def fig13():
+    import jax
+    from benchmarks import fig13_generalize as F, torch_fig13_generalize as T
+    from repro.core import qlearn as jq
+    from repro.soc import dse as jd, nn as jn, vecenv as jv
+    from repro_torch import random as prng
+    from repro_torch.core import qlearn as tq
+    from repro_torch.soc import dse as td, nn as tn, vecenv as tv
+    from repro_torch.soc.apps import make_application as tma
+
+    js, ts = jd.sample_socs(0, T.N_TRAIN), td.sample_socs(0, T.N_TRAIN)
+    jitems = [(jv.VecEnv(s.config, seed=0),
+               [F._compile(s.config, s.seed + d, T.N_PHASES) for d in (0, 1)])
+              for s in js]
+    titems = [(tv.VecEnv(s.config, seed=0, device="cpu"),
+               [T._compile(tv, tma, s.config, s.seed + d, T.N_PHASES)
+                for d in (0, 1)]) for s in ts]
+    n = sum(c.n_steps for _, cs in jitems for c in cs) // 2 * T.ITERS
+    jcfg, tcfg = jq.QConfig(decay_steps=n), tq.QConfig(decay_steps=n)
+    jkey, jsub = jax.random.split(jax.random.PRNGKey(1))
+    jm = jn.init_mlp_qstate(jsub)
+    tks = prng.split(prng.PRNGKey(1))
+    tkey, tm = tks[0], tn.init_mlp_qstate(tks[1])
+    print("initial networks: max abs gap", float(np.abs(
+        np.asarray(jm.wpack) - tm.wpack[0].numpy()).max()))
+    carried = tn.mlp_from_numpy(*(np.asarray(v) for v in jm[:4]), tm.cfg)
+    for label, tnet in (("own init", tm), ("reference's init", carried)):
+        for j, ((jenv, jc), (tenv, tc)) in enumerate(zip(jitems, titems)):
+            jspec = jv.mlp_policy_spec(jm, jc[0].schedule)
+            tspec = tv.mlp_policy_spec(tnet, tc[0].schedule)
+            jks = jax.random.split(jax.random.fold_in(jkey, j), T.BATCH)
+            tkk = prng.split(prng.fold_in(tkey, j), T.BATCH)
+            first_int = first_r = None
+            wgap = 0.0
+            for b in range(T.BATCH):
+                (_, jmf), jr = jenv.episode_spec(jc[0], jspec, cfg=jcfg,
+                                                 key=jks[b])
+                (_, tmf), tr = tenv.episode_spec(tc[0], tspec, cfg=tcfg,
+                                                 key=tkk[b])
+                wgap = max(wgap, float(np.abs(np.asarray(jmf.wpack)
+                                              - tmf.wpack[0].numpy()).max()))
+                for f in ("mode", "state_idx"):
+                    cnt, fst = _first(np.asarray(getattr(jr, f)),
+                                      getattr(tr, f).numpy())
+                    if cnt and (first_int is None
+                                or (b, fst[0][0]) < first_int[:2]):
+                        first_int = (b, fst[0][0], f, fst[1], fst[2])
+                cnt, fst = _first(np.asarray(jr.reward), tr.reward.numpy())
+                if cnt and first_r is None:
+                    first_r = (b, fst[0][0], fst[1], fst[2])
+            print(f"{label}, iteration 0, pair {j} ({js[j].config.name}): "
+                  f"first integer difference (lane, step, column, "
+                  f"reference, port) {first_int}; first reward difference "
+                  f"(lane, step, reference, port) {first_r}; trained packs' "
+                  f"max abs gap {wgap:.3g}")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--fig", choices=("9", "11"), required=True)
+    ap.add_argument("--fig", choices=("9", "11", "13"), required=True)
     ap.add_argument("--no-fma", action="store_true")
     args = ap.parse_args()
     if args.no_fma:
         use_reference_without_fma()
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    fig9() if args.fig == "9" else fig11()
+    {"9": fig9, "11": fig11, "13": fig13}[args.fig]()
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
-        [--path fig6|fig9|fig10|fig11]
+        [--path fig6|fig9|fig10|fig11|fig13]
 
 Runs one of the full-width paths ``chip_smoke.py`` drives (default the
 Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
 ``fig10`` ``benchmarks/torch_fig10_faults.py``'s, ``fig11``
-``benchmarks/torch_fig11_serving.py``'s) once to warm up, then
+``benchmarks/torch_fig11_serving.py``'s, ``fig13``
+``benchmarks/torch_fig13_generalize.py``'s) once to warm up, then
 (1) times its wall and its host-side pieces one by one with the device
 synchronized around each, and (2) runs it again under ``torch.profiler``
 and prints the device's busy share of the wall time and the device time
@@ -186,10 +187,38 @@ def fig10_pieces(dev):
     }
 
 
+def fig13_pieces(dev):
+    from benchmarks import torch_fig13_generalize as f13
+    from repro_torch.soc import dse, nn as socnn
+    s = dse.sample_socs(0, 1)[0]
+    env = vec.VecEnv(s.config, seed=0, device=dev)
+    app = f13._compile(vec, apps.make_application, s.config, s.seed,
+                       f13.N_PHASES)
+    sched = env._sched(app)
+    cfg = qlearn.QConfig(decay_steps=app.n_steps * f13.ITERS)
+    keys = prng.PRNGKey(np.arange(f13.BATCH), device=dev)
+    spec = vec.expand_spec(vec.mlp_policy_spec(
+        socnn.init_mlp_qstate(prng.PRNGKey(1, device=dev)), sched),
+        f13.BATCH)
+    table = vec.learned_policy_spec(qlearn.init_qstate(device=dev), sched)
+    return {
+        f"portfolio training episode, B={f13.BATCH} ({app.n_steps} steps, "
+        "one K1m launch)": lambda: env._run(
+            app, sched, spec, cfg, rewards.PAPER_DEFAULT_WEIGHTS, keys),
+        "MLP episode inputs (noise, merged decay, pregather)": lambda:
+            vec.episode_inputs(env.params, sched, spec, cfg, keys),
+        "shared-table episode, B=1 (one K1 launch)": lambda:
+            env.episode(app, policy="q", qstate=table.qstate, cfg=cfg,
+                        key=keys[0]),
+        "compile one 3-phase application (host)": lambda: f13._compile(
+            vec, apps.make_application, s.config, s.seed, f13.N_PHASES),
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="fig6",
-                    choices=("fig6", "fig9", "fig10", "fig11"))
+                    choices=("fig6", "fig9", "fig10", "fig11", "fig13"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -210,6 +239,10 @@ def main():
         from benchmarks.torch_fig10_faults import run_port
         run = lambda: run_port(dev)
         pieces = fig10_pieces(dev)
+    elif args.path == "fig13":
+        from benchmarks.torch_fig13_generalize import run_port
+        run = lambda: run_port(dev)
+        pieces = fig13_pieces(dev)
     else:
         from benchmarks.torch_fig11_serving import run_port
         run = lambda: run_port(dev)

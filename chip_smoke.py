@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (``soc_step_episode`` and
-``soc_step_serve``, each in a healthy and a faulted instantiation, one
-source) from this checkout and holds each against its plain PyTorch
-version at the shapes its paths give it; checks the card against the CPU
-plain path on small inputs (batched training, serving, stacked episodes on
-2 lanes, each also under a fault storm, and a killed and resumed
-checkpointed training and serving run); then drives five paths at full
-width, each with the launch counts set to 0 just before it and read just
-after:
+``soc_step_serve``, each in a healthy and a faulted instantiation, and the
+episode kernel's MLP instantiations, healthy and faulted; one source)
+from this checkout and holds each against its plain PyTorch version at
+the shapes its paths give it; checks the card against the CPU plain path
+on small inputs (batched training, serving, stacked episodes on 2 lanes,
+each also under a fault storm, a killed and resumed checkpointed training
+and serving run, and MLP portfolio training); then drives seven paths at
+full width, each with the launch counts set to 0 just before it and read
+just after:
 
   * Fig. 6, the reward sweep on SOC_MOTIV_PAR: 15 weightings x 8 seeds =
     120 agents trained for 10 iterations of a 540-step app, one launch per
@@ -25,7 +26,13 @@ after:
     torch_fig10_faults.py``): an agent trained and six policies evaluated
     inside a fault storm at four intensities (healthy, 0.25, 0.5, 1.0);
   * storm serving: four policies serving 1,024 requests at Fig. 11's
-    capacity under ``storm(1024, 0.7, PRNGKey(42))``.
+    capacity under ``storm(1024, 0.7, PRNGKey(42))``;
+  * Fig. 13, held-out generalization (``benchmarks/
+    torch_fig13_generalize.py``): one MLP Q-network trained by federated
+    averaging over 8 DSE-sampled SoCs and a shared Q-table on the same
+    episodes, both scored on held-out apps and held-out SoCs;
+  * storm generalization: Fig. 13's two frozen agents scored on its six
+    held-out SoCs inside ``storm(steps, 1.0, PRNGKey(42))``.
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
@@ -62,9 +69,10 @@ TEST_SEED, TEST_TILE_SEED = 900, 5
 SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
                   "depth", "degraded")
 # per path: launches of (K1 episode, K2 serve, K1f faulted episode, K2f
-# faulted serve)
+# faulted serve, K1m MLP episode, K1m faulted)
 KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
-           "soc_step_serve_faulted")
+           "soc_step_serve_faulted", "soc_step_episode_mlp",
+           "soc_step_episode_mlp_faulted")
 
 
 def fail(msg: str, code: int = 1):
@@ -149,6 +157,7 @@ def main() -> None:
         from benchmarks import torch_fig9_socs as fig9
         from benchmarks import torch_fig10_faults as fig10
         from benchmarks import torch_fig11_serving as fig11
+        from benchmarks import torch_fig13_generalize as fig13
         from repro_torch import random as prng
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.core import orchestrator as orch
@@ -159,6 +168,7 @@ def main() -> None:
         from repro_torch.kernels.soc_step import ops as soc_ops
         from repro_torch.kernels.soc_step import ref as soc_ref
         from repro_torch.soc import apps, faults, traffic, vecenv as vec
+        from repro_torch.soc import dse, nn as socnn
         from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
         from repro_torch.soc.stacked import StackedVecEnv
     except ImportError as e:
@@ -203,38 +213,50 @@ def main() -> None:
 
     def episode_vs_plain(what, e, spec, w, xs, ddr=False, gated=False):
         """The episode kernel (its faulted instantiation when ``xs`` has
-        fault columns) against ``ref.episode_ref`` on the same inputs;
-        returns ``(max abs err, plain ms, packed kernel arguments)``."""
+        fault columns, its MLP one for an MLP spec) against
+        ``ref.episode_ref`` on the same inputs; returns ``(max abs err,
+        plain ms, packed kernel arguments, kernel outputs)``."""
         n = spec.learned.shape[0]
         extrema0 = rewards.init_reward_state(e.soc.n_accs, (n,),
                                              dev).extrema
+        mlp = spec.mlp
         xf, xi = soc_ref.pack_inputs(xs)
-        consts = soc_ref.pack_consts(e.static, spec.learned, w, n, dev)
+        consts = soc_ref.pack_consts(
+            e.static, spec.learned, w, n, dev,
+            *(() if mlp is None else (spec.qfun, mlp.lr)))
         q0 = spec.qstate.qtable.contiguous()
         kw = dict(n_threads=xs.others.shape[-1], n_tiles=xs.tiles.shape[-1],
                   n_actions=4, ddr_attribution=ddr, gated=gated,
                   faulted=xs.faulted)
-        kq, ky = soc_kernel.soc_step_episode(xf, xi, consts, q0, extrema0,
-                                             **kw)
+        args = (xf, xi, consts, q0, extrema0)
+        mkw = {}
+        if mlp is not None:
+            args += (mlp.wpack.contiguous(),)
+            kw.update(mlp_dims=socnn.mlp_dims(mlp.cfg),
+                      mlp_feats=mlp.cfg.features)
+            mkw = dict(wpack0=mlp.wpack, qfun=spec.qfun, mlp_lr=mlp.lr,
+                       mlp_dims=kw["mlp_dims"], mlp_feats=kw["mlp_feats"])
+        out = soc_kernel.soc_step_episode(*args, **kw)
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
-        rq, rys = soc_ref.episode_ref(e.static, spec.learned, w, q0,
-                                      extrema0, xs, ddr_attribution=ddr,
-                                      gated=gated)
+        plain = soc_ref.episode_ref(e.static, spec.learned, w, q0, extrema0,
+                                    xs, ddr_attribution=ddr, gated=gated,
+                                    **mkw)
         ev1.record()
         torch.cuda.synchronize()
-        err = compare_cols(torch, what, soc_ref.YCOLS, ky, torch.stack(
-            [c.to(torch.float32) for c in rys], -1),
+        err = compare_cols(torch, what, soc_ref.YCOLS, out[-1], torch.stack(
+            [c.to(torch.float32) for c in plain[-1]], -1),
             ("mode", "state_idx", "action"))
-        if not torch.allclose(kq, rq, rtol=TOL, atol=TOL):
-            fail(f"{what}: Q-table max abs err "
-                 f"{(kq - rq).abs().max().item()}")
-        err = max(err, (kq - rq).abs().max().item())
+        for label, a, r in zip(("Q-table", "weight pack"), out[:-1],
+                               plain[:-1]):
+            if not torch.allclose(a, r, rtol=TOL, atol=TOL):
+                fail(f"{what}: {label} max abs err "
+                     f"{(a - r).abs().max().item()}")
+            err = max(err, (a - r).abs().max().item())
         print(f"{what} B={n} S={xs.acc_id.shape[1]}: integer traces equal, "
               f"max abs err {err:.3e} (bound {TOL})")
-        return err, ev0.elapsed_time(ev1), ((xf, xi, consts, q0, extrema0),
-                                            kw)
+        return err, ev0.elapsed_time(ev1), (args, kw), out
 
     ep_err = 0.0
     for ddr, gated, learned in [(False, False, True), (True, True, True),
@@ -242,7 +264,7 @@ def main() -> None:
         spec = learned_spec if learned else manual_spec
         xs, _ = vec.episode_inputs(env.params, sched, spec, cfg, keys,
                                    gated=gated)
-        err, ms, packed = episode_vs_plain(
+        err, ms, packed, _ = episode_vs_plain(
             f"soc_step_episode vs plain ({ddr=}, {gated=}, {learned=})",
             env, spec, wb, xs, ddr, gated)
         ep_err = max(ep_err, err)
@@ -254,7 +276,7 @@ def main() -> None:
     storm6 = faults.storm(s_len, 1.0, prng.PRNGKey(42), device=dev)
     xs, _ = vec.episode_inputs(env.params, sched, learned_spec, cfg, keys,
                                faults=storm6)
-    epf_err, epf_plain_ms, packed_f = episode_vs_plain(
+    epf_err, epf_plain_ms, packed_f, _ = episode_vs_plain(
         "soc_step_episode_faulted vs plain (storm 1.0)", env, learned_spec,
         wb, xs)
     if torch.equal(xs.f_exec, torch.ones_like(xs.f_exec)):
@@ -275,10 +297,49 @@ def main() -> None:
         prng.PRNGKey(np.arange(6), device=dev),
         faults=faults.storm(app1.n_steps, 1.0, prng.PRNGKey(42),
                             device=dev))
-    err, _, _ = episode_vs_plain(
+    err, _, _, _ = episode_vs_plain(
         "soc_step_episode_faulted vs plain (Fig. 10 evaluation, storm 1.0)",
         env1, specs10, rewards.PAPER_DEFAULT_WEIGHTS, xs)
     epf_err = max(epf_err, err)
+
+    # ---- 2c. the MLP episode kernel (K1m) vs plain at Fig. 6's shape: 120
+    # learning sense networks (qfun, lr 0.05); a frozen one-hot network
+    # distilled from K1's trained tables, whose modes must be K1's; and
+    # the faulted MLP instantiation under the severe storm -----------------
+    mlp_spec = vec.mlp_policy_spec(socnn.init_mlp_qstate(keys), sched)
+    xs, _ = vec.episode_inputs(env.params, sched, mlp_spec, cfg, keys)
+    epm_err, epm_plain_ms, packed_m, (_, mw, _) = episode_vs_plain(
+        "soc_step_episode_mlp vs plain (sense (14, 16, 16, 4), learning)",
+        env, mlp_spec, wb, xs)
+    if torch.equal(mw, mlp_spec.mlp.wpack):
+        fail("the learning networks did not change")
+    (xf, xi, consts, q0, extrema0), kw = packed_main
+    trained, _ = soc_kernel.soc_step_episode(xf, xi, consts, q0, extrema0,
+                                             **kw)
+    frozen_q = qlearn.freeze(learned_spec.qstate._replace(qtable=trained))
+    tspec = vec.learned_policy_spec(frozen_q, sched)
+    xs, _ = vec.episode_inputs(env.params, sched, tspec, cfg, keys)
+    _, _, _, (_, ty) = episode_vs_plain(
+        "soc_step_episode vs plain (frozen trained tables)", env, tspec, wb,
+        xs)
+    oh_spec = vec.mlp_policy_spec(
+        socnn.freeze(socnn.mlp_from_qtable(trained)), sched)
+    xs_oh, _ = vec.episode_inputs(env.params, sched, oh_spec, cfg, keys)
+    err, _, _, (_, ow, oy) = episode_vs_plain(
+        "soc_step_episode_mlp vs plain (one-hot (243, 4) from the trained "
+        "tables, frozen)", env, oh_spec, wb, xs_oh)
+    epm_err = max(epm_err, err)
+    if not (torch.equal(oy[..., :3], ty[..., :3])
+            and torch.equal(ow, oh_spec.mlp.wpack)):
+        fail("the one-hot network distilled from the tables does not select "
+             "the tables' modes")
+    print("soc_step_episode_mlp (one-hot from the tables): modes, states "
+          "and actions equal to soc_step_episode's on the same tables")
+    xs, _ = vec.episode_inputs(env.params, sched, mlp_spec, cfg, keys,
+                               faults=storm6)
+    epmf_err, epmf_plain_ms, packed_mf, _ = episode_vs_plain(
+        "soc_step_episode_mlp_faulted vs plain (storm 1.0)", env, mlp_spec,
+        wb, xs)
 
     # ---- 3. the card equals the CPU plain path on small inputs ------------
     small = dict(iterations=2, seed=SEED, weights=WEIGHTS[:2], n_seeds=2,
@@ -379,6 +440,27 @@ def main() -> None:
     print("small storm training (SoC1, 2 agents, 2 iterations, storm 1.0): "
           "card == CPU plain path")
 
+    def small_portfolio(device):
+        items = [(vec.VecEnv(sp.config, seed=0, device=device),
+                  [fig13._compile(vec, apps.make_application, sp.config,
+                                  sp.seed + d, 2) for d in (0, 1)])
+                 for sp in dse.sample_socs(0, 2)]
+        return socnn.train_portfolio(
+            items, qlearn.QConfig(decay_steps=2048), iterations=2, batch=2,
+            key=prng.PRNGKey(1, device=device))
+
+    (g_mlp, g_hist), (c_mlp, c_hist) = (small_portfolio(dev),
+                                        small_portfolio("cpu"))
+    for f in ("wpack", "lr", "step", "frozen"):
+        a, r = getattr(g_mlp, f).cpu(), getattr(c_mlp, f)
+        if not (torch.allclose(a, r, rtol=TOL, atol=TOL)
+                if a.is_floating_point() else torch.equal(a, r)):
+            fail(f"small portfolio training: card and CPU {f} differ")
+    if not torch.allclose(g_hist, c_hist, rtol=TOL, atol=TOL):
+        fail("small portfolio training: card and CPU histories differ")
+    print("small portfolio training (2 DSE SoCs, 2 iterations of 2 "
+          "episodes): card == CPU plain path")
+
     # kill-and-resume of the checkpointed training and serving on the card
     ck_root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ck_root, ignore_errors=True)
@@ -441,7 +523,8 @@ def main() -> None:
     # ---- 4. Fig. 6 at full width ------------------------------------------
     counts = {}
     read = lambda: (soc_ops.launches, soc_ops.serve_launches,
-                    soc_ops.fault_launches, soc_ops.fault_serve_launches)
+                    soc_ops.fault_launches, soc_ops.fault_serve_launches,
+                    soc_ops.mlp_launches, soc_ops.mlp_fault_launches)
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
     soc_ops.reset_launches()
@@ -460,7 +543,7 @@ def main() -> None:
     t_end = time.perf_counter()
     counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0, 0, 0):
+    if counts["fig6"] != (expected, 0, 0, 0, 0, 0):
         fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
              f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
@@ -498,7 +581,7 @@ def main() -> None:
     fig9_s = time.perf_counter() - t9
     counts["fig9"] = read()
     e9 = r9["_engine"]
-    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0):
+    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0):
         fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
              f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
@@ -537,7 +620,7 @@ def main() -> None:
     counts["fig11"] = read()
     e11 = r11["_engine"]
     want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"], 0, 0)
+              e11["expected_serve_launches"], 0, 0, 0, 0)
     if counts["fig11"] != want11:
         fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
              f"expected {dict(zip(KERNELS, want11))}")
@@ -665,8 +748,8 @@ def main() -> None:
     counts["fig10"] = read()
     e10 = r10["_engine"]
     want10 = (e10["expected_episode_launches"], 0,
-              e10["expected_fault_episode_launches"], 0)
-    if counts["fig10"] != want10 or 0 in want10[::2]:
+              e10["expected_fault_episode_launches"], 0, 0, 0)
+    if counts["fig10"] != want10 or 0 in want10[0:3:2]:
         fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
              f"expected {dict(zip(KERNELS, want10))}")
     for label, _ in fig10.INTENSITIES:
@@ -702,7 +785,7 @@ def main() -> None:
     torch.cuda.synchronize()
     storm_s = time.perf_counter() - t_st
     counts["storm_serving"] = read()
-    if counts["storm_serving"] != (0, 0, 0, 1):
+    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0):
         fail(f"storm serving launched "
              f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
              f"{KERNELS[3]}")
@@ -719,6 +802,60 @@ def main() -> None:
     print(f"storm serving path on {card}: {storm_s:.3f} s wall, launches "
           f"{dict(zip(KERNELS, counts['storm_serving']))}")
 
+    # ---- 9b. Fig. 13 at full width -----------------------------------------
+    torch.cuda.synchronize()
+    soc_ops.reset_launches()
+    t13 = time.perf_counter()
+    r13, agents13 = fig13.run_port(dev, keep_agents=True)
+    torch.cuda.synchronize()
+    fig13_s = time.perf_counter() - t13
+    counts["fig13"] = read()
+    e13 = r13["_engine"]
+    want13 = (e13["expected_episode_launches"], 0, 0, 0,
+              e13["expected_mlp_episode_launches"], 0)
+    if counts["fig13"] != want13 or 0 in want13[::4]:
+        fail(f"Fig. 13 launched {dict(zip(KERNELS, counts['fig13']))}, "
+             f"expected {dict(zip(KERNELS, want13))}")
+    vals = r13["train_reward_history"] + [
+        v for st in fig13.SETS for row in r13["per_soc"][st]
+        for a in fig13.AGENTS for v in row[a]]
+    if not all(math.isfinite(v) for v in vals):
+        fail("Fig. 13: non-finite metrics")
+    if not bool(torch.isfinite(agents13[1].wpack).all()):
+        fail("Fig. 13: non-finite trained network")
+    fig13.print_results("fig13", r13)
+    print(f"fig13 path on {card}: {fig13_s:.3f} s wall (train MLP "
+          f"{e13['train_mlp_s']:.3f} s, train table "
+          f"{e13['train_table_s']:.3f} s, evaluate {e13['eval_s']:.3f} s), "
+          f"launches {dict(zip(KERNELS, counts['fig13']))}")
+    (ROOT / "chiprun_out" / "fig13_port.json").write_text(
+        json.dumps(r13, indent=1))
+
+    # ---- 9c. Fig. 13's agents on the held-out SoCs under a storm ----------
+    torch.cuda.synchronize()
+    soc_ops.reset_launches()
+    t_sg = time.perf_counter()
+    sg = fig13.storm_eval(agents13, 1.0)
+    torch.cuda.synchronize()
+    storm13_s = time.perf_counter() - t_sg
+    counts["storm_generalize"] = read()
+    n_held = len(agents13[2])
+    want_sg = (0, 0, 2 * n_held, 0, 0, n_held)
+    if counts["storm_generalize"] != want_sg:
+        fail(f"storm generalization launched "
+             f"{dict(zip(KERNELS, counts['storm_generalize']))}, expected "
+             f"{dict(zip(KERNELS, want_sg))}")
+    if not all(math.isfinite(v) for k in ("mean_speedup_vs_noncoh",
+                                          "mean_offchip_reduction_vs_noncoh")
+               for v in sg[k].values()):
+        fail("storm generalization: non-finite metrics")
+    print("storm generalization (held-out SoCs, storm 1.0): " + " ".join(
+        f"{a}=({sg['mean_speedup_vs_noncoh'][a]:.6f}, "
+        f"{sg['mean_offchip_reduction_vs_noncoh'][a]:.6f})"
+        for a in fig13.AGENTS))
+    print(f"storm generalization path on {card}: {storm13_s:.3f} s wall, "
+          f"launches {dict(zip(KERNELS, counts['storm_generalize']))}")
+
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
         for _ in range(3):
@@ -726,19 +863,36 @@ def main() -> None:
         torch.cuda.synchronize()
         return event_ms(torch, fn, 20)
 
+    def mlp_step_ops(dims, feats):
+        """f32 operations of one MLP step that learns: the features (~60
+        for "sense"), the forward (a multiply and an add per weight, the
+        bias, the ReLU), Q(s, a) and delta, the backward's gradient sums
+        and the update (a multiply for the gradient, the step size and
+        the subtraction per weight and bias)."""
+        pairs = list(zip(dims[:-1], dims[1:]))
+        ops = 60 if feats == "sense" else 0
+        ops += sum(2 * i * o + 2 * o for i, o in pairs) + 2 * dims[-1] + 1
+        ops += sum(2 * i * o + i for i, o in pairs[1:])
+        ops += sum(3 * i * o + 2 * o for i, o in pairs)
+        return ops
+
     def episode_numbers(packed, shape):
         """(ms, bound ms, bytes ms, ops ms) of the episode kernel on
         ``packed``: the bytes each input is read and each output written
-        once; per step the fused step's ~200 scalar operations, the
-        concurrent slots' reductions and, faulted, 6 more."""
-        (xf, xi, consts, q0, extrema0), kw = packed
-        ms = time_kernel(lambda: soc_kernel.soc_step_episode(
-            xf, xi, consts, q0, extrema0, **kw))
+        once (the weight packs too); per step the fused step's ~200 scalar
+        operations, the concurrent slots' reductions, faulted 6 more, and
+        the network's (:func:`mlp_step_ops`)."""
+        args, kw = packed
+        xf, xi, consts, q0, extrema0 = args[:5]
+        ms = time_kernel(lambda: soc_kernel.soc_step_episode(*args, **kw))
         nb, ns, nf = xf.shape
+        wbytes = 2 * args[5].numel() if len(args) > 5 else 0
         nbytes = 4 * (nb * ns * (nf + 5) + consts.numel() + 2 * q0.numel()
-                      + extrema0.numel() + nb * ns * 6)
+                      + extrema0.numel() + nb * ns * 6 + wbytes)
         flops = nb * ns * (200 + kw["n_threads"] * (9 + 5 * kw["n_tiles"])
-                           + (6 if kw["faulted"] else 0))
+                           + (6 if kw["faulted"] else 0)
+                           + (mlp_step_ops(kw["mlp_dims"], kw["mlp_feats"])
+                              if "mlp_dims" in kw else 0))
         by = nbytes / H100_BYTES_PER_S * 1e3
         op = flops / H100_F32_FLOPS * 1e3
         print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
@@ -778,16 +932,21 @@ def main() -> None:
         episode_numbers(packed_f,
                         f"soc_step_episode_faulted B={b} S={s_len}"),
         serve_numbers(svf_packed, f"soc_step_serve_faulted B=4 S={n_req}"),
+        episode_numbers(packed_m, f"soc_step_episode_mlp B={b} S={s_len}"),
+        episode_numbers(packed_mf,
+                        f"soc_step_episode_mlp_faulted B={b} S={s_len}"),
     ]
-    plain = [ep_plain_ms, sv_plain_ms, epf_plain_ms, svf_plain_ms]
-    errs = [ep_err, sv_err, epf_err, svf_err]
+    plain = [ep_plain_ms, sv_plain_ms, epf_plain_ms, svf_plain_ms,
+             epm_plain_ms, epmf_plain_ms]
+    errs = [ep_err, sv_err, epf_err, svf_err, epm_err, epmf_err]
     shapes = [f"B={b} S={s_len}", f"B=4 S={n_req}", f"B={b} S={s_len}",
-              f"B=4 S={n_req}"]
+              f"B=4 S={n_req}", f"B={b} S={s_len}", f"B={b} S={s_len}"]
     for name, ms in zip(KERNELS, plain):
         print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
               f"library_ms null (no single PyTorch call computes the step)")
     paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
-               "fig10": fig10_s, "storm_serving": storm_s}
+               "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s,
+               "storm_generalize": storm13_s}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 
@@ -798,9 +957,11 @@ def main() -> None:
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/soc_step/csrc/soc_step.cu",
-         "replaces": ("src/repro/kernels/soc_step/kernel.py:113" if j % 2 == 0
-                      else "src/repro/kernels/soc_step/kernel.py:258"),
-         "variant": "faulted=True" if j >= 2 else "healthy",
+         "replaces": ("src/repro/kernels/soc_step/kernel.py:258"
+                      if "serve" in name
+                      else "src/repro/kernels/soc_step/kernel.py:113"),
+         "variant": ("mlp_dims, " if "mlp" in name else "")
+                    + ("faulted=True" if "faulted" in name else "healthy"),
          "launches": sum(c[j] for c in counts.values()),
          "launches_by_path": by_path(j), "max_abs_err": errs[j],
          "ms": nums[j][0], "plain_ms": plain[j], "bound_ms": nums[j][1],

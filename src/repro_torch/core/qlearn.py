@@ -25,6 +25,7 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core.modes import CoherenceMode, N_MODES
 from repro_torch.core.state import N_STATES
+from repro_torch.ordered import true_div
 
 _NEG = float(np.float32(-3.4e38))
 _TIE = float(np.float32(1e-9))
@@ -183,8 +184,10 @@ def decay_arrays(cfg: QConfig, step0, frozen, inc):
     ``cfg.decay_steps`` may be a ``(B,)`` tensor."""
     inc = inc.to(torch.int32)
     step_t = step0[:, None] + torch.cumsum(inc, -1, dtype=torch.int32) - inc
-    frac = torch.clamp(1.0 - step_t.to(torch.float32)
-                       / _decay_steps_f32(cfg), 0.0, 1.0)
+    d = _decay_steps_f32(cfg)
+    step_f = step_t.to(torch.float32)
+    frac = torch.clamp(1.0 - (step_f / d if torch.is_tensor(d)
+                              else true_div(step_f, d)), 0.0, 1.0)
     fz = frozen[:, None]
     eps_t = torch.where(fz, 0.0, cfg.epsilon0 * frac)
     alpha_t = torch.where(fz, 0.0, cfg.alpha0 * frac)

@@ -10,7 +10,9 @@ root of the checkout.  A missing ``nvcc`` raises: there is no fallback.
 stream for ``B`` episodes at once, :func:`soc_step_serve` the serving
 kernel for ``B`` arrival streams; ``faulted=True`` launches each kernel's
 fault-injected instantiation, which reads four more float columns per
-row.  The source's notes say what bounds each and how it is laid out.
+row, and ``wpack0`` the episode kernel's MLP instantiation, which keeps
+``B`` packed Q-networks resident beside the Q-tables.  The source's notes
+say what bounds each and how it is laid out.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels.soc_step.ref import (N_CONSTS, N_SERVE_CONSTS,
                                               SERVE_YCOLS, ServeCarry, YCOLS)
+from repro_torch.soc.nn import pack_shape
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "soc_step.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -79,8 +82,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.soc_step_episode_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         fn = lib.soc_step_serve_launch
         fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 12
@@ -117,7 +120,8 @@ def _check_xi(xi, limits):
 def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
                      n_threads: int, n_tiles: int, n_actions: int,
                      ddr_attribution: bool = False, gated: bool = False,
-                     faulted: bool = False):
+                     faulted: bool = False, mlp_dims=None,
+                     mlp_feats: str = "sense"):
     """Run ``B`` packed episodes through the CUDA kernel.
 
     ``xf (B, S, NF)`` f32 / ``xi (B, S, 5)`` i32 are the packed step rows
@@ -125,25 +129,41 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
     (B, 25)`` f32 (:func:`~repro_torch.kernels.soc_step.ref.pack_consts`),
     ``qtable0 (B, 243, A)`` and ``extrema0 (B, 4, n_accs)`` f32.  With
     ``faulted`` the rows end in the four fault columns.  Returns
-    ``(qtable_final (B, 243, A), y (B, S, 6))``.  The MLP variant is not
-    ported and raises."""
-    if wpack0 is not None:
-        raise NotImplementedError(
-            "the MLP soc_step variant is not ported to CUDA yet")
+    ``(qtable_final (B, 243, A), y (B, S, 6))``.
+
+    The MLP instantiation takes ``wpack0 (B, R, C)`` f32 packed networks
+    of layer widths ``mlp_dims`` (at most 4 layers, widths at most 243)
+    over the ``mlp_feats`` embedding, and ``consts (B, 27)`` ending in
+    ``[qfun, mlp_lr]``; it returns ``(qtable_final, wpack_final, y)``."""
     _check("xf", xf, torch.float32, 3)
     _check("xi", xi, torch.int32, 3)
     _check("consts", consts, torch.float32, 2)
     _check("qtable0", qtable0, torch.float32, 3)
     _check("extrema0", extrema0, torch.float32, 3)
+    mlp = wpack0 is not None
+    if mlp:
+        _check("wpack0", wpack0, torch.float32, 3)
+        if mlp_dims is None or mlp_feats not in ("sense", "onehot"):
+            raise ValueError("the MLP variant needs mlp_dims and mlp_feats "
+                             "'sense' or 'onehot'")
+        dims = [int(d) for d in mlp_dims]
+        if (tuple(wpack0.shape[1:]) != pack_shape(dims)
+                or wpack0.shape[0] != xf.shape[0] or not 2 <= len(dims) <= 5
+                or max(dims) > 243):
+            raise ValueError(f"wpack0 {tuple(wpack0.shape)} does not hold "
+                             f"B networks of widths {dims} (at most 4 "
+                             "layers of at most 243)")
     b, s, nf = xf.shape
     n_states, n_a = qtable0.shape[1:]
     n_accs = extrema0.shape[2]
     n_feat = (nf - 4 - n_tiles - n_threads - 3 * n_actions
               - (4 if faulted else 0))
-    devs = {t.device for t in (xf, xi, consts, qtable0, extrema0)}
+    devs = {t.device for t in (xf, xi, consts, qtable0, extrema0)
+            + ((wpack0,) if mlp else ())}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
-    if (tuple(xi.shape) != (b, s, 5) or tuple(consts.shape) != (b, N_CONSTS)
+    n_consts = N_CONSTS + (2 if mlp else 0)
+    if (tuple(xi.shape) != (b, s, 5) or tuple(consts.shape) != (b, n_consts)
             or qtable0.shape[0] != b or n_a != n_actions
             or tuple(extrema0.shape[:2]) != (b, 4) or n_feat < 9):
         raise ValueError(
@@ -157,18 +177,24 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
     y = torch.empty((b, s, len(YCOLS)), dtype=torch.float32,
                     device=xf.device)
     qtable = torch.empty_like(qtable0)
+    wpack = torch.empty_like(wpack0) if mlp else None
+    dims_arr = (ctypes.c_int * 5)(*(dims if mlp else []))
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.soc_step_episode_launch(
             xf.data_ptr(), xi.data_ptr(), consts.data_ptr(),
-            qtable0.data_ptr(), extrema0.data_ptr(), y.data_ptr(),
-            qtable.data_ptr(), b, s, nf, N_CONSTS, n_tiles, n_threads,
-            n_feat, n_actions, n_states, n_accs, int(ddr_attribution),
-            int(gated), int(faulted), stream)
+            qtable0.data_ptr(), extrema0.data_ptr(),
+            wpack0.data_ptr() if mlp else None, y.data_ptr(),
+            qtable.data_ptr(), wpack.data_ptr() if mlp else None, b, s, nf,
+            n_consts, n_tiles, n_threads, n_feat, n_actions, n_states,
+            n_accs, int(ddr_attribution), int(gated), int(faulted),
+            ("sense", "onehot").index(mlp_feats) if mlp else -1,
+            len(dims) if mlp else 0, ctypes.cast(dims_arr, ctypes.c_void_p),
+            stream)
     if err != 0:
         raise RuntimeError(f"soc_step_episode launch failed: CUDA error "
                            f"{err}")
-    return qtable, y
+    return (qtable, wpack, y) if mlp else (qtable, y)
 
 
 def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,

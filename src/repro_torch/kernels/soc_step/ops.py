@@ -7,10 +7,12 @@ the tensors lie: CUDA tensors launch the hand-written kernels
 :func:`~repro_torch.kernels.soc_step.ref.serve_episode_ref`).  There is no
 fallback between them: a CUDA call that cannot launch raises.  Inputs
 with fault columns (``xs.f_exec`` set) take the kernels' faulted
+instantiations, episodes of MLP agents (``mlp=``) the episode kernel's MLP
 instantiations.  :data:`launches` and :data:`serve_launches` count the
-healthy kernels' launches, :data:`fault_launches` and
-:data:`fault_serve_launches` the faulted ones', so a run can show that it
-went through the kernels.
+healthy table kernels' launches, :data:`fault_launches` and
+:data:`fault_serve_launches` the faulted ones', :data:`mlp_launches` and
+:data:`mlp_fault_launches` the MLP episode kernel's, so a run can show
+that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -23,47 +25,70 @@ from repro_torch.kernels.soc_step.ref import (ServeCarry, ServeParams,
                                               pack_serve_consts,
                                               pack_serve_rows,
                                               serve_episode_ref, unpack_ys)
+from repro_torch.soc import nn as socnn
 from repro_torch.soc.memsys import SoCStatic
 
 launches = 0
 serve_launches = 0
 fault_launches = 0
 fault_serve_launches = 0
+mlp_launches = 0
+mlp_fault_launches = 0
 
 
 def reset_launches() -> None:
     global launches, serve_launches, fault_launches, fault_serve_launches
+    global mlp_launches, mlp_fault_launches
     launches = serve_launches = fault_launches = fault_serve_launches = 0
+    mlp_launches = mlp_fault_launches = 0
 
 
 def fused_episode(s: SoCStatic, learned, weights, qtable0, extrema0,
                   xs: StepInputs, *, ddr_attribution: bool = False,
-                  gated: bool = False):
+                  gated: bool = False, qfun=None, mlp=None):
     """Run ``B`` fused episodes; returns ``(qtable_final, ys)``.
 
     ``xs`` leaves are ``(B, S, ...)``; ``qtable0 (B, 243, A)``,
     ``extrema0 (B, 4, n_accs)``; ``learned`` and the weight leaves are
     ``(B,)`` tensors or numbers.  ``ys`` is the ``(B, S)`` per-step
     ``(mode, state_idx, action, exec_cycles, offchip, reward)`` tuple with
-    integer columns as int32."""
-    global launches, fault_launches
+    integer columns as int32.  With ``mlp`` (a :class:`~repro_torch.soc.
+    nn.MLPQState` of ``B`` networks) and ``qfun (B,)`` the packed weights
+    ride the episode and the return is ``(qtable_final, wpack_final,
+    ys)``."""
+    global launches, fault_launches, mlp_launches, mlp_fault_launches
+    mlp_kw = {}
+    if mlp is not None:
+        mlp_kw = dict(mlp_dims=socnn.mlp_dims(mlp.cfg),
+                      mlp_feats=mlp.cfg.features)
     if qtable0.device.type != "cuda":
+        plain_kw = {} if mlp is None else dict(
+            wpack0=mlp.wpack, qfun=qfun, mlp_lr=mlp.lr, **mlp_kw)
         return episode_ref(s, learned, weights, qtable0, extrema0, xs,
-                           ddr_attribution=ddr_attribution, gated=gated)
+                           ddr_attribution=ddr_attribution, gated=gated,
+                           **plain_kw)
     b = qtable0.shape[0]
     xf, xi = pack_inputs(xs)
-    consts = pack_consts(s, learned, weights, b, qtable0.device)
-    qtable, y = _kernel.soc_step_episode(
+    consts = pack_consts(s, learned, weights, b, qtable0.device,
+                         *(() if mlp is None else (qfun, mlp.lr)))
+    out = _kernel.soc_step_episode(
         xf, xi, consts, qtable0.to(torch.float32).contiguous(),
         extrema0.to(torch.float32).contiguous(),
+        None if mlp is None else mlp.wpack.to(torch.float32).contiguous(),
         n_threads=xs.others.shape[-1], n_tiles=xs.tiles.shape[-1],
         n_actions=xs.avail.shape[-1], ddr_attribution=ddr_attribution,
-        gated=gated, faulted=xs.faulted)
+        gated=gated, faulted=xs.faulted, **mlp_kw)
+    if mlp is not None:
+        if xs.faulted:
+            mlp_fault_launches += 1
+        else:
+            mlp_launches += 1
+        return out[0], out[1], unpack_ys(out[2])
     if xs.faulted:
         fault_launches += 1
     else:
         launches += 1
-    return qtable, unpack_ys(y)
+    return out[0], unpack_ys(out[1])
 
 
 def fused_serve_episode(s: SoCStatic, learned, weights, sp: ServeParams,

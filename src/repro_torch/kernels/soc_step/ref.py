@@ -24,6 +24,13 @@ operation follows the kernel's order, so the two round alike.
 The Q-table and slot table are updated in place on copies made at the
 start of :func:`episode_ref` (one gather/scatter of a row per step
 instead of a fresh table).
+
+With a packed MLP (:mod:`repro_torch.soc.nn`: ``wpack``, the per-episode
+``qfun`` flags, learning-rate scales and the static layer widths) the
+step also builds the network's features, runs its forward and, on
+``qfun`` episodes, selects from the network's Q-row instead of the table
+row and applies the TD update to the weights instead of the table.  It
+composes with fault columns, as the reference's step does.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.core import qlearn, rewards, state as cstate
 from repro_torch.core.modes import CoherenceMode
 from repro_torch.core.state import CacheGeometry
 from repro_torch.ordered import seqsum
+from repro_torch.soc import nn as socnn
 from repro_torch.soc.faults import StepFault
 from repro_torch.soc.memsys import (SoCStatic, invocation_perf_cached,
                                     static_tensors, warmth_after)
@@ -50,7 +58,8 @@ YCOLS = ("mode", "state_idx", "action", "exec_time", "offchip", "reward")
 ICOLS = ("acc_id", "thread", "fresh", "valid", "pre_mode")
 
 N_STATIC = len(SoCStatic._fields)
-# consts row layout: the SoCStatic scalars, then learned, then (x, y, z).
+# consts row layout: the SoCStatic scalars, then learned, then (x, y, z);
+# the MLP variant appends (qfun, mlp_lr).
 N_CONSTS = N_STATIC + 4
 
 
@@ -142,13 +151,15 @@ def pack_inputs(xs: StepInputs) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def pack_consts(s: SoCStatic, learned, weights, batch: int,
-                device=None) -> torch.Tensor:
+                device=None, qfun=None, mlp_lr=None) -> torch.Tensor:
     """The kernel's ``(B, 25)`` float32 consts rows: the 21 SoCStatic
-    scalars, ``learned``, then the reward weights (x, y, z)."""
+    scalars, ``learned``, then the reward weights (x, y, z); with
+    ``qfun`` (the MLP variant) ``(B, 27)``, ending in ``[qfun, mlp_lr]``."""
     st = static_tensors(s, batch, device)
+    extra = () if qfun is None else (qfun, mlp_lr)
     cols = list(st) + [
         torch.as_tensor(v, device=device).to(torch.float32).expand(batch)
-        for v in (learned, weights.x, weights.y, weights.z)]
+        for v in (learned, weights.x, weights.y, weights.z, *extra)]
     return torch.stack(cols, dim=-1).contiguous()
 
 
@@ -171,12 +182,17 @@ def derive_geom(s: SoCStatic):
 def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
                weights, qtable, rs: rewards.RewardState, tbl,
                x: StepInputs, *, ddr_attribution: bool = False,
-               gated: bool = False):
+               gated: bool = False, wpack=None, qfun=None, mlp_lr=None,
+               mlp_dims=None, mlp_feats: str = "sense"):
     """One fused sense->select->time->reward->learn step for B episodes.
 
     ``qtable (B, 243, A)`` and ``tbl (B, T, 6 + n_tiles)`` are updated in
     place; returns ``(rs_new, y)`` with ``y (B, 6)`` the :data:`YCOLS`
     row.  ``s``/``warm_cap``/``learned``/``weights`` leaves are ``(B,)``.
+    With ``wpack (B, R, C)`` (and ``qfun``/``mlp_lr (B,)``, ``mlp_dims``,
+    ``mlp_feats``) returns ``(rs_new, wpack_new, y)``: ``qfun`` episodes
+    select from the network's Q-row, train the network and leave their
+    table row bitwise untouched.
     """
     f32 = torch.float32
     b = tbl.shape[0]
@@ -204,11 +220,22 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
                          self_row[:, TBL_WARM])
 
     row = qtable[ar, state_idx.long()]
+    row_sel, learned_eff = row, learned
+    if wpack is not None:
+        # the network's Q-row goes through the same selection, so
+        # non-finite weights fall back to NON_COH like a non-finite row
+        feats = socnn.step_features(
+            mlp_feats, s, state_idx, footprint=x.footprint, tiles=x.tiles,
+            omask=omask, omodes=omodes, ofps=ofps, odram=odram,
+            warm_t=warm_t, profile=x.profile, slack=0.0, reuse=0.0)
+        hs = socnn.forward_layers(wpack, feats, mlp_dims)
+        row_sel = torch.where(qfun[:, None], hs[-1], row)
+        learned_eff = learned | qfun
     q_action = qlearn.row_select_presampled(
-        row, x.eps, qlearn.SelectNoise(
+        row_sel, x.eps, qlearn.SelectNoise(
             u_explore=x.u_explore, g_pick=x.g_pick, g_tie=x.g_tie),
         x.avail)
-    action = torch.where(learned, q_action, x.pre_mode.to(torch.int32))
+    action = torch.where(learned_eff, q_action, x.pre_mode.to(torch.int32))
 
     # Degradation safety: a non-finite footprint forces the always-
     # available non-coherent mode, like an unavailable action.
@@ -242,6 +269,13 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
     r, rs_new, _ = rewards.evaluate(rs, x.acc_id, meas, weights)
 
     new_qrow = qlearn.row_update(row, x.alpha, action, r)
+    if wpack is not None:
+        # qfun episodes leave the (placeholder) table row untouched: their
+        # alpha follows the network's schedule, so the blend is replaced
+        new_qrow = torch.where(qfun[:, None], row, new_qrow)
+        wpack = socnn.td_update_from(
+            wpack, hs, action, r, x.alpha * mlp_lr, mlp_dims,
+            (qfun & x.valid) if gated else qfun)
     n_t = torch.clamp(x.tiles.to(torch.int32).sum(-1), min=1).to(f32)
     new_slot = torch.cat([
         torch.stack([mode.to(f32), x.footprint,
@@ -260,12 +294,15 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
 
     y = torch.stack([mode.to(f32), state_idx.to(f32), action.to(f32),
                      m.exec_time, m.offchip_accesses, r], dim=-1)
+    if wpack is not None:
+        return rs_new, wpack, y
     return rs_new, y
 
 
 def episode_ref(s: SoCStatic, learned, weights, qtable0, extrema0,
                 xs: StepInputs, *, ddr_attribution: bool = False,
-                gated: bool = False):
+                gated: bool = False, wpack0=None, qfun=None, mlp_lr=None,
+                mlp_dims=None, mlp_feats: str = "sense"):
     """Loop :func:`fused_step` over a batch of whole episodes.
 
     ``xs`` leaves are ``(B, S, ...)``; ``qtable0 (B, 243, A)``,
@@ -273,7 +310,10 @@ def episode_ref(s: SoCStatic, learned, weights, qtable0, extrema0,
     weights are numbers or ``(B,)`` tensors.  Returns ``(qtable_final,
     ys)`` with ``ys`` the ``(B, S)`` per-step ``(mode, state_idx, action,
     exec_cycles, offchip, reward)`` arrays.  Fault columns in ``xs``
-    perturb the timing of each step."""
+    perturb the timing of each step.  With packed MLPs (``wpack0 (B, R,
+    C)``, ``qfun`` and ``mlp_lr`` numbers or ``(B,)``, the static
+    ``mlp_dims`` and ``mlp_feats``) the weights ride the episode beside
+    the Q-table and the return is ``(qtable_final, wpack_final, ys)``."""
     dev = qtable0.device
     b, n_steps = xs.acc_id.shape
     f32 = torch.float32
@@ -285,13 +325,27 @@ def episode_ref(s: SoCStatic, learned, weights, qtable0, extrema0,
     qtable = qtable0.to(f32).clone()
     rs = rewards.RewardState(extrema=extrema0.to(f32).clone())
     tbl = init_slot_table(xs.others.shape[-1], xs.tiles.shape[-1], b, dev)
+    kw = {}
+    if wpack0 is not None:
+        kw = dict(wpack=wpack0.to(f32),
+                  qfun=torch.as_tensor(qfun, device=dev).to(
+                      torch.bool).expand(b),
+                  mlp_lr=torch.as_tensor(mlp_lr, device=dev).to(f32).expand(
+                      b), mlp_dims=tuple(mlp_dims), mlp_feats=mlp_feats)
     ys = []
     for i in range(n_steps):
-        rs, y = fused_step(st, geom, warm_cap, learned_t, w, qtable, rs,
-                           tbl, step_slice(xs, i),
-                           ddr_attribution=ddr_attribution, gated=gated)
+        out = fused_step(st, geom, warm_cap, learned_t, w, qtable, rs, tbl,
+                         step_slice(xs, i), ddr_attribution=ddr_attribution,
+                         gated=gated, **kw)
+        if kw:
+            rs, kw["wpack"], y = out
+        else:
+            rs, y = out
         ys.append(y)
-    return qtable, unpack_ys(torch.stack(ys, dim=1))
+    ys = unpack_ys(torch.stack(ys, dim=1))
+    if kw:
+        return qtable, kw["wpack"], ys
+    return qtable, ys
 
 
 # --------------------------------------------------------------------------

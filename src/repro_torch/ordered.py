@@ -4,7 +4,8 @@
 devices can round a float32 sum differently.  The episode step's float
 sums go through :func:`seqsum` instead — ``((x0 + x1) + x2) + ...`` —
 which is the order the CUDA kernel uses, so the kernel and its plain
-version round every partial sum alike.
+version round every partial sum alike.  :func:`true_div` divides by a
+number with one rounding on the card too.
 """
 from __future__ import annotations
 
@@ -18,3 +19,11 @@ def seqsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     for i in range(1, x.shape[0]):
         acc = acc + x[i]
     return acc
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once, on every device.  CUDA divides a tensor by
+    a Python number through the number's reciprocal (``x * (1 / d)``,
+    which can be one ULP off); a divisor tensor on ``x``'s device keeps
+    the division."""
+    return x / torch.full_like(x, d)

@@ -11,7 +11,8 @@ JAX release the reference runs with): ``split`` and the random bits hash
 the row-major iota of the output shape as a (hi, lo) counter pair, and
 32-bit draws are ``bits1 ^ bits2``.  ``fold_in`` hashes the counter pair
 ``(0, data)`` as the original mode does.  uint32 arithmetic runs in int64
-masked to 32 bits.
+masked to 32 bits.  :func:`normal` reaches ``erf_inv`` through XLA's own
+CPU polynomials (:mod:`repro_torch.xla_math`).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch import xla_math
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,3 +113,12 @@ def gumbel(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     """``jax.random.gumbel`` in float32, mode ``"low"``."""
     u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))
+
+
+def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with ``u``
+    uniform on ``[nextafter(-1, 0), 1)``, ``erf_inv`` as XLA computes it
+    (:func:`repro_torch.xla_math.erf_inv`)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0)
+    return float(np.float32(np.sqrt(2.0))) * xla_math.erf_inv(u)

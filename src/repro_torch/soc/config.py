@@ -5,7 +5,8 @@ controllers, LLC partitioning and L2 size — we reproduce the table exactly.
 Timing constants approximate the ESP FPGA prototypes (LEON3 @ soft-core
 clock, 32-bit NoC planes, one memory link of 32 bits/cycle per memory tile,
 paper §4.3/§5); absolute values only set the scale, every paper figure is
-normalized to the Fixed non-coherent-DMA policy.
+normalized to the Fixed non-coherent-DMA policy.  The area/bandwidth
+budget model at the end bounds the SoCs that ``soc.dse`` generates.
 """
 from __future__ import annotations
 
@@ -179,3 +180,67 @@ SOCS = {s.name: s for s in (SOC0, SOC1, SOC2, SOC3, SOC4, SOC5, SOC6,
 WORKLOAD_SMALL = 16 * KB
 WORKLOAD_MEDIUM = 256 * KB
 WORKLOAD_LARGE = 4 * MB
+
+
+# --------------------------------------------------------------- budget model
+@dataclasses.dataclass(frozen=True)
+class SoCBudget:
+    """Area / off-chip-bandwidth envelope for generated SoCs (soc.dse).
+
+    A lumos-style abstract budget: every tile occupant costs area in the
+    same arbitrary unit (one accelerator datapath == 1.0), SRAM costs
+    area per MB, and the off-chip bandwidth budget caps how many DDR
+    controllers a design may instantiate (each contributes
+    ``timings.dram_bw`` bytes/cycle).  The defaults envelope paper
+    Table 4: every hand-written SoC fits (pinned in tests), so the
+    generated design space is "SoCs buildable on the paper's FPGA".
+    Accelerators listed in ``no_private_cache`` pay no L2 area — the
+    same resource trade the paper's SoC3 makes."""
+
+    max_area: float = 48.0          # abstract tile-area units
+    max_offchip_bw: float = 16.0    # bytes/cycle aggregate DDR
+    cpu_area: float = 2.0           # CPU tile (core + its private cache)
+    acc_area: float = 1.0           # accelerator datapath tile
+    mem_tile_area: float = 1.5      # DDR controller + LLC slice control
+    router_area: float = 0.25       # per NoC router
+    cache_area_per_mb: float = 4.0  # SRAM (private L2s + LLC slices)
+
+
+DEFAULT_BUDGET = SoCBudget()
+
+
+def soc_cache_bytes(soc: SoCConfig) -> int:
+    """Total on-chip SRAM: one private L2 per CPU and per accelerator that
+    has one, plus the LLC slices."""
+    n_l2 = soc.n_cpus + soc.n_accs - len(soc.no_private_cache)
+    return n_l2 * soc.l2_bytes + soc.n_mem_tiles * soc.llc_slice_bytes
+
+
+def soc_area(soc: SoCConfig, budget: SoCBudget = DEFAULT_BUDGET) -> float:
+    """Area of ``soc`` under ``budget``'s cost model (budget-relative
+    only through the per-component cost constants)."""
+    return (soc.n_cpus * budget.cpu_area
+            + soc.n_accs * budget.acc_area
+            + soc.n_mem_tiles * budget.mem_tile_area
+            + soc.noc_rows * soc.noc_cols * budget.router_area
+            + soc_cache_bytes(soc) / MB * budget.cache_area_per_mb)
+
+
+def soc_offchip_bw(soc: SoCConfig) -> float:
+    """Aggregate off-chip bandwidth (bytes/cycle across DDR channels)."""
+    return soc.n_mem_tiles * soc.timings.dram_bw
+
+
+def budget_report(soc: SoCConfig,
+                  budget: SoCBudget = DEFAULT_BUDGET) -> dict:
+    """Area/bandwidth numbers and whether ``soc`` fits ``budget``."""
+    area = soc_area(soc, budget)
+    bw = soc_offchip_bw(soc)
+    return {
+        "area": area,
+        "area_frac": area / budget.max_area,
+        "offchip_bw": bw,
+        "bw_frac": bw / budget.max_offchip_bw,
+        "within_budget": bool(area <= budget.max_area
+                              and bw <= budget.max_offchip_bw),
+    }

@@ -16,9 +16,10 @@ JAX package ``vmap``s twice.
   * :class:`StackedVecEnv` stacks per-SoC profile matrices, action masks
     and timing scalars (padded to the largest ``n_accs``; the scalars ride
     the kernel's per-episode consts rows) and exposes :meth:`~StackedVecEnv.
-    episodes` over a ``(K, N)`` batch of lowered specs, :meth:`~
-    StackedVecEnv.train_batched` over (K lanes x B agents) and
-    :meth:`~StackedVecEnv.serve`;
+    episodes` over a ``(K, N)`` batch of lowered specs (MLP agents
+    through :meth:`~StackedVecEnv.lower_mlps`), :meth:`~StackedVecEnv.
+    train_batched` over (K lanes x B agents) and :meth:`~StackedVecEnv.
+    serve`;
   * :func:`length_buckets` / :func:`compile_apps_bucketed` split lanes by
     schedule length to cut padded steps, and :func:`reassemble_lanes`
     puts per-bucket results back in lane order.
@@ -45,6 +46,7 @@ from repro_torch.core.policies import FixedHomogeneous, Policy
 from repro_torch.kernels.soc_step import ops as soc_step_ops
 from repro_torch.kernels.soc_step import ref as soc_step_ref
 from repro_torch.kernels.soc_step.ref import StepInputs
+from repro_torch.soc import nn as socnn
 from repro_torch.soc import traffic as traffic_mod
 from repro_torch.soc import vecenv as vec
 from repro_torch.soc.config import SoCConfig
@@ -272,17 +274,40 @@ def _lane_cfg(cfg: qlearn.QConfig, k: int) -> qlearn.QConfig:
     return cfg
 
 
+def _join_specs(specs: Sequence[vec.PolicySpec], join) -> vec.PolicySpec:
+    """Specs joined leaf by leaf along the policy axis (``join`` is
+    ``torch.cat`` or ``torch.stack``); MLP fields join when present."""
+    first = specs[0]
+    mlp = None
+    if first.mlp is not None:
+        if any(sp.mlp.cfg != first.mlp.cfg for sp in specs):
+            raise ValueError("cannot batch networks of different "
+                             "architectures")
+        mlp = socnn.MLPQState(*(join(vs) for vs in zip(
+            *(sp.mlp[:4] for sp in specs))), cfg=first.mlp.cfg)
+    return vec.PolicySpec(
+        modes=join([sp.modes for sp in specs]),
+        learned=join([sp.learned for sp in specs]),
+        qstate=qlearn.QState(*(join(vs) for vs in zip(
+            *(sp.qstate for sp in specs)))),
+        qfun=(None if first.qfun is None
+              else join([sp.qfun for sp in specs])),
+        mlp=mlp)
+
+
 def _cat_specs(specs: Sequence[vec.PolicySpec]) -> vec.PolicySpec:
-    return vec.PolicySpec(*(
-        qlearn.QState(*(torch.cat(vs) for vs in zip(*parts)))
-        if isinstance(parts[0], qlearn.QState) else torch.cat(parts)
-        for parts in zip(*specs)))
+    return _join_specs(specs, torch.cat)
 
 
 def _lane_rows(spec: vec.PolicySpec, k: int) -> vec.PolicySpec:
     """Lane ``k``'s ``(N, ...)`` specs of a ``(K, N, ...)`` batch."""
-    return vec.PolicySpec(modes=spec.modes[k], learned=spec.learned[k],
-                          qstate=qlearn.QState(*(v[k] for v in spec.qstate)))
+    mlp = spec.mlp
+    return vec.PolicySpec(
+        modes=spec.modes[k], learned=spec.learned[k],
+        qstate=qlearn.QState(*(v[k] for v in spec.qstate)),
+        qfun=None if spec.qfun is None else spec.qfun[k],
+        mlp=None if mlp is None else socnn.MLPQState(
+            *(v[k] for v in mlp[:4]), cfg=mlp.cfg))
 
 
 class StackedVecEnv:
@@ -376,7 +401,8 @@ class StackedVecEnv:
         for every lane, in ONE kernel launch.  ``weights`` leaves and
         ``keys`` cover the concatenated rows; ``faults`` perturbs every
         episode, its drop coins drawn over the padded length.  Returns
-        per-lane lists of ``(QState, EpisodeResult)``."""
+        per-lane lists of ``(QState, EpisodeResult)`` (``((QState,
+        MLPQState), EpisodeResult)`` for MLP specs)."""
         specs = [vec._batched(spec) for spec in specs]
         xs_l, inc_l, counts = [], [], []
         row = 0
@@ -404,18 +430,27 @@ class StackedVecEnv:
             F.pad(seg, (0, length - seg.shape[-1]), value=pad).expand(
                 n, *seg.shape[:-1], length)
             for seg, n in zip(segs, counts)])
-        qtable, ys = soc_step_ops.fused_episode(
+        mlp = allspec.mlp
+        res = soc_step_ops.fused_episode(
             self._rows_static(counts), allspec.learned, weights,
-            allspec.qstate.qtable, extrema0, xs, gated=True)
+            allspec.qstate.qtable, extrema0, xs, gated=True,
+            qfun=allspec.qfun, mlp=mlp)
+        qtable, ys = res[0], res[-1]
         phases = vec.phase_metrics(ys[3], ys[4], segments, n_phases=n_phases,
                                    n_threads=n_threads,
                                    cycle_time=self.cycle_time)
         out, row = [], 0
         for k, (spec, inc) in enumerate(zip(specs, inc_l)):
             sl = slice(row, row + counts[k])
-            out.append(vec.episode_tail(
-                spec.qstate, qtable[sl], tuple(y[sl] for y in ys), inc,
-                tuple(v[sl] for v in phases)))
+            # each agent family's counter advances where it drove the episode
+            mlp_inc = (0 if mlp is None
+                       else torch.where(spec.qfun[:, None], inc, 0))
+            qs, er = vec.episode_tail(
+                spec.qstate, qtable[sl], tuple(y[sl] for y in ys),
+                inc - mlp_inc, tuple(v[sl] for v in phases))
+            out.append((qs, er) if mlp is None else ((qs, spec.mlp._replace(
+                wpack=res[1][sl], step=spec.mlp.step + mlp_inc.sum(
+                    -1, dtype=torch.int32))), er))
             row += counts[k]
         return out
 
@@ -436,11 +471,7 @@ class StackedVecEnv:
             lane = _LaneSchedule(schedule=self._lane_sched(stacked, k))
             lane_specs.append(vec.stack_specs(
                 [pol.lower(view, lane) for pol in pols]))
-        return vec.PolicySpec(
-            modes=torch.stack([s.modes for s in lane_specs]),
-            learned=torch.stack([s.learned for s in lane_specs]),
-            qstate=qlearn.QState(*(torch.stack(vs) for vs in zip(
-                *[s.qstate for s in lane_specs]))))
+        return _join_specs(lane_specs, torch.stack)
 
     def lower_qstates(self, stacked: StackedApps, qstates: qlearn.QState,
                       freeze: bool = True) -> vec.PolicySpec:
@@ -457,8 +488,26 @@ class StackedVecEnv:
             learned=torch.ones((k, b), dtype=torch.bool, device=dev),
             qstate=qstates)
 
-    def lower_mlps(self, stacked: StackedApps, mlps, freeze: bool = True):
-        raise vec.not_ported("MLP agents", "A11")
+    def lower_mlps(self, stacked: StackedApps, mlps: socnn.MLPQState,
+                   freeze: bool = True) -> vec.PolicySpec:
+        """Lower a (K, B) batch of function-approximation agents (an
+        :class:`~repro_torch.soc.nn.MLPQState` with ``(K, B, ...)`` tensor
+        leaves) into ``qfun`` specs with ``(K, B, ...)`` leaves; the table
+        slot is a frozen placeholder per (lane, agent)."""
+        k, b = mlps.wpack.shape[:2]
+        dev = mlps.wpack.device
+        if freeze:
+            mlps = mlps._replace(frozen=torch.ones((k, b), dtype=torch.bool,
+                                                   device=dev))
+        s = stacked.schedule.acc_id.shape[-1]
+        qs = qlearn.frozen_qstate(device=dev)
+        return vec.PolicySpec(
+            modes=torch.zeros((k, b, s), dtype=torch.int32, device=dev),
+            learned=torch.zeros((k, b), dtype=torch.bool, device=dev),
+            qstate=qlearn.QState(*(v.expand(k, b, *v.shape[1:])
+                                   for v in qs)),
+            qfun=torch.ones((k, b), dtype=torch.bool, device=dev),
+            mlp=mlps)
 
     # ------------------------------------------------------------ episodes
     def episodes(self, stacked: StackedApps, specs: vec.PolicySpec,
@@ -504,6 +553,8 @@ class StackedVecEnv:
         are never invoked; ``faults`` rows follow each lane's request
         accelerators.  Returns ``(ServeCarry, QState, ServeResult)`` with
         ``(K, N, ...)`` leaves."""
+        if specs.mlp is not None:
+            raise vec.not_ported("MLP-agent serving", "A11")
         self.calls["serve"] += 1
         cfg = cfg or qlearn.QConfig()
         k, n = specs.learned.shape

@@ -16,7 +16,10 @@ replay and the per-phase metrics.
 
 Batching is explicit: a :class:`PolicySpec` or :class:`~repro_torch.core.
 qlearn.QState` whose leaves carry a leading axis ``N`` runs ``N``
-episodes in one kernel launch, where the JAX package ``vmap``s.
+episodes in one kernel launch, where the JAX package ``vmap``s.  A spec
+may carry function-approximation agents (:mod:`repro_torch.soc.nn`,
+:func:`mlp_policy_spec`), which ride the episode kernel's MLP
+instantiation.
 
 :class:`ServeEnv` keeps the SoC always on: requests arrive from a
 :class:`~repro_torch.soc.traffic.TrafficSpec`, are admitted to bounded
@@ -58,6 +61,7 @@ from repro_torch.soc.accelerators import (AccProfile, profile_matrix,
 from repro_torch.soc.config import SoCConfig
 from repro_torch.soc.des import Application, stripe_tiles
 from repro_torch.soc import faults as fault_mod
+from repro_torch.soc import nn as socnn
 from repro_torch.soc import traffic as traffic_mod
 from repro_torch.soc.memsys import SoCStatic
 
@@ -259,21 +263,38 @@ class PolicySpec(NamedTuple):
     ``modes`` is the per-step mode table (``(S,)``, ignored when
     ``learned``); ``learned`` a bool tensor selecting epsilon-greedy Q
     actions; ``qstate`` the agent (a batch of one; non-learned specs carry
-    a frozen placeholder, whose update is a no-op).  :func:`stack_specs`
-    gives leaves a leading policy axis ``N``."""
+    a frozen placeholder, whose update is a no-op).  ``qfun``/``mlp`` are
+    the function-approximation branch (:mod:`repro_torch.soc.nn`): None on
+    table specs; an MLP spec (:func:`mlp_policy_spec`) carries
+    ``qfun=True`` and the network, and its episode selects from the
+    network's Q-row and trains the network instead of the table.  Table
+    specs batched with MLP specs carry a frozen placeholder network with
+    ``qfun=False`` (:func:`attach_placeholder_mlp`), which leaves their
+    results bitwise unchanged.  :func:`stack_specs` gives leaves a leading
+    policy axis ``N``."""
 
     modes: torch.Tensor
     learned: torch.Tensor
     qstate: qlearn.QState
+    qfun: torch.Tensor | None = None
+    mlp: object | None = None      # repro_torch.soc.nn.MLPQState
 
 
 def stack_specs(specs: Sequence[PolicySpec]) -> PolicySpec:
     """Stack unbatched specs along a new leading policy axis (mixed
-    families welcome)."""
+    families welcome; MLP specs stack with MLP specs or placeholders)."""
+    has_mlp = {s.mlp is not None for s in specs}
+    if len(has_mlp) != 1:
+        raise ValueError("stack MLP specs only with MLP specs or table "
+                         "specs given attach_placeholder_mlp")
+    mlp = has_mlp.pop()
     return PolicySpec(
         modes=torch.stack([s.modes for s in specs]),
         learned=torch.stack([s.learned.reshape(()) for s in specs]),
-        qstate=qlearn.cat_qstates([s.qstate for s in specs]))
+        qstate=qlearn.cat_qstates([s.qstate for s in specs]),
+        qfun=(torch.stack([s.qfun.reshape(()) for s in specs])
+              if mlp else None),
+        mlp=socnn.cat_mlps([s.mlp for s in specs]) if mlp else None)
 
 
 def spec_from_numpy(modes, learned, qtable, visits, step, frozen,
@@ -285,6 +306,46 @@ def spec_from_numpy(modes, learned, qtable, visits, step, frozen,
     return PolicySpec(modes=modes, learned=learned,
                       qstate=qlearn.qstate_from_numpy(
                           qtable, visits, step, frozen, device))
+
+
+def mlp_policy_spec(mlp, sched: Schedule) -> PolicySpec:
+    """Lower function-approximation agents (:class:`repro_torch.soc.nn.
+    MLPQState`; a batch of B gives a batched spec): ``qfun`` set, the table
+    slot a frozen placeholder whose row the episode leaves untouched."""
+    dev = mlp.wpack.device
+    n = mlp.wpack.shape[0]
+    lead = () if n == 1 else (n,)
+    qs = qlearn.frozen_qstate(device=dev)
+    return PolicySpec(
+        modes=torch.zeros((*lead, sched.acc_id.shape[-1]),
+                          dtype=torch.int32, device=dev),
+        learned=torch.zeros(lead, dtype=torch.bool, device=dev),
+        qstate=qlearn.QState(*(v.expand(n, *v.shape[1:]) for v in qs)),
+        qfun=torch.ones(lead, dtype=torch.bool, device=dev), mlp=mlp)
+
+
+def attach_placeholder_mlp(spec: PolicySpec, cfg=None) -> PolicySpec:
+    """A table spec with the MLP fields, so it batches with MLP specs: a
+    frozen zero-rate placeholder network and ``qfun=False``.  Its episode
+    is bitwise the bare spec's (selection takes the table row, the TD gate
+    is False and the merged decay schedule is the table's)."""
+    dev = spec.qstate.qtable.device
+    n = spec.qstate.qtable.shape[0]
+    ph = socnn.frozen_mlp_qstate(cfg or socnn.MLPConfig(), device=dev)
+    return spec._replace(
+        qfun=torch.zeros(spec.learned.shape, dtype=torch.bool, device=dev),
+        mlp=socnn.expand_mlp(ph, n))
+
+
+def expand_spec(spec: PolicySpec, n: int) -> PolicySpec:
+    """An unbatched spec (a batch of one) repeated as ``n`` policies."""
+    one = lambda v: v.expand(n, *v.shape).contiguous()
+    return PolicySpec(
+        modes=one(spec.modes), learned=one(spec.learned),
+        qstate=qlearn.QState(*(v.expand(n, *v.shape[1:]).contiguous()
+                               for v in spec.qstate)),
+        qfun=None if spec.qfun is None else one(spec.qfun),
+        mlp=None if spec.mlp is None else socnn.expand_mlp(spec.mlp, n))
 
 
 def _mask_modes(masks, acc_id, action):
@@ -331,8 +392,9 @@ def learned_policy_spec(qstate: qlearn.QState,
 def _batched(spec: PolicySpec) -> PolicySpec:
     """A spec with a leading policy axis (single specs gain one)."""
     if spec.learned.dim() == 0:
-        return PolicySpec(spec.modes[None], spec.learned[None],
-                          spec.qstate)
+        return spec._replace(
+            modes=spec.modes[None], learned=spec.learned[None],
+            qfun=None if spec.qfun is None else spec.qfun[None])
     return spec
 
 
@@ -354,7 +416,10 @@ def episode_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
     """The fused step's per-step inputs for ``N`` episodes of a batched
     spec: ``(StepInputs (N, S, ...), inc (N, S))``, ``inc`` being the
     decay-counter increments the episode applies.  ``faults`` adds the
-    spec's presampled fault rows over the schedule's (padded) length."""
+    spec's presampled fault rows over the schedule's (padded) length.
+    An MLP spec's schedule is the merged one: the live agent's (the
+    network's where ``qfun``, else the table's) counter and frozen flag
+    drive the decay."""
     qs0 = specs.qstate
     pmat, masks = params.pmat, params.masks
     n = qs0.qtable.shape[0]
@@ -364,8 +429,13 @@ def episode_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
     noise = qlearn.sample_select_noise(keys, (n_steps,), masks.shape[-1])
     live = (sched.valid if gated
             else torch.ones_like(sched.valid))[None, :]
-    inc = (live & ~qs0.frozen[:, None]).to(torch.int32)
-    eps_t, alpha_t = qlearn.decay_arrays(cfg, qs0.step, qs0.frozen, inc)
+    step0, frozen = qs0.step, qs0.frozen
+    if specs.mlp is not None:
+        qfun = specs.qfun.expand(n)
+        step0 = torch.where(qfun, specs.mlp.step, step0)
+        frozen = torch.where(qfun, specs.mlp.frozen, frozen)
+    inc = (live & ~frozen[:, None]).to(torch.int32)
+    eps_t, alpha_t = qlearn.decay_arrays(cfg, step0, frozen, inc)
     acc = sched.acc_id.long()
     ex = lambda v: v.expand(n, *v.shape)
     xs = StepInputs(
@@ -450,9 +520,12 @@ def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
     launch.  ``weights`` leaves are ``(N,)`` or numbers, ``keys (N, 2)``;
     ``faults`` perturbs every episode alike.  ``debug_finite`` raises
     ``FloatingPointError`` on a non-finite reward or trained Q-table.
-    Returns ``(QState (N), EpisodeResult (N, ...))``."""
+    Returns ``(QState (N), EpisodeResult (N, ...))``; an MLP spec returns
+    ``((QState (N), MLPQState (N)), EpisodeResult (N, ...))``, each agent
+    family's counter advanced only where it drove the episode."""
     specs = _batched(specs)
     qs0 = specs.qstate
+    mlp = specs.mlp
     n = qs0.qtable.shape[0]
     dev = params.pmat.device
     xs, inc = episode_inputs(params, sched, specs, cfg, keys, gated=gated,
@@ -460,15 +533,22 @@ def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
     extrema0 = rewards.init_reward_state(params.pmat.shape[0], (n,),
                                          dev).extrema
     segments = phase_segments(sched, n_phases, n_threads)
-    qtable, ys = soc_step_ops.fused_episode(
+    out = soc_step_ops.fused_episode(
         params.static, specs.learned.expand(n), weights, qs0.qtable,
-        extrema0, xs, ddr_attribution=ddr_attribution, gated=gated)
+        extrema0, xs, ddr_attribution=ddr_attribution, gated=gated,
+        qfun=None if mlp is None else specs.qfun.expand(n), mlp=mlp)
+    qtable, ys = out[0], out[-1]
     if debug_finite:
         qlearn.debug_finite_check("vecenv.episode", reward=ys[5],
                                   qtable=qtable)
     phases = phase_metrics(ys[3], ys[4], segments, n_phases=n_phases,
                            n_threads=n_threads, cycle_time=cycle_time)
-    return episode_tail(qs0, qtable, ys, inc, phases)
+    if mlp is None:
+        return episode_tail(qs0, qtable, ys, inc, phases)
+    mlp_inc = torch.where(specs.qfun.expand(n)[:, None], inc, 0)
+    qs, res = episode_tail(qs0, qtable, ys, inc - mlp_inc, phases)
+    return (qs, mlp._replace(wpack=out[1], step=mlp.step + mlp_inc.sum(
+        -1, dtype=torch.int32))), res
 
 
 class TrainCarry(NamedTuple):
@@ -546,20 +626,53 @@ class VecEnv:
             ddr_attribution=self.ddr_attribution, faults=faults,
             debug_finite=self.debug_finite)
 
+    # -------------------------------------------------------- spec lowering
+    def lower(self, compiled: CompiledApp, policy: str = "q",
+              qstate: qlearn.QState | None = None, fixed_modes=None,
+              cfg: qlearn.QConfig | None = None) -> PolicySpec:
+        """Lower a policy-kind shorthand onto ``compiled``'s schedule:
+        ``"q"`` (``qstate``, else a fresh agent shaped by ``cfg``),
+        ``"fixed"`` (``fixed_modes``, default NON_COH) or ``"manual"``."""
+        sched = self._sched(compiled)
+        if policy == "q":
+            if qstate is None:
+                qstate = qlearn.init_qstate(cfg or qlearn.QConfig(),
+                                            self.device)
+            return learned_policy_spec(qstate, sched)
+        if policy == "fixed":
+            return fixed_policy_spec(
+                self.params, sched,
+                _NC if fixed_modes is None else fixed_modes)
+        if policy == "manual":
+            return manual_policy_spec(self.params, sched)
+        raise ValueError(f"unknown policy kind {policy!r}")
+
     # ----------------------------------------------------- public episodes
     def episode_spec(self, compiled: CompiledApp, spec: PolicySpec,
                      cfg: qlearn.QConfig | None = None,
                      weights: rewards.RewardWeights | None = None,
-                     key=None, faults=None
-                     ) -> tuple[qlearn.QState, EpisodeResult]:
+                     key=None, faults=None):
         """One lowered spec's episode: ``(QState (batch of one),
-        EpisodeResult (unbatched))``."""
+        EpisodeResult (unbatched))``; an MLP spec returns ``((QState,
+        MLPQState), EpisodeResult)``, both trained agents."""
         cfg = cfg or qlearn.QConfig()
         weights = weights or rewards.PAPER_DEFAULT_WEIGHTS
         key = (key if key is not None else prng.PRNGKey(0)).to(self.device)
-        qs, res = self._run(compiled, self._sched(compiled), spec, cfg,
-                            weights, key.reshape(1, 2), faults)
-        return qs, res.index(0)
+        agents, res = self._run(compiled, self._sched(compiled), spec, cfg,
+                                weights, key.reshape(1, 2), faults)
+        return agents, res.index(0)
+
+    def episode(self, compiled: CompiledApp, *, policy: str = "q",
+                qstate: qlearn.QState | None = None,
+                cfg: qlearn.QConfig | None = None, fixed_modes=None,
+                weights: rewards.RewardWeights | None = None, key=None,
+                faults=None):
+        """:meth:`lower` then :meth:`episode_spec`: ``policy="q"`` trains
+        ``qstate`` (a fresh agent if None) unless it is frozen."""
+        spec = self.lower(compiled, policy, qstate=qstate,
+                          fixed_modes=fixed_modes, cfg=cfg)
+        return self.episode_spec(compiled, spec, cfg=cfg, weights=weights,
+                                 key=key, faults=faults)
 
     def episodes(self, compiled: CompiledApp, specs: PolicySpec,
                  cfg: qlearn.QConfig | None = None,
@@ -841,6 +954,8 @@ def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
     length).  ``carry=None`` starts fresh streams; ``faults`` perturbs
     every stream alike.  Returns ``(ServeCarry (N), QState (N),
     ServeResult (N, n_requests))``."""
+    if specs.mlp is not None:
+        raise not_ported("MLP-agent serving", "A11")
     specs = _batched(specs)
     qs0 = specs.qstate
     n = qs0.qtable.shape[0]
@@ -877,7 +992,8 @@ class ServeEnv:
     delegates to :meth:`VecEnv.episode_spec`, the episodic path.  Chunks
     chain: pass the returned carry and the last arrival time back in;
     :meth:`serve_checkpointed` does so through a checkpoint manager.
-    MLP agents (ROADMAP A11) are not ported."""
+    MLP-agent serving (an MLP instantiation of the serve kernel, ROADMAP
+    A11) is not ported: MLP specs raise."""
 
     def __init__(self, env: VecEnv, *, queue_cap: int = 8,
                  n_requests: int = 1024):

@@ -1,5 +1,6 @@
-"""The CUDA soc_step kernels (episode and serve, healthy and faulted)
-against their plain PyTorch versions, on the card.
+"""The CUDA soc_step kernels (episode and serve, healthy and faulted; the
+episode kernel's MLP instantiations) against their plain PyTorch
+versions, on the card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -16,7 +17,7 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
 from repro_torch.kernels.soc_step import ops, ref
-from repro_torch.soc import faults, traffic, vecenv
+from repro_torch.soc import faults, nn as socnn, traffic, vecenv
 from repro_torch.soc.apps import make_application, make_phase
 from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
 from repro_torch.soc.des import Application
@@ -129,6 +130,109 @@ def test_cuda_faulted_zero_spec_is_healthy():
                                   spec.qstate.qtable.contiguous(), ex0, xs)
         outs.append((q, *ys))
     for a, c in zip(*outs):
+        assert torch.equal(a, c)
+
+
+def _check_mlp_episode(spec, env, sched, cfg, keys, w, intensity=None,
+                       gated=False):
+    """One launch of the MLP instantiation (faulted under a storm of
+    ``intensity``) against ``ref.episode_ref``'s MLP branch on the CPU;
+    returns the kernel's ``(qtable, wpack, ys)``."""
+    fs = (None if intensity is None else faults.storm(
+        sched.acc_id.shape[0], intensity, prng.PRNGKey(42), device="cuda"))
+    xs, _ = vecenv.episode_inputs(env.params, sched, spec, cfg, keys,
+                                  gated=gated, faults=fs)
+    b = keys.shape[0]
+    ex0 = rewards.init_reward_state(SOC_MOTIV_PAR.n_accs, (b,),
+                                    "cuda").extrema
+    q0 = spec.qstate.qtable.contiguous()
+    mlp = spec.mlp
+    ops.reset_launches()
+    kq, kw, kys = ops.fused_episode(env.static, spec.learned, w, q0, ex0, xs,
+                                    gated=gated, qfun=spec.qfun, mlp=mlp)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.fault_launches, ops.mlp_launches,
+            ops.mlp_fault_launches) == ((0, 0, 0, 1) if fs is not None
+                                        else (0, 0, 1, 0))
+    cpu = lambda t: t.cpu()
+    rq, rw, rys = ref.episode_ref(
+        env.static, cpu(spec.learned),
+        rewards.RewardWeights(*map(cpu, w)), cpu(q0), cpu(ex0),
+        ref.StepInputs(*(None if v is None else cpu(v) for v in xs)),
+        gated=gated, wpack0=cpu(mlp.wpack), qfun=cpu(spec.qfun),
+        mlp_lr=cpu(mlp.lr), mlp_dims=socnn.mlp_dims(mlp.cfg),
+        mlp_feats=mlp.cfg.features)
+    np.testing.assert_allclose(kq.cpu().numpy(), rq.numpy(), **TOL)
+    np.testing.assert_allclose(kw.cpu().numpy(), rw.numpy(), **TOL)
+    for name, a, c in zip(ref.YCOLS, kys, rys):
+        a, c = a.cpu().numpy(), c.numpy()
+        if np.issubdtype(c.dtype, np.integer):
+            np.testing.assert_array_equal(a, c, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, c, err_msg=name, **TOL)
+    return kq, kw, kys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intensity,gated", [(None, False), (None, True),
+                                             (1.0, False)])
+def test_cuda_mlp_kernel_matches_ref(intensity, gated):
+    """K1m learning with the default sense network (and, under the severe
+    storm, its faulted instantiation): traces, table and trained pack."""
+    _need_card()
+    env, sched, _, cfg, keys, w = _case(True, "cuda")
+    spec = vecenv.mlp_policy_spec(socnn.init_mlp_qstate(keys), sched)
+    _, kw, _ = _check_mlp_episode(spec, env, sched, cfg, keys, w, intensity,
+                                  gated)
+    assert not torch.equal(kw, spec.mlp.wpack)
+
+
+@pytest.mark.cuda
+def test_cuda_onehot_mlp_selects_table_modes():
+    """A frozen ``mlp_from_qtable`` network through K1m selects exactly
+    the modes K1 selects from the same frozen table, and equals its plain
+    version."""
+    _need_card()
+    env, sched, spec, cfg, keys, w = _case(True, "cuda")
+    b = keys.shape[0]
+    ex0 = rewards.init_reward_state(SOC_MOTIV_PAR.n_accs, (b,),
+                                    "cuda").extrema
+    xs, _ = vecenv.episode_inputs(env.params, sched, spec, cfg, keys)
+    trained, _ = ops.fused_episode(env.static, spec.learned, w,
+                                   spec.qstate.qtable.contiguous(), ex0, xs)
+    qs = qlearn.freeze(spec.qstate._replace(qtable=trained))
+    tspec = vecenv.learned_policy_spec(qs, sched)
+    xs, _ = vecenv.episode_inputs(env.params, sched, tspec, cfg, keys)
+    _, tys = ops.fused_episode(env.static, tspec.learned, w,
+                               qs.qtable.contiguous(), ex0, xs)
+    mspec = vecenv.mlp_policy_spec(socnn.freeze(socnn.mlp_from_qtable(
+        qs.qtable)), sched)
+    _, kw, kys = _check_mlp_episode(mspec, env, sched, cfg, keys, w)
+    for a, c in zip(kys[:3], tys[:3]):
+        assert torch.equal(a, c)
+    assert torch.equal(kw, mspec.mlp.wpack)
+
+
+@pytest.mark.cuda
+def test_cuda_placeholder_mlp_is_the_table_kernel():
+    """A table spec given the placeholder network runs K1m and returns
+    K1's results bitwise, the placeholder untouched."""
+    _need_card()
+    env, sched, spec, cfg, keys, w = _case(True, "cuda")
+    ph = vecenv.attach_placeholder_mlp(spec)
+    b = keys.shape[0]
+    ex0 = rewards.init_reward_state(SOC_MOTIV_PAR.n_accs, (b,),
+                                    "cuda").extrema
+    xs, _ = vecenv.episode_inputs(env.params, sched, spec, cfg, keys)
+    xs_ph, _ = vecenv.episode_inputs(env.params, sched, ph, cfg, keys)
+    for a, c in zip(xs, xs_ph):
+        assert a is None or torch.equal(a, c)
+    q0 = spec.qstate.qtable.contiguous()
+    tq, tys = ops.fused_episode(env.static, spec.learned, w, q0, ex0, xs)
+    mq, mw, mys = ops.fused_episode(env.static, ph.learned, w, q0, ex0, xs,
+                                    qfun=ph.qfun, mlp=ph.mlp)
+    assert torch.equal(tq, mq) and torch.equal(mw, ph.mlp.wpack)
+    for a, c in zip(tys, mys):
         assert torch.equal(a, c)
 
 

@@ -48,25 +48,32 @@ def test_sources_name_no_jax_or_repro_import():
 
 
 def test_new_subpackages_are_covered():
-    """The fault model and the checkpoint package are among the modules
-    the import check above loads."""
+    """The fault model, the checkpoint package, the neural agent, the
+    design-space sampler and XLA's float32 functions are among the
+    modules the import check above loads."""
     mods = _modules()
     for m in ("repro_torch.soc.faults", "repro_torch.checkpoint",
               "repro_torch.checkpoint.ckpt",
-              "repro_torch.checkpoint.manager"):
+              "repro_torch.checkpoint.manager", "repro_torch.soc.nn",
+              "repro_torch.soc.dse", "repro_torch.xla_math"):
         assert m in mods, m
 
 
 def test_chip_smoke_and_port_drivers_load_no_jax():
     """chip_smoke.py and the port drivers it runs import neither JAX nor
-    repro, at import and on the port's path (Fig. 10 at a tiny size)."""
+    repro, at import and on the port's path (Fig. 10 and Fig. 13 at a tiny
+    size)."""
     root = SRC.parent
     code = (
         "import sys\n"
         "import chip_smoke\n"
         "from benchmarks import torch_fig9_socs, torch_fig11_serving\n"
         "from benchmarks import torch_fig10_faults as f10\n"
+        "from benchmarks import torch_fig13_generalize as f13\n"
         "f10.run_port('cpu', iters=1, n_phases=2)\n"
+        "r, agents = f13.run_port('cpu', n_train=1, n_heldout=1, "
+        "n_phases=1, iterations=1, batch=1, keep_agents=True)\n"
+        "f13.storm_eval(agents)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -81,7 +88,7 @@ def test_entry_points_default_to_the_card():
     """``device=None`` means CUDA: without a card every entry point
     raises rather than running on the CPU."""
     import torch
-    from benchmarks import torch_fig10_faults
+    from benchmarks import torch_fig10_faults, torch_fig13_generalize
     from repro_torch.core import orchestrator
     from repro_torch.soc import stacked, vecenv
     from repro_torch.soc.config import SOCS
@@ -94,6 +101,7 @@ def test_entry_points_default_to_the_card():
         for make in makers:
             assert make().type == "cuda"
         return
-    for make in makers + [lambda: torch_fig10_faults.run_port()]:
+    for make in makers + [lambda: torch_fig10_faults.run_port(),
+                          lambda: torch_fig13_generalize.run_port()]:
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

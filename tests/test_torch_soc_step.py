@@ -82,10 +82,10 @@ def _packed(args, device="cpu"):
 
 
 def test_kernel_wrapper_refuses_cpu_faulted_and_mlp():
-    """The CUDA wrappers refuse CPU tensors, the healthy and the faulted
-    instantiation alike, and the MLP variant (ROADMAP B3); the faulted
-    rows carry four more columns, and on the CPU ``ops`` runs them through
-    the plain version (neutral rows: the healthy result, bitwise)."""
+    """The CUDA wrappers refuse CPU tensors, the healthy, the faulted and
+    the MLP instantiation alike; the faulted rows carry four more columns,
+    and on the CPU ``ops`` runs them through the plain version (neutral
+    rows: the healthy result, bitwise)."""
     args, _ = _soc_step_case(True)
     xf, xi, consts, qt, ex, xs = _packed(args)
     assert xf.shape[-1] == 4 + 2 + xs.others.shape[-1] + 9 + 3 * 4
@@ -94,9 +94,10 @@ def test_kernel_wrapper_refuses_cpu_faulted_and_mlp():
               n_actions=4)
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.soc_step_episode(xf, xi, consts, qt, ex, **kw)
-    with pytest.raises(NotImplementedError, match="MLP"):
+    with pytest.raises(ValueError, match="CUDA"):
         tkernel.soc_step_episode(xf, xi, consts, qt, ex,
-                                 wpack0=torch.zeros(4, 4), **kw)
+                                 wpack0=torch.zeros(3, 49, 16),
+                                 mlp_dims=(14, 16, 16, 4), **kw)
     faulty = xs._replace(f_exec=torch.ones_like(xs.footprint),
                          f_ddr=torch.ones_like(xs.footprint),
                          f_llc=torch.zeros_like(xs.footprint),

@@ -270,9 +270,12 @@ def test_profile_fixed_heterogeneous_matches_reference(name, runs):
 
 
 def test_faults_and_mlp_raise(envs):
-    """MLP agents (ROADMAP A11) raise; fault specs, which raised before
-    A9 was ported, are taken by every stacked and serving entry point: a
-    zero spec gives the healthy result bitwise (the storm cases are in
+    """MLP-agent serving (ROADMAP A11) raises; MLP agents in episodes,
+    which raised before A11 was ported, lower onto the lanes
+    (``lower_mlps``; their agreement with the reference is in
+    ``tests/test_torch_nn.py``); fault specs, which raised before A9 was
+    ported, are taken by every stacked and serving entry point: a zero
+    spec gives the healthy result bitwise (the storm cases are in
     ``tests/test_torch_faults.py``)."""
     from repro_torch.soc import faults as tfaults
     tenv, tapps = envs[4], envs[5]
@@ -286,8 +289,17 @@ def test_faults_and_mlp_raise(envs):
     for a, b in zip(tenv.serve(ts, specs, tspec, faults=zero, n_requests=8)[2],
                     tenv.serve(ts, specs, tspec, n_requests=8)[2]):
         assert torch.equal(a, b)
+    from repro_torch import random as tprng
+    from repro_torch.soc import nn as tnn
+    k = ts.schedule.acc_id.shape[0]
+    mlps = tnn.init_mlp_qstate(tprng.PRNGKey(np.arange(k)))
+    mlps = tnn.MLPQState(*(v[:, None] for v in mlps[:4]), cfg=mlps.cfg)
+    mspecs = tenv.lower_mlps(ts, mlps)
+    res = tenv.episodes(ts, mspecs)
+    assert res.mode.shape[:2] == (k, 1)
+    assert bool(torch.isfinite(res.phase_time).all())
     with pytest.raises(NotImplementedError, match="A11"):
-        tenv.lower_mlps(ts, None)
+        tenv.serve(ts, mspecs, tspec, n_requests=8)
     serve_env = tvec.ServeEnv(tenv.envs[0], queue_cap=2, n_requests=4)
     with pytest.raises(NotImplementedError, match="A11"):
         serve_env.init_carry(tq.init_qstate(), mlp=object())
