@@ -69,10 +69,9 @@ def _train_shared_table(items, cfg, iterations, key):
     return qlearn.freeze(qs)
 
 
-def _eval_agents(env, comp, qs, mlp, seed, faults=None):
+def _eval_agents(env, comp, qs, mlp, seed):
     """(speedup, off-chip reduction) vs NON_COH of the tabular and MLP
-    agents on one (SoC, app); the three episodes share one key (and
-    ``faults``, a FaultSpec perturbing all three alike)."""
+    agents on one (SoC, app); the three episodes share one key."""
     from repro_torch import random as prng
     from repro_torch.core.modes import CoherenceMode
     from repro_torch.soc import nn as socnn, vecenv
@@ -80,12 +79,11 @@ def _eval_agents(env, comp, qs, mlp, seed, faults=None):
     sched = env._sched(comp)
     base = env.lower(comp, "fixed",
                      fixed_modes=int(CoherenceMode.NON_COH_DMA))
-    _, rb = env.episode_spec(comp, base, key=key, faults=faults)
+    _, rb = env.episode_spec(comp, base, key=key)
     _, rt = env.episode_spec(comp, vecenv.learned_policy_spec(qs, sched),
-                             key=key, faults=faults)
+                             key=key)
     _, rm = env.episode_spec(
-        comp, vecenv.mlp_policy_spec(socnn.freeze(mlp), sched), key=key,
-        faults=faults)
+        comp, vecenv.mlp_policy_spec(socnn.freeze(mlp), sched), key=key)
     tb = float(np.sum(rb.phase_time.cpu().numpy()))
     mb = float(np.sum(rb.phase_offchip.cpu().numpy()))
     out = {}
@@ -126,8 +124,7 @@ def run_port(device=None, n_train: int = N_TRAIN, n_heldout: int = N_HELDOUT,
              n_phases: int = N_PHASES, iterations: int = ITERS,
              batch: int = BATCH, key: int = 0, keep_agents: bool = False):
     """The port's Fig. 13 as a JSON-ready dict; with ``keep_agents`` also
-    ``(frozen Q-table, network, [(env, held-out app, seed) of each
-    held-out SoC])`` for :func:`storm_eval`."""
+    ``(frozen Q-table, network)``."""
     from repro_torch import random as prng, resolve_device
     from repro_torch.core import qlearn
     from repro_torch.kernels.soc_step import ops as soc_ops
@@ -166,12 +163,10 @@ def run_port(device=None, n_train: int = N_TRAIN, n_heldout: int = N_HELDOUT,
     rows_apps = [_eval_agents(env, comp(s.config, s.seed + APP_HELDOUT_OFFSET),
                               qs, mlp, s.seed)
                  for s, env in zip(train_s, envs)]
-    rows_socs, held = [], []
-    for s in held_s:
-        env = vecenv.VecEnv(s.config, seed=0, device=dev)
-        held.append((env, comp(s.config, s.seed + APP_HELDOUT_OFFSET),
-                     s.seed))
-        rows_socs.append(_eval_agents(*held[-1][:2], qs, mlp, s.seed))
+    rows_socs = [_eval_agents(vecenv.VecEnv(s.config, seed=0, device=dev),
+                              comp(s.config, s.seed + APP_HELDOUT_OFFSET),
+                              qs, mlp, s.seed)
+                 for s in held_s]
     sync()
     t_end = time.perf_counter()
     apps_sum, socs_sum = _set_summary(rows_apps), _set_summary(rows_socs)
@@ -209,22 +204,7 @@ def run_port(device=None, n_train: int = N_TRAIN, n_heldout: int = N_HELDOUT,
                              for s, r in zip(held_s, rows_socs)],
         },
     }
-    return (results, (qs, mlp, held)) if keep_agents else results
-
-
-def storm_eval(agents, intensity: float = 1.0) -> dict:
-    """Both frozen agents of :func:`run_port` scored on the held-out SoCs
-    inside ``storm(steps, intensity, PRNGKey(42))`` (Fig. 10's storm),
-    against the NON_COH baseline under the same storm: one faulted table
-    launch each for the baseline and the Q-table, one faulted MLP launch
-    for the network.  Returns the set summary."""
-    from repro_torch import random as prng
-    from repro_torch.soc import faults
-    qs, mlp, held = agents
-    rows = [_eval_agents(env, comp, qs, mlp, seed, faults=faults.storm(
-        comp.n_steps, intensity, prng.PRNGKey(42, device=env.device)))
-        for env, comp, seed in held]
-    return _set_summary(rows)
+    return (results, (qs, mlp)) if keep_agents else results
 
 
 def run_reference() -> dict:

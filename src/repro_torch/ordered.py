@@ -4,8 +4,9 @@
 devices can round a float32 sum differently.  The episode step's float
 sums go through :func:`seqsum` instead — ``((x0 + x1) + x2) + ...`` —
 which is the order the CUDA kernel uses, so the kernel and its plain
-version round every partial sum alike.  :func:`true_div` divides by a
-number with one rounding on the card too.
+version round every partial sum alike.  :func:`xla_sum` is the order of
+the reference's ``jnp.sum`` over a minor axis on the CPU.
+:func:`true_div` divides by a number with one rounding on the card too.
 """
 from __future__ import annotations
 
@@ -19,6 +20,24 @@ def seqsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     for i in range(1, x.shape[0]):
         acc = acc + x[i]
     return acc
+
+
+# XLA's CPU tree-reduction rewrite splits a longer row reduction into
+# windows of this many elements
+_XLA_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order XLA's CPU compiler gives a long
+    row reduction: the row, padded with zeros equally on both sides to a
+    multiple of the window, is summed window by window left to right, and
+    the window sums are reduced the same way until one window is left."""
+    n = x.shape[-1]
+    if n <= _XLA_WINDOW:
+        return seqsum(x, -1)
+    pad = -n % _XLA_WINDOW
+    x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    return xla_sum(seqsum(x.reshape(*x.shape[:-1], -1, _XLA_WINDOW), -1))
 
 
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:

@@ -46,7 +46,7 @@ from repro_torch.xla_math import f32 as _f32
 from repro_torch.core.modes import N_MODES
 from repro_torch.core.policies import Policy
 from repro_torch.core.state import N_STATES
-from repro_torch.ordered import seqsum, true_div
+from repro_torch.ordered import seqsum, true_div, xla_sum
 from repro_torch.soc.accelerators import IRREGULAR, PF
 
 # Width of the "sense" embedding; the order of the features is part of
@@ -379,7 +379,7 @@ def train_portfolio(items, cfg, *, iterations: int = 6, batch: int = 2,
             ks = prng.split(prng.fold_in(key, it * n_items + j), batch)
             (_, mlp_f), res = env._run(comp, sched, spec, cfg, weights, ks)
             valid = sched.valid
-            mean_r = (torch.where(valid, res.reward, 0.0).sum(-1)
+            mean_r = (xla_sum(torch.where(valid, res.reward, 0.0))
                       / torch.clamp(valid.to(torch.float32).sum(), min=1.0))
             packs.append(mlp_f.wpack)
             steps.append(mlp_f.step)
@@ -390,7 +390,7 @@ def train_portfolio(items, cfg, *, iterations: int = 6, batch: int = 2,
                         n).to(torch.int32)
         mlp = mlp._replace(wpack=true_div(seqsum(wall, 0), n)[None],
                            step=step.reshape(1))
-        hist[it] = true_div(seqsum(torch.cat(rs), 0), n).cpu()
+        hist[it] = true_div(xla_sum(torch.cat(rs)), n).cpu()
         if manager is not None:
             manager.save(it + 1, {"mlp": mlp._replace(cfg=None),
                                   "hist": hist, "done": it + 1})

@@ -71,9 +71,8 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "from benchmarks import torch_fig10_faults as f10\n"
         "from benchmarks import torch_fig13_generalize as f13\n"
         "f10.run_port('cpu', iters=1, n_phases=2)\n"
-        "r, agents = f13.run_port('cpu', n_train=1, n_heldout=1, "
-        "n_phases=1, iterations=1, batch=1, keep_agents=True)\n"
-        "f13.storm_eval(agents)\n"
+        "f13.run_port('cpu', n_train=1, n_heldout=1, n_phases=1, "
+        "iterations=1, batch=1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.'))\n"

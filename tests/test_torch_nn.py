@@ -16,7 +16,7 @@ columns must equal the no-FMA reference and floats lie within rtol = atol
 = 2e-5 of it.  Measured: the SoC1 episode (sense and one-hot, healthy and
 under a storm) and the stacked episodes bitwise; the portfolio's packs
 within 3e-11 (SoC6's episode has one exec_time a ULP off, ROADMAP C1's
-open Fig. 9 gap) and its reward history within one ULP.
+open Fig. 9 gap) and its reward history equal.
 """
 import jax
 import jax.numpy as jnp
@@ -468,6 +468,19 @@ def test_train_portfolio_matches_reference(runs):
     _assert_tree(mlp, _sub(nofma, "tp"), "train_portfolio")
     np.testing.assert_allclose(hist.numpy(), nofma["tp/hist"], **TOL)
     assert int(mlp.step[0]) > 0 and bool(torch.isfinite(mlp.wpack).all())
+
+
+@pytest.mark.parametrize("n", [5, 32, 33, 54, 432, 1025, 5000])
+def test_xla_sum_is_the_reference_row_sum(n):
+    """``ordered.xla_sum`` rounds a long row sum as the reference's jitted
+    ``jnp.sum`` does on the CPU (the per-episode mean reward of
+    ``train_portfolio``), bitwise."""
+    from repro_torch.ordered import xla_sum
+    x = (np.random.default_rng(n).standard_normal((3, n))
+         * 10.0 ** np.arange(-1, 2)[:, None]).astype(np.float32)
+    want = np.asarray(jax.jit(lambda r: jnp.sum(r, axis=-1))(x))
+    got = xla_sum(torch.from_numpy(x)).numpy()
+    assert got.tobytes() == want.tobytes()
 
 
 class _Crash(Exception):
