@@ -1,15 +1,18 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
-        [--path fig6|fig9|fig10|fig11|fig13]
+        [--path fig6|fig9|fig10|fig11|fig13|qwen3]
 
 Runs one of the full-width paths ``chip_smoke.py`` drives (default the
 Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
 ``fig10`` ``benchmarks/torch_fig10_faults.py``'s, ``fig11``
 ``benchmarks/torch_fig11_serving.py``'s, ``fig13``
-``benchmarks/torch_fig13_generalize.py``'s) once to warm up, then
+``benchmarks/torch_fig13_generalize.py``'s, ``qwen3`` Qwen3-8B serving
+through ``repro_torch.launch.serve`` at ``chip_smoke.py``'s shape, with
+the weights made once) once to warm up, then
 (1) times its wall and its host-side pieces one by one with the device
-synchronized around each, and (2) runs it again under ``torch.profiler``
+synchronized around each (for ``qwen3``: ``serve``'s own phase
+times), and (2) runs it again under ``torch.profiler``
 and prints the device's busy share of the wall time and the device time
 by kernel name.  Needs a CUDA card; prints the card's name and power
 limit beside every number.
@@ -215,10 +218,30 @@ def fig13_pieces(dev):
     }
 
 
+def qwen3_path(dev):
+    """(run, phases): one Qwen3-8B serve of 4 x 2,048 prompt tokens and 32
+    generated over weights made once, and the last run's phase times."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    cfg = get_arch("qwen3-8b")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    phases = {}
+
+    def run():
+        out = serve(cfg, 4, 2048, 32, device=dev, params=params)
+        phases.update({"bf16 weight copy (compute_copy)": out["cast_s"],
+                       "prefill B=4 S=2048": out["prefill_s"],
+                       "decode, 32 steps": out["decode_s"]})
+    return run, phases
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="fig6",
-                    choices=("fig6", "fig9", "fig10", "fig11", "fig13"))
+                    choices=("fig6", "fig9", "fig10", "fig11", "fig13",
+                             "qwen3"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -243,6 +266,9 @@ def main():
         from benchmarks.torch_fig13_generalize import run_port
         run = lambda: run_port(dev)
         pieces = fig13_pieces(dev)
+    elif args.path == "qwen3":
+        run, phases = qwen3_path(dev)
+        pieces = {}
     else:
         from benchmarks.torch_fig11_serving import run_port
         run = lambda: run_port(dev)
@@ -253,7 +279,11 @@ def main():
     print(f"{args.path} path: {wall:.1f} ms wall (median of 3)")
     for name, fn in pieces.items():
         print(f"{name}: {timed(fn):.2f} ms on {card}")
+    if args.path == "qwen3":
+        for name, secs in phases.items():
+            print(f"{name}: {secs * 1e3:.2f} ms (last timed run) on {card}")
 
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -261,8 +291,12 @@ def main():
         run()
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, sets): an operator's own
+    # row repeats the device time of the kernels it launched
     rows = []
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us:
@@ -271,7 +305,7 @@ def main():
     print(f"traced {args.path} path: {traced:.1f} ms wall, device busy "
           f"{busy:.1f} ms ({100 * busy / traced:.1f}%), idle "
           f"{100 * (1 - busy / traced):.1f}% on {card}")
-    for dev_us, key, count in sorted(rows, reverse=True)[:8]:
+    for dev_us, key, count in sorted(rows, reverse=True)[:12]:
         print(f"  device {dev_us / 1e3:9.2f} ms  x{count:<6d} {key[:70]}")
 
 

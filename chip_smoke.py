@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (``soc_step_episode`` and
+Builds the port's CUDA kernels from this checkout, one ``nvcc`` per
+source, started together (``soc_step.cu``: ``soc_step_episode`` and
 ``soc_step_serve``, each in a healthy and a faulted instantiation, and the
-episode kernel's MLP instantiations, healthy and faulted; one source)
-from this checkout and holds each against its plain PyTorch version at
-the shapes its paths give it; checks the card against the CPU plain path
-on small inputs (batched training, serving, stacked episodes on 2 lanes,
-each also under a fault storm, a killed and resumed checkpointed training
-and serving run, and MLP portfolio training); then drives six paths at
+episode kernel's MLP instantiations, healthy and faulted;
+``flash_attention.cu``: K3), and holds each against its plain PyTorch
+version at the shapes its paths give it; checks the card against the CPU
+plain path on small inputs (batched training, serving, stacked episodes
+on 2 lanes, each also under a fault storm, a killed and resumed
+checkpointed training and serving run, and MLP portfolio training); then
+drives six paths at
 full width, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -32,14 +34,27 @@ just after:
     averaging over 8 DSE-sampled SoCs and a shared Q-table on the same
     episodes, both scored on held-out apps and held-out SoCs.
 
+Then it holds the flash-attention kernel against its plain version at
+the serving path's prefill and decode shapes, at every
+feature case of ``tests/test_kernels.py`` in float32 and bfloat16, and at
+a Gemma-2-shaped case; checks the card against the CPU on the Qwen3 smoke
+serve; and drives a seventh path:
+
+  * Qwen3-8B serving at full width (``repro_torch.launch.serve``): random
+    float32 weights made on the card from a seed, 4 prompts of 2,048
+    tokens prefilled and 32 tokens decoded greedily, bf16 compute, every
+    attention through K3 (36 prefill + 36 x 32 decode launches).
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
-version and its bound.  Exits non-zero, printing no result, without a CUDA
-card or outside a checkout of the repository.  The last line of standard
+version, its bound and, for K3, PyTorch's
+``scaled_dot_product_attention`` on the same inputs.  Exits non-zero,
+printing no result, without a CUDA card or outside a checkout of the
+repository.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its numbers.
 """
@@ -51,6 +66,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -71,13 +87,27 @@ TEST_SEED, TEST_TILE_SEED = 900, 5
 SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
                   "depth", "degraded")
 # per path: launches of (K1 episode, K2 serve, K1f faulted episode, K2f
-# faulted serve, K1m MLP episode, K1m faulted)
+# faulted serve, K1m MLP episode, K1m faulted, K3 flash attention)
 KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
            "soc_step_serve_faulted", "soc_step_episode_mlp",
-           "soc_step_episode_mlp_faulted")
+           "soc_step_episode_mlp_faulted", "flash_attention")
 # held against their plain versions only: no path of the reference runs
 # an MLP agent under faults
 OFF_PATH = ("soc_step_episode_mlp_faulted",)
+H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak
+# K3 at the serving path's shapes, (B, H, Hkv, Sq, Skv, hd): prefill of a
+# 2,048-token prompt; decode at the first generated token, over a cache
+# of 2,080 rows (prompt + 32 generated)
+QWEN_BATCH, QWEN_PROMPT, QWEN_GEN = 4, 2048, 32
+FA_PREFILL = (QWEN_BATCH, 32, 8, QWEN_PROMPT, QWEN_PROMPT, 128)
+FA_DECODE = (QWEN_BATCH, 32, 8, 1, QWEN_PROMPT + 1, 128,
+             QWEN_PROMPT + QWEN_GEN)
+# tests/test_kernels.py's flash-attention cases and tolerances
+FA_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
+             (1, 4, 1, 256, 256, 128), (1, 2, 2, 128, 384, 64)]
+FA_FEATS = [dict(causal=True), dict(causal=True, window=64),
+            dict(causal=True, softcap=50.0), dict(causal=False)]
+LM_TOL = 1e-5                 # card vs CPU logits, tests/test_torch_lm.py
 
 
 def fail(msg: str, code: int = 1):
@@ -159,11 +189,19 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
         import numpy as np
+        import torch.nn.functional as F
         from benchmarks import torch_fig9_socs as fig9
         from benchmarks import torch_fig10_faults as fig10
         from benchmarks import torch_fig11_serving as fig11
         from benchmarks import torch_fig13_generalize as fig13
         from repro_torch import random as prng
+        from repro_torch.configs import get_arch, smoke_config
+        from repro_torch.kernels import nvcc
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.launch import serve as lm_serve
+        from repro_torch.models import transformer as lm
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.core import orchestrator as orch
         from repro_torch.core import policies as pol
@@ -181,18 +219,30 @@ def main() -> None:
 
     dev = torch.device("cuda")
     card = card_line()
-    nvcc = subprocess.run([soc_kernel._nvcc(), "--version"],
-                          capture_output=True, text=True).stdout
+    nvcc_version = subprocess.run([nvcc.find_nvcc(), "--version"],
+                                  capture_output=True, text=True).stdout
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
-          f"nvcc {nvcc.strip().splitlines()[-1]}")
+          f"nvcc {nvcc_version.strip().splitlines()[-1]}")
+    # float32 products in full float32 on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build (one nvcc for the one source of both kernels) ----------
+    # ---- 1. build: one nvcc per source, both started together ------------
+    def timed_build(mod):
+        t = time.perf_counter()
+        lib = mod.build(verbose=True)
+        return lib, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    lib = soc_kernel.build(verbose=True)
-    print(f"build: {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(timed_build, m)
+                  for m in (soc_kernel, fa_kernel)]
+        for f in builds:
+            lib, secs = f.result()
+            print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
+    print(f"builds: {time.perf_counter() - t0:.2f} s for both")
 
     # ---- 2. soc_step_episode vs plain at the Fig. 6 shapes ----------------
     soc = SOC_MOTIV_PAR
@@ -529,10 +579,16 @@ def main() -> None:
     counts = {}
     read = lambda: (soc_ops.launches, soc_ops.serve_launches,
                     soc_ops.fault_launches, soc_ops.fault_serve_launches,
-                    soc_ops.mlp_launches, soc_ops.mlp_fault_launches)
+                    soc_ops.mlp_launches, soc_ops.mlp_fault_launches,
+                    fa_ops.launches)
+
+    def reset_counts():
+        soc_ops.reset_launches()
+        fa_ops.reset_launches()
+
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
-    soc_ops.reset_launches()
+    reset_counts()
     t_main = time.perf_counter()
     res = orch.train_cohmeleon_batched(
         soc, iterations=ITERS, seed=SEED, weights=WEIGHTS, n_seeds=N_SEEDS,
@@ -548,7 +604,7 @@ def main() -> None:
     t_end = time.perf_counter()
     counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0, 0, 0, 0, 0):
+    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0):
         fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
              f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
@@ -579,14 +635,14 @@ def main() -> None:
 
     # ---- 5. Fig. 9 at full width ------------------------------------------
     torch.cuda.synchronize()
-    soc_ops.reset_launches()
+    reset_counts()
     t9 = time.perf_counter()
     r9 = fig9.run_port(dev)
     torch.cuda.synchronize()
     fig9_s = time.perf_counter() - t9
     counts["fig9"] = read()
     e9 = r9["_engine"]
-    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0):
+    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0):
         fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
              f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
@@ -617,7 +673,7 @@ def main() -> None:
 
     # ---- 6. Fig. 11 at full width -----------------------------------------
     torch.cuda.synchronize()
-    soc_ops.reset_launches()
+    reset_counts()
     t11 = time.perf_counter()
     r11 = fig11.run_port(dev)
     torch.cuda.synchronize()
@@ -625,7 +681,7 @@ def main() -> None:
     counts["fig11"] = read()
     e11 = r11["_engine"]
     want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"], 0, 0, 0, 0)
+              e11["expected_serve_launches"], 0, 0, 0, 0, 0)
     if counts["fig11"] != want11:
         fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
              f"expected {dict(zip(KERNELS, want11))}")
@@ -745,7 +801,7 @@ def main() -> None:
 
     # ---- 8. Fig. 10 at full width -----------------------------------------
     torch.cuda.synchronize()
-    soc_ops.reset_launches()
+    reset_counts()
     t10 = time.perf_counter()
     r10 = fig10.run_port(dev)
     torch.cuda.synchronize()
@@ -753,7 +809,7 @@ def main() -> None:
     counts["fig10"] = read()
     e10 = r10["_engine"]
     want10 = (e10["expected_episode_launches"], 0,
-              e10["expected_fault_episode_launches"], 0, 0, 0)
+              e10["expected_fault_episode_launches"], 0, 0, 0, 0)
     if counts["fig10"] != want10 or 0 in want10[0:3:2]:
         fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
              f"expected {dict(zip(KERNELS, want10))}")
@@ -780,7 +836,7 @@ def main() -> None:
 
     # ---- 9. storm serving through ServeEnv at full width -------------------
     torch.cuda.synchronize()
-    soc_ops.reset_launches()
+    reset_counts()
     t_st = time.perf_counter()
     _, st_qs, st_res = vec.ServeEnv(
         env1, queue_cap=fig11.QUEUE_CAP, n_requests=n_req).serve_specs(
@@ -790,7 +846,7 @@ def main() -> None:
     torch.cuda.synchronize()
     storm_s = time.perf_counter() - t_st
     counts["storm_serving"] = read()
-    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0):
+    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0):
         fail(f"storm serving launched "
              f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
              f"{KERNELS[3]}")
@@ -809,7 +865,7 @@ def main() -> None:
 
     # ---- 9b. Fig. 13 at full width -----------------------------------------
     torch.cuda.synchronize()
-    soc_ops.reset_launches()
+    reset_counts()
     t13 = time.perf_counter()
     r13, agents13 = fig13.run_port(dev, keep_agents=True)
     torch.cuda.synchronize()
@@ -817,7 +873,7 @@ def main() -> None:
     counts["fig13"] = read()
     e13 = r13["_engine"]
     want13 = (e13["expected_episode_launches"], 0, 0, 0,
-              e13["expected_mlp_episode_launches"], 0)
+              e13["expected_mlp_episode_launches"], 0, 0)
     if counts["fig13"] != want13 or 0 in want13[::4]:
         fail(f"Fig. 13 launched {dict(zip(KERNELS, counts['fig13']))}, "
              f"expected {dict(zip(KERNELS, want13))}")
@@ -835,6 +891,103 @@ def main() -> None:
           f"launches {dict(zip(KERNELS, counts['fig13']))}")
     (ROOT / "chiprun_out" / "fig13_port.json").write_text(
         json.dumps(r13, indent=1))
+
+    # ---- 9c. flash_attention (K3) vs plain: the serving path's prefill
+    # and decode shapes, tests/test_kernels.py's feature cases in both
+    # types, and a Gemma-2-shaped case ------------------------------------
+    fa_gen = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(b, h, hkv, sq, skv, hd, dt, s_max=None):
+        mk = lambda *shape: torch.randn(*shape, generator=fa_gen,
+                                        device=dev).to(dt)
+        return (mk(b, sq, h, hd), mk(b, s_max or skv, hkv, hd),
+                mk(b, s_max or skv, hkv, hd))
+
+    def fa_vs_plain(what, q, k, v, **feat):
+        """K3 against ``ref.attention_ref`` on the same inputs (rtol = atol
+        = 2e-5 in float32, 2e-2 in bfloat16, the reference's own); returns
+        the max abs error."""
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+        got = fa_kernel.flash_attention(q, k, v, **feat)
+        torch.cuda.synchronize()
+        want = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), **feat).transpose(1, 2)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != q.dtype or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention vs plain {what}: max abs err {err}")
+        print(f"flash_attention vs plain {what}: max abs err {err:.3e} "
+              f"(bound {tol})")
+        return err
+
+    qp, kp, vp = qkv(*FA_PREFILL, torch.bfloat16)
+    fa_err = fa_vs_plain(f"prefill {FA_PREFILL} bf16 causal", qp, kp, vp)
+    qd, kc, vc = qkv(*FA_DECODE[:6], torch.bfloat16, s_max=FA_DECODE[6])
+    kd, vd = kc[:, :FA_DECODE[4]], vc[:, :FA_DECODE[4]]   # cache slices
+    fa_err = max(fa_err, fa_vs_plain(
+        f"decode {FA_DECODE[:6]} bf16 over a cache of {FA_DECODE[6]}",
+        qd, kd, vd))
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in FA_SHAPES:
+            for feat in FA_FEATS:
+                fa_vs_plain(f"{shape} {dt} {feat}", *qkv(*shape, dt), **feat)
+    fa_vs_plain("Gemma-2 (1, 16, 8, 4608, 4608, 256) bf16, window 4096, "
+                "soft-cap 50", *qkv(1, 16, 8, 4608, 4608, 256,
+                                    torch.bfloat16),
+                window=4096, softcap=50.0)
+
+    # ---- 9d. the Qwen3 smoke serve: card == CPU plain path (float32) ------
+    scfg = smoke_config("qwen3-8b")
+    smoke_params = lambda: lm.init_params(
+        scfg, torch.Generator().manual_seed(0), "cpu")
+    s_cpu = lm_serve.serve(scfg, 2, 16, 8, device="cpu",
+                           params=smoke_params())
+    s_card = lm_serve.serve(scfg, 2, 16, 8, device=dev,
+                            params=smoke_params().to(dev))
+    if not np.array_equal(s_card["generated"], s_cpu["generated"]):
+        fail("Qwen3 smoke serve: card and CPU generated different tokens")
+    lm_err = max((s_card[k].cpu() - s_cpu[k]).abs().max().item()
+                 for k in ("prefill_logits", "logits"))
+    if lm_err > LM_TOL:
+        fail(f"Qwen3 smoke serve: card logits {lm_err} from the CPU's")
+    print(f"Qwen3 smoke serve (B=2, prompt 16, gen 8, float32): tokens "
+          f"equal on the card and the CPU, logits within {lm_err:.3e} "
+          f"(bound {LM_TOL})")
+
+    # ---- 9e. Qwen3-8B serving at full width --------------------------------
+    qcfg = get_arch("qwen3-8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t_q = time.perf_counter()
+    q_out = lm_serve.serve(qcfg, batch=QWEN_BATCH, prompt_len=QWEN_PROMPT,
+                           gen=QWEN_GEN, seed=0, device=dev)
+    torch.cuda.synchronize()
+    qwen_s = time.perf_counter() - t_q
+    counts["qwen3_serve"] = read()
+    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN))
+    if counts["qwen3_serve"] != want_q:
+        fail(f"Qwen3-8B serve launched "
+             f"{dict(zip(KERNELS, counts['qwen3_serve']))}, expected "
+             f"{dict(zip(KERNELS, want_q))}")
+    if not (bool(torch.isfinite(q_out["prefill_logits"]).all())
+            and bool(torch.isfinite(q_out["logits"]).all())):
+        fail("Qwen3-8B serve: non-finite logits")
+    if q_out["generated"].shape != (QWEN_BATCH, QWEN_GEN):
+        fail(f"Qwen3-8B serve: generated {q_out['generated'].shape}")
+    q_mem = torch.cuda.max_memory_allocated()
+    print(f"qwen3-8b serve (B={QWEN_BATCH}, prompt {QWEN_PROMPT}, gen "
+          f"{QWEN_GEN}, bf16 compute, float32 parameters) on {card}: "
+          f"prefill {q_out['prefill_s']:.4f} s, decode "
+          f"{q_out['decode_s']:.4f} s ({q_out['decode_s'] / QWEN_GEN * 1e3:.2f}"
+          f" ms/step, {q_out['decode_tok_per_s']:.1f} tok/s), bf16 weight "
+          f"copy {q_out['cast_s']:.4f} s, {qwen_s:.3f} s wall with the "
+          f"weights' init; peak memory {q_mem / 2**30:.2f} GiB; launches "
+          f"{dict(zip(KERNELS, counts['qwen3_serve']))}; first tokens "
+          f"{q_out['generated'][0, :8].tolist()}")
+    del q_out
+    torch.cuda.empty_cache()
 
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
@@ -924,8 +1077,46 @@ def main() -> None:
     for name, ms in zip(KERNELS, plain):
         print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
               f"library_ms null (no single PyTorch call computes the step)")
+
+    def plain_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        return event_ms(torch, fn, reps)
+
+    def attention_numbers(shape, q, k, v, causal):
+        """(ms, plain ms, SDPA ms, bound ms, bytes ms, ops ms) of K3 on
+        (q, k, v): the bytes of q, k, v read once and the output written
+        once; the operations of the (query, key) pairs the mask keeps (a
+        multiply and an add per element of QK^T and of PV), at the bf16
+        tensor-core peak."""
+        b, h, hkv, sq, skv, hd = shape
+        feat = dict(causal=causal)
+        ms = time_kernel(lambda: fa_kernel.flash_attention(q, k, v, **feat))
+        pl_ms = plain_ms(lambda: fa_ref.attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            **feat))
+        # SDPA aligns a causal mask top-left: one query row sees every key
+        lib_ms = time_kernel(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal and sq > 1, enable_gqa=True))
+        pairs = (sq * (skv - sq + 1) + sq * (sq - 1) // 2 if causal
+                 else sq * skv)
+        flops = 4 * hd * pairs * b * h
+        nbytes = q.element_size() * hd * (2 * b * sq * h + 2 * b * skv * hkv)
+        by = nbytes / H100_BYTES_PER_S * 1e3
+        op = flops / H100_BF16_FLOPS * 1e3
+        print(f"flash_attention {shape} bf16 on {card}: kernel {ms:.4f} "
+              f"ms/launch ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{pl_ms:.3f} ms, SDPA {lib_ms:.4f} ms; bound "
+              f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
+              f"{flops} bf16 ops -> {op:.6f} ms)")
+        return ms, pl_ms, lib_ms, max(by, op), by, op
+
+    fa_pre = attention_numbers(FA_PREFILL, qp, kp, vp, True)
+    fa_dec = attention_numbers(FA_DECODE[:6], qd, kd, vd, True)
     paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
-               "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s}
+               "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s,
+               "qwen3_serve": qwen_s}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 
@@ -947,10 +1138,29 @@ def main() -> None:
          "bound_by": "bytes" if nums[j][2] >= nums[j][3] else "operations",
          "library_ms": None, "main_path_s": on_paths(j),
          "shape": shapes[j], "card": card}
-        for j, name in enumerate(KERNELS)], "paths_s": paths_s}
+        for j, name in enumerate(KERNELS[:-1])], "paths_s": paths_s}
+    j = KERNELS.index("flash_attention")
+    kernels["kernels"].append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "variant": "bf16, causal (prefill and decode)",
+        "launches": sum(c[j] for c in counts.values()),
+        "launches_by_path": by_path(j), "max_abs_err": fa_err,
+        "ms": fa_pre[0], "plain_ms": fa_pre[1], "bound_ms": fa_pre[3],
+        "bound_by": "bytes" if fa_pre[4] >= fa_pre[5] else "operations",
+        "library_ms": fa_pre[2], "main_path_s": on_paths(j),
+        "shape": f"prefill {FA_PREFILL}", "decode_shape": str(FA_DECODE[:6]),
+        "decode_ms": fa_dec[0], "decode_plain_ms": fa_dec[1],
+        "decode_bound_ms": fa_dec[3],
+        "decode_bound_by": ("bytes" if fa_dec[4] >= fa_dec[5]
+                            else "operations"),
+        "decode_library_ms": fa_dec[2], "card": card})
     for k in kernels["kernels"]:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
-                                                  "bound_ms")):
+                                                  "bound_ms", "library_ms")
+                   if k[f] is not None):
             fail(f"{k['name']}: non-finite timing")
         if (k["launches"] == 0) != (k["name"] in OFF_PATH):
             fail(f"{k['name']} launched {k['launches']} times over the "

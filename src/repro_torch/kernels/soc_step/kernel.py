@@ -17,64 +17,25 @@ say what bounds each and how it is laid out.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.soc_step.ref import (N_CONSTS, N_SERVE_CONSTS,
                                               SERVE_YCOLS, ServeCarry, YCOLS)
 from repro_torch.soc.nn import pack_shape
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "soc_step.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+NVCC_FLAGS = nvcc.SM90A + ("--fmad=false",)
 
 _lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    cand = home / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (PATH, CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "soc_step CUDA kernel is built from source on first use")
 
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernel (if this source has not been built yet) and
     return the shared library's path."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = BUILD_ROOT / f"soc_step-{digest[:16]}"
-    lib = out_dir / "libsoc_step.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = Path(tmp) / lib.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp_lib),
-               str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp_lib, lib)
-    return lib
+    return nvcc.build(SOURCE, "soc_step", NVCC_FLAGS, verbose)
 
 
 def _load():

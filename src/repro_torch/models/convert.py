@@ -1,0 +1,100 @@
+"""Carry the reference's parameter and cache trees across, as numpy.
+
+The reference keeps each superblock's parameters stacked along a leading
+``n_super`` axis (``tree["blocks"]["l{i}_{kind}"]``) and the left-over
+layers under ``tree["tail"]["t{i}_{kind}"]``; the port keeps one module
+per layer in order.  ``attn`` and ``mlp`` nodes may be named tuples (as
+``jax.tree_util.tree_map(np.asarray, params)`` leaves them) or dicts;
+:func:`params_to_numpy` writes dicts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention, common, mlp, transformer
+
+_ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_MLP = ("w_gate", "w_up", "w_down")
+
+
+def _fields(node, names):
+    if isinstance(node, dict):
+        return [node[n] for n in names]
+    return [getattr(node, n) for n in names]
+
+
+def _layer_nodes(cfg: ArchConfig, tree: dict):
+    """``(node, index)`` per layer in order: the reference's layer tree
+    and its index along the stacked axis (None in the tail)."""
+    pattern, n_super, tail = transformer.superblock_layout(cfg)
+    out = [(tree["blocks"][f"l{i}_{kind}"], s)
+           for s in range(n_super) for i, kind in enumerate(pattern)]
+    out += [(tree["tail"][f"t{i}_{pattern[i]}"], None) for i in range(tail)]
+    return out
+
+
+def params_from_numpy(cfg: ArchConfig, tree: dict,
+                      device=None) -> transformer.Transformer:
+    """The reference's ``init_params`` tree (numpy leaves) as the port's
+    :class:`~repro_torch.models.transformer.Transformer` on ``device``."""
+    transformer.check_supported(cfg)
+
+    def t(a, s):
+        a = np.asarray(a if s is None else a[s])
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    layers = []
+    for node, s in _layer_nodes(cfg, tree):
+        attn = attention.AttnParams(*(t(a, s) for a in
+                                      _fields(node["attn"], _ATTN)))
+        ff = mlp.MLPParams(*(t(a, s) for a in _fields(node["mlp"], _MLP)))
+        layers.append(transformer.Layer(t(node["ln1"], s),
+                                        t(node["ln2"], s), attn, ff))
+    return transformer.Transformer(layers, t(tree["embed"], None),
+                                   t(tree["lm_head"], None),
+                                   t(tree["final_norm"], None))
+
+
+def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's tree with
+    stacked blocks, as float32 numpy arrays."""
+    pattern, n_super, tail = transformer.superblock_layout(cfg)
+    n = lambda p: p.detach().to("cpu", torch.float32).numpy()
+
+    def layer(p):
+        return {"ln1": n(p.ln1), "ln2": n(p.ln2),
+                "attn": {f: n(getattr(p.attn, f)) for f in _ATTN},
+                "mlp": {f: n(getattr(p.mlp, f)) for f in _MLP}}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    layers = [layer(p) for p in params.layers]
+    span = len(pattern)
+    blocks = {f"l{i}_{kind}": stack(layers[i:n_super * span:span])
+              for i, kind in enumerate(pattern)}
+    tree = {"blocks": blocks, "embed": n(params.embed),
+            "lm_head": n(params.lm_head), "final_norm": n(params.final_norm)}
+    if tail:
+        tree["tail"] = {f"t{i}_{pattern[i]}": layers[n_super * span + i]
+                        for i in range(tail)}
+    return tree
+
+
+def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> list:
+    """The reference's cache tree (numpy leaves; each attention layer a
+    ``(k, v)`` pair) as the port's per-layer list, in the compute
+    dtype."""
+    transformer.check_supported(cfg)
+    dt = common.dtype_of(cfg.compute_dtype)
+
+    def t(a, s):
+        a = np.asarray(a if s is None else a[s], np.float32)
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
+
+    return [(t(node[0], s), t(node[1], s))
+            for node, s in _layer_nodes(cfg, tree)]

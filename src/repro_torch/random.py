@@ -11,8 +11,8 @@ JAX release the reference runs with): ``split`` and the random bits hash
 the row-major iota of the output shape as a (hi, lo) counter pair, and
 32-bit draws are ``bits1 ^ bits2``.  ``fold_in`` hashes the counter pair
 ``(0, data)`` as the original mode does.  uint32 arithmetic runs in int64
-masked to 32 bits.  :func:`normal` reaches ``erf_inv`` through XLA's own
-CPU polynomials (:mod:`repro_torch.xla_math`).
+masked to 32 bits.  :func:`normal` reaches ``erf_inv`` and :func:`gumbel`
+``log`` through XLA's own CPU polynomials (:mod:`repro_torch.xla_math`).
 """
 from __future__ import annotations
 
@@ -110,9 +110,10 @@ def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
 
 
 def gumbel(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
-    """``jax.random.gumbel`` in float32, mode ``"low"``."""
+    """``jax.random.gumbel`` in float32, mode ``"low"``: both logs as XLA
+    computes them on the CPU (:func:`repro_torch.xla_math.log`)."""
     u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
-    return -torch.log(-torch.log(u))
+    return -xla_math.log(-xla_math.log(u))
 
 
 def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The CUDA soc_step kernels (episode and serve, healthy and faulted; the
-episode kernel's MLP instantiations) against their plain PyTorch
-versions, on the card.
+episode kernel's MLP instantiations) and the flash-attention kernel (K3)
+against their plain PyTorch versions, on the card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -16,6 +16,8 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.soc_step import ops, ref
 from repro_torch.soc import faults, nn as socnn, traffic, vecenv
 from repro_torch.soc.apps import make_application, make_phase
@@ -346,3 +348,40 @@ def test_cuda_faulted_serve_kernel_matches_ref(rate):
     """The faulted instantiation (K2f) under storm 0.7."""
     _need_card()
     _check_serve(rate, intensity=0.7)
+
+
+# ------------------------------------------------------- flash attention
+FA_SHAPES = [
+    # (B, H, Hkv, Sq, Skv, hd): tests/test_kernels.py's shapes, decode
+    # rows, a Gemma-2-sized head, head dim 16 and ragged tails
+    (1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
+    (1, 4, 1, 256, 256, 128), (1, 2, 2, 128, 384, 64),
+    (2, 8, 2, 1, 1, 64), (2, 8, 2, 1, 37, 64), (2, 8, 2, 1, 129, 64),
+    (1, 4, 2, 96, 300, 256), (2, 4, 4, 33, 70, 16), (1, 2, 1, 5, 5, 32)]
+FA_FEATS = [dict(causal=True), dict(causal=True, window=64),
+            dict(causal=True, softcap=50.0), dict(causal=False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FA_SHAPES)
+@pytest.mark.parametrize("feat", FA_FEATS)
+def test_cuda_flash_attention_matches_plain(shape, dtype, feat):
+    """K3 against ``ref.attention_ref`` on the same inputs, at the
+    reference's tolerances (2e-5 in float32, 2e-2 in bfloat16)."""
+    _need_card()
+    b, h, hkv, sq, skv, hd = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to("cuda", dtype) for s in ((b, sq, h, hd), (b, skv, hkv, hd),
+                                            (b, skv, hkv, hd)))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, **feat)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), **feat).transpose(1, 2)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)

@@ -49,20 +49,28 @@ def test_sources_name_no_jax_or_repro_import():
 
 def test_new_subpackages_are_covered():
     """The fault model, the checkpoint package, the neural agent, the
-    design-space sampler and XLA's float32 functions are among the
-    modules the import check above loads."""
+    design-space sampler, XLA's float32 functions and the LM stack
+    (configs, synthetic data, models, launch, the flash-attention kernel)
+    are among the modules the import check above loads."""
     mods = _modules()
     for m in ("repro_torch.soc.faults", "repro_torch.checkpoint",
               "repro_torch.checkpoint.ckpt",
               "repro_torch.checkpoint.manager", "repro_torch.soc.nn",
-              "repro_torch.soc.dse", "repro_torch.xla_math"):
+              "repro_torch.soc.dse", "repro_torch.xla_math",
+              "repro_torch.configs", "repro_torch.configs.qwen3_8b",
+              "repro_torch.data.synthetic", "repro_torch.models.attention",
+              "repro_torch.models.transformer", "repro_torch.models.convert",
+              "repro_torch.launch.steps", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref"):
         assert m in mods, m
 
 
 def test_chip_smoke_and_port_drivers_load_no_jax():
     """chip_smoke.py and the port drivers it runs import neither JAX nor
     repro, at import and on the port's path (Fig. 10 and Fig. 13 at a tiny
-    size)."""
+    size, and the Qwen3 smoke serve)."""
     root = SRC.parent
     code = (
         "import sys\n"
@@ -70,9 +78,14 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "from benchmarks import torch_fig9_socs, torch_fig11_serving\n"
         "from benchmarks import torch_fig10_faults as f10\n"
         "from benchmarks import torch_fig13_generalize as f13\n"
+        "from repro_torch.configs import smoke_config\n"
+        "from repro_torch.launch import serve\n"
         "f10.run_port('cpu', iters=1, n_phases=2)\n"
         "f13.run_port('cpu', n_train=1, n_heldout=1, n_phases=1, "
         "iterations=1, batch=1)\n"
+        "out = serve.serve(smoke_config('qwen3-8b'), 2, 8, 2, "
+        "device='cpu')\n"
+        "assert out['generated'].shape == (2, 2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -88,7 +101,9 @@ def test_entry_points_default_to_the_card():
     raises rather than running on the CPU."""
     import torch
     from benchmarks import torch_fig10_faults, torch_fig13_generalize
+    from repro_torch.configs import smoke_config
     from repro_torch.core import orchestrator
+    from repro_torch.launch import serve
     from repro_torch.soc import stacked, vecenv
     from repro_torch.soc.config import SOCS
     soc = SOCS["SoC1"]
@@ -101,6 +116,8 @@ def test_entry_points_default_to_the_card():
             assert make().type == "cuda"
         return
     for make in makers + [lambda: torch_fig10_faults.run_port(),
-                          lambda: torch_fig13_generalize.run_port()]:
+                          lambda: torch_fig13_generalize.run_port(),
+                          lambda: serve.serve(smoke_config("qwen3-8b"), 1,
+                                              4, 1)]:
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
