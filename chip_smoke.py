@@ -927,6 +927,16 @@ def main() -> None:
     fa_err = max(fa_err, fa_vs_plain(
         f"decode {FA_DECODE[:6]} bf16 over a cache of {FA_DECODE[6]}",
         qd, kd, vd))
+    # the same two shapes in float32: the outputs' spread is ~0.04 at
+    # Skv 2049, so bf16's 2e-2 would pass a kernel that dropped the
+    # newest key (~1e-3) or a whole tile; 2e-5 would not
+    fa_vs_plain(f"prefill {FA_PREFILL} float32 causal",
+                *qkv(*FA_PREFILL, torch.float32))
+    q32, kc32, vc32 = qkv(*FA_DECODE[:6], torch.float32, s_max=FA_DECODE[6])
+    fa_vs_plain(f"decode {FA_DECODE[:6]} float32 over a cache of "
+                f"{FA_DECODE[6]}", q32, kc32[:, :FA_DECODE[4]],
+                vc32[:, :FA_DECODE[4]])
+    del q32, kc32, vc32
     for dt in (torch.float32, torch.bfloat16):
         for shape in FA_SHAPES:
             for feat in FA_FEATS:

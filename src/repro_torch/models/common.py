@@ -42,16 +42,14 @@ def embed_init(shape, *, generator: torch.Generator,
 
 
 # ----------------------------------------------------------------- norms ---
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
-             zero_centered: bool = True) -> torch.Tensor:
-    """RMSNorm in float32 with a ``(1 + w)`` scale when ``zero_centered``;
-    the result in ``x``'s dtype."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32 with a ``(1 + w)`` scale; the result in ``x``'s
+    dtype."""
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     x32 = x32 * torch.rsqrt(var + eps)
-    w = weight.to(torch.float32)
-    scale = (1.0 + w) if zero_centered else w
-    return (x32 * scale).to(x.dtype)
+    return (x32 * (1.0 + weight.to(torch.float32))).to(x.dtype)
 
 
 # ------------------------------------------------------------------ rope ---

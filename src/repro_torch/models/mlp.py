@@ -25,9 +25,9 @@ class MLPParams(nn.Module):
         self.w_down = nn.Parameter(w_down.detach(), requires_grad=False)
 
 
-def init_mlp(cfg: ArchConfig, generator: torch.Generator, device=None,
-             width: int | None = None) -> MLPParams:
-    f = width or cfg.d_ff
+def init_mlp(cfg: ArchConfig, generator: torch.Generator,
+             device=None) -> MLPParams:
+    f = cfg.d_ff
     init = lambda shape: common.dense_init(shape, 0, generator=generator,
                                            device=device)
     return MLPParams(init((cfg.d_model, f)), init((cfg.d_model, f)),
