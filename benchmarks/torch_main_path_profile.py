@@ -1,18 +1,18 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
-        [--path fig6|fig9|fig10|fig11|fig13|qwen3]
+        [--path fig6|fig9|fig10|fig11|fig13|qwen3|rwkv6]
 
 Runs one of the full-width paths ``chip_smoke.py`` drives (default the
 Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
 ``fig10`` ``benchmarks/torch_fig10_faults.py``'s, ``fig11``
 ``benchmarks/torch_fig11_serving.py``'s, ``fig13``
 ``benchmarks/torch_fig13_generalize.py``'s, ``qwen3`` Qwen3-8B serving
-through ``repro_torch.launch.serve`` at ``chip_smoke.py``'s shape, with
-the weights made once) once to warm up, then
-(1) times its wall and its host-side pieces one by one with the device
-synchronized around each (for ``qwen3``: ``serve``'s own phase
-times), and (2) runs it again under ``torch.profiler``
+and ``rwkv6`` rwkv6-3b serving through ``repro_torch.launch.serve`` at
+``chip_smoke.py``'s shape, with the weights made once) once to warm up,
+then (1) times its wall and its host-side pieces one by one with the
+device synchronized around each (for the two serving paths: ``serve``'s
+own phase times), and (2) runs it again under ``torch.profiler``
 and prints the device's busy share of the wall time and the device time
 by kernel name.  Needs a CUDA card; prints the card's name and power
 limit beside every number.
@@ -218,13 +218,17 @@ def fig13_pieces(dev):
     }
 
 
-def qwen3_path(dev):
-    """(run, phases): one Qwen3-8B serve of 4 x 2,048 prompt tokens and 32
-    generated over weights made once, and the last run's phase times."""
+LM_ARCHS = {"qwen3": "qwen3-8b", "rwkv6": "rwkv6-3b"}
+
+
+def lm_path(dev, arch):
+    """(run, phases): one serve of ``arch`` over 4 x 2,048 prompt tokens
+    and 32 generated, weights made once, and the last run's phase
+    times."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
-    cfg = get_arch("qwen3-8b")
+    cfg = get_arch(arch)
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     phases = {}
@@ -241,7 +245,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="fig6",
                     choices=("fig6", "fig9", "fig10", "fig11", "fig13",
-                             "qwen3"))
+                             *LM_ARCHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -266,8 +270,8 @@ def main():
         from benchmarks.torch_fig13_generalize import run_port
         run = lambda: run_port(dev)
         pieces = fig13_pieces(dev)
-    elif args.path == "qwen3":
-        run, phases = qwen3_path(dev)
+    elif args.path in LM_ARCHS:
+        run, phases = lm_path(dev, LM_ARCHS[args.path])
         pieces = {}
     else:
         from benchmarks.torch_fig11_serving import run_port
@@ -279,7 +283,7 @@ def main():
     print(f"{args.path} path: {wall:.1f} ms wall (median of 3)")
     for name, fn in pieces.items():
         print(f"{name}: {timed(fn):.2f} ms on {card}")
-    if args.path == "qwen3":
+    if args.path in LM_ARCHS:
         for name, secs in phases.items():
             print(f"{name}: {secs * 1e3:.2f} ms (last timed run) on {card}")
 

@@ -6,8 +6,8 @@ Builds the port's CUDA kernels from this checkout, one ``nvcc`` per
 source, started together (``soc_step.cu``: ``soc_step_episode`` and
 ``soc_step_serve``, each in a healthy and a faulted instantiation, and the
 episode kernel's MLP instantiations, healthy and faulted;
-``flash_attention.cu``: K3), and holds each against its plain PyTorch
-version at the shapes its paths give it; checks the card against the CPU
+``flash_attention.cu``: K3; ``rwkv6_scan.cu``: K5), and holds each
+against its plain PyTorch version at the shapes its paths give it; checks the card against the CPU
 plain path on small inputs (batched training, serving, stacked episodes
 on 2 lanes, each also under a fault storm, a killed and resumed
 checkpointed training and serving run, and MLP portfolio training); then
@@ -45,6 +45,18 @@ serve; and drives a seventh path:
     tokens prefilled and 32 tokens decoded greedily, bf16 compute, every
     attention through K3 (36 prefill + 36 x 32 decode launches).
 
+Then it holds the RWKV-6 scan kernel (K5) against its plain step-by-step
+version at the rwkv6-3b prefill's shape, from a zero and a random state,
+at ``tests/test_kernels.py``'s shapes and on its two-halves state
+composition; checks the card against the CPU on the rwkv6 smoke serve
+(float32, the reference's zero-initialised ``u``, LoRA-b and ``ln_w`` set
+from a seed); and drives an eighth path:
+
+  * rwkv6-3b serving at full width: random float32 weights made on the
+    card from a seed, the same 4 prompts of 2,048 tokens and 32 greedy
+    tokens, bf16 compute; every time mix of the prefill through K5 (32
+    launches), decode through the model's step function, K3 never.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.
@@ -52,7 +64,8 @@ and reported with 0 launches.
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
 version, its bound and, for K3, PyTorch's
-``scaled_dot_product_attention`` on the same inputs.  Exits non-zero,
+``scaled_dot_product_attention`` on the same inputs (no single PyTorch
+call computes the SoC step or the WKV recurrence).  Exits non-zero,
 printing no result, without a CUDA card or outside a checkout of the
 repository.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists
@@ -87,10 +100,12 @@ TEST_SEED, TEST_TILE_SEED = 900, 5
 SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
                   "depth", "degraded")
 # per path: launches of (K1 episode, K2 serve, K1f faulted episode, K2f
-# faulted serve, K1m MLP episode, K1m faulted, K3 flash attention)
+# faulted serve, K1m MLP episode, K1m faulted, K3 flash attention, K5
+# RWKV-6 scan)
 KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
            "soc_step_serve_faulted", "soc_step_episode_mlp",
-           "soc_step_episode_mlp_faulted", "flash_attention")
+           "soc_step_episode_mlp_faulted", "flash_attention", "rwkv6_scan")
+SOC_KERNELS = KERNELS[:6]
 # held against their plain versions only: no path of the reference runs
 # an MLP agent under faults
 OFF_PATH = ("soc_step_episode_mlp_faulted",)
@@ -108,6 +123,11 @@ FA_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
 FA_FEATS = [dict(causal=True), dict(causal=True, window=64),
             dict(causal=True, softcap=50.0), dict(causal=False)]
 LM_TOL = 1e-5                 # card vs CPU logits, tests/test_torch_lm.py
+# K5 at the rwkv6-3b prefill's shape (B, H, T, K): B*H = 160
+RWKV_SCAN = (QWEN_BATCH, 40, QWEN_PROMPT, 64)
+# tests/test_kernels.py's scan shapes and its state-composition case
+RWKV_SHAPES = [(1, 2, 32, 16), (2, 4, 64, 32), (1, 1, 128, 64)]
+RWKV_COMPOSE = (1, 2, 64, 16)
 
 
 def fail(msg: str, code: int = 1):
@@ -200,6 +220,9 @@ def main() -> None:
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
+        from repro_torch.kernels.rwkv6_scan import ops as rw_ops
+        from repro_torch.kernels.rwkv6_scan import ref as rw_ref
         from repro_torch.launch import serve as lm_serve
         from repro_torch.models import transformer as lm
         from repro_torch.checkpoint.manager import CheckpointManager
@@ -229,20 +252,20 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build: one nvcc per source, both started together ------------
+    # ---- 1. build: one nvcc per source, all started together -------------
     def timed_build(mod):
         t = time.perf_counter()
         lib = mod.build(verbose=True)
         return lib, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(timed_build, m)
-                  for m in (soc_kernel, fa_kernel)]
+                  for m in (soc_kernel, fa_kernel, rw_kernel)]
         for f in builds:
             lib, secs = f.result()
             print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
-    print(f"builds: {time.perf_counter() - t0:.2f} s for both")
+    print(f"builds: {time.perf_counter() - t0:.2f} s for all three")
 
     # ---- 2. soc_step_episode vs plain at the Fig. 6 shapes ----------------
     soc = SOC_MOTIV_PAR
@@ -580,11 +603,12 @@ def main() -> None:
     read = lambda: (soc_ops.launches, soc_ops.serve_launches,
                     soc_ops.fault_launches, soc_ops.fault_serve_launches,
                     soc_ops.mlp_launches, soc_ops.mlp_fault_launches,
-                    fa_ops.launches)
+                    fa_ops.launches, rw_ops.launches)
 
     def reset_counts():
         soc_ops.reset_launches()
         fa_ops.reset_launches()
+        rw_ops.reset_launches()
 
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
@@ -604,7 +628,7 @@ def main() -> None:
     t_end = time.perf_counter()
     counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0):
+    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0, 0):
         fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
              f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
@@ -642,7 +666,7 @@ def main() -> None:
     fig9_s = time.perf_counter() - t9
     counts["fig9"] = read()
     e9 = r9["_engine"]
-    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0):
+    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0, 0):
         fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
              f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
@@ -681,7 +705,7 @@ def main() -> None:
     counts["fig11"] = read()
     e11 = r11["_engine"]
     want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"], 0, 0, 0, 0, 0)
+              e11["expected_serve_launches"], 0, 0, 0, 0, 0, 0)
     if counts["fig11"] != want11:
         fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
              f"expected {dict(zip(KERNELS, want11))}")
@@ -809,7 +833,7 @@ def main() -> None:
     counts["fig10"] = read()
     e10 = r10["_engine"]
     want10 = (e10["expected_episode_launches"], 0,
-              e10["expected_fault_episode_launches"], 0, 0, 0, 0)
+              e10["expected_fault_episode_launches"], 0, 0, 0, 0, 0)
     if counts["fig10"] != want10 or 0 in want10[0:3:2]:
         fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
              f"expected {dict(zip(KERNELS, want10))}")
@@ -846,7 +870,7 @@ def main() -> None:
     torch.cuda.synchronize()
     storm_s = time.perf_counter() - t_st
     counts["storm_serving"] = read()
-    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0):
+    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0, 0):
         fail(f"storm serving launched "
              f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
              f"{KERNELS[3]}")
@@ -873,7 +897,7 @@ def main() -> None:
     counts["fig13"] = read()
     e13 = r13["_engine"]
     want13 = (e13["expected_episode_launches"], 0, 0, 0,
-              e13["expected_mlp_episode_launches"], 0, 0)
+              e13["expected_mlp_episode_launches"], 0, 0, 0)
     if counts["fig13"] != want13 or 0 in want13[::4]:
         fail(f"Fig. 13 launched {dict(zip(KERNELS, counts['fig13']))}, "
              f"expected {dict(zip(KERNELS, want13))}")
@@ -976,7 +1000,7 @@ def main() -> None:
     torch.cuda.synchronize()
     qwen_s = time.perf_counter() - t_q
     counts["qwen3_serve"] = read()
-    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN))
+    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0)
     if counts["qwen3_serve"] != want_q:
         fail(f"Qwen3-8B serve launched "
              f"{dict(zip(KERNELS, counts['qwen3_serve']))}, expected "
@@ -997,6 +1021,119 @@ def main() -> None:
           f"{dict(zip(KERNELS, counts['qwen3_serve']))}; first tokens "
           f"{q_out['generated'][0, :8].tolist()}")
     del q_out
+    torch.cuda.empty_cache()
+
+    # ---- 9f. rwkv6_scan (K5) vs plain: the rwkv6-3b prefill's shape from a
+    # zero and a random state, tests/test_kernels.py's shapes and its
+    # two-halves state composition, in float32 at 2e-5 ------------------
+    rw_gen = torch.Generator(device=dev).manual_seed(0)
+
+    def scan_inputs(b, h, t, k, state=False):
+        """r, k, v, logw (clamped at -4, as tests/test_kernels.py draws
+        it), u and a zero or random initial state, on the card."""
+        mk = lambda *shape: torch.randn(*shape, generator=rw_gen, device=dev)
+        lw = torch.clamp(-torch.exp(0.5 * mk(b, h, t, k)), min=-4.0)
+        s0 = mk(b, h, k, k) if state else torch.zeros((b, h, k, k),
+                                                       device=dev)
+        return mk(b, h, t, k), mk(b, h, t, k), mk(b, h, t, k), lw, \
+            mk(h, k), s0
+
+    def scan_vs_plain(what, got, want):
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not all(torch.allclose(g, w, rtol=TOL, atol=TOL)
+                   for g, w in zip(got, want)):
+            fail(f"rwkv6_scan vs plain {what}: max abs err {err}")
+        print(f"rwkv6_scan vs plain {what}: max abs err {err:.3e} (bound "
+              f"{TOL})")
+        return err
+
+    def scan_check(what, *args):
+        got = rw_kernel.rwkv6_scan(*args)
+        torch.cuda.synchronize()
+        return scan_vs_plain(what, got, rw_ref.wkv_ref(*args))
+
+    rw_in = scan_inputs(*RWKV_SCAN)
+    rw_err = scan_check(f"{RWKV_SCAN} from a zero state", *rw_in)
+    rw_err = max(rw_err, scan_check(f"{RWKV_SCAN} from a random state",
+                                    *scan_inputs(*RWKV_SCAN, state=True)))
+    for shape in RWKV_SHAPES:
+        scan_check(f"{shape}", *scan_inputs(*shape))
+        scan_check(f"{shape} from a random state",
+                   *scan_inputs(*shape, state=True))
+    *rkvw, rw_u, _ = scan_inputs(*RWKV_COMPOSE)
+    half = RWKV_COMPOSE[2] // 2
+    whole = rw_kernel.rwkv6_scan(*rkvw, rw_u)
+    _, s_half = rw_kernel.rwkv6_scan(*(x[:, :, :half] for x in rkvw), rw_u)
+    second = rw_kernel.rwkv6_scan(*(x[:, :, half:] for x in rkvw), rw_u,
+                                  s_half)
+    torch.cuda.synchronize()
+    scan_vs_plain(f"{RWKV_COMPOSE}: two halves with the state carried vs "
+                  "the whole", second, (whole[0][:, :, half:], whole[1]))
+    del rkvw, whole, second
+
+    # ---- 9g. the rwkv6 smoke serve: card == CPU plain path (float32) ------
+    rcfg_s = smoke_config("rwkv6-3b")
+
+    def rwkv_smoke_params():
+        """Random smoke weights with the reference's zero-initialised
+        ``u``, LoRA-b matrices and ``ln_w`` set from a seed, so the bonus,
+        the LoRA mixing and the decay are compared too."""
+        p = lm.init_params(rcfg_s, torch.Generator().manual_seed(0), "cpu")
+        g = torch.Generator().manual_seed(1)
+        for layer in p.layers:
+            for name in ("u", "mix_lora_b", "w_lora_b", "ln_w"):
+                w = getattr(layer.tm, name)
+                w.copy_(0.5 * torch.randn(w.shape, generator=g))
+        return p
+
+    r_cpu = lm_serve.serve(rcfg_s, 2, 32, 8, device="cpu",
+                           params=rwkv_smoke_params())
+    r_card = lm_serve.serve(rcfg_s, 2, 32, 8, device=dev,
+                            params=rwkv_smoke_params().to(dev))
+    if not np.array_equal(r_card["generated"], r_cpu["generated"]):
+        fail("rwkv6 smoke serve: card and CPU generated different tokens")
+    rw_lm_err = max((r_card[k].cpu() - r_cpu[k]).abs().max().item()
+                    for k in ("prefill_logits", "logits"))
+    if rw_lm_err > LM_TOL:
+        fail(f"rwkv6 smoke serve: card logits {rw_lm_err} from the CPU's")
+    print(f"rwkv6 smoke serve (B=2, prompt 32, gen 8, float32): tokens "
+          f"equal on the card and the CPU, logits within {rw_lm_err:.3e} "
+          f"(bound {LM_TOL})")
+
+    # ---- 9h. rwkv6-3b serving at full width --------------------------------
+    rcfg = get_arch("rwkv6-3b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t_r = time.perf_counter()
+    r_out = lm_serve.serve(rcfg, batch=QWEN_BATCH, prompt_len=QWEN_PROMPT,
+                           gen=QWEN_GEN, seed=0, device=dev)
+    torch.cuda.synchronize()
+    rwkv_s = time.perf_counter() - t_r
+    counts["rwkv6_serve"] = read()
+    want_r = (0, 0, 0, 0, 0, 0, 0, rcfg.n_layers)
+    if counts["rwkv6_serve"] != want_r:
+        fail(f"rwkv6-3b serve launched "
+             f"{dict(zip(KERNELS, counts['rwkv6_serve']))}, expected "
+             f"{dict(zip(KERNELS, want_r))}")
+    if not (bool(torch.isfinite(r_out["prefill_logits"]).all())
+            and bool(torch.isfinite(r_out["logits"]).all())):
+        fail("rwkv6-3b serve: non-finite logits")
+    if r_out["generated"].shape != (QWEN_BATCH, QWEN_GEN):
+        fail(f"rwkv6-3b serve: generated {r_out['generated'].shape}")
+    r_mem = torch.cuda.max_memory_allocated()
+    print(f"rwkv6-3b serve (B={QWEN_BATCH}, prompt {QWEN_PROMPT}, gen "
+          f"{QWEN_GEN}, bf16 compute, float32 parameters and RWKV "
+          f"products) on {card}: prefill {r_out['prefill_s']:.4f} s, "
+          f"decode {r_out['decode_s']:.4f} s "
+          f"({r_out['decode_s'] / QWEN_GEN * 1e3:.2f} ms/step, "
+          f"{r_out['decode_tok_per_s']:.1f} tok/s), weight copy "
+          f"{r_out['cast_s']:.4f} s, {rwkv_s:.3f} s wall with the weights' "
+          f"init; peak memory {r_mem / 2**30:.2f} GiB; launches "
+          f"{dict(zip(KERNELS, counts['rwkv6_serve']))}; first tokens "
+          f"{r_out['generated'][0, :8].tolist()}")
+    del r_out
     torch.cuda.empty_cache()
 
     # ---- 10. times and bounds ---------------------------------------------
@@ -1084,7 +1221,7 @@ def main() -> None:
     errs = [ep_err, sv_err, epf_err, svf_err, epm_err, epmf_err]
     shapes = [f"B={b} S={s_len}", f"B=4 S={n_req}", f"B={b} S={s_len}",
               f"B=4 S={n_req}", f"B={b} S={s_len}", f"B={b} S={s_len}"]
-    for name, ms in zip(KERNELS, plain):
+    for name, ms in zip(SOC_KERNELS, plain):
         print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
               f"library_ms null (no single PyTorch call computes the step)")
 
@@ -1124,9 +1261,38 @@ def main() -> None:
 
     fa_pre = attention_numbers(FA_PREFILL, qp, kp, vp, True)
     fa_dec = attention_numbers(FA_DECODE[:6], qd, kd, vd, True)
+
+    def scan_numbers(shape, r, k, v, lw, u, s0):
+        """(ms, plain ms, bound ms, bytes ms, ops ms) of K5 on the inputs
+        the path gives it (a zero initial state passed in): r, k, v, logw,
+        u and s0 read once, y and the final state written once; per chunk
+        of 16 steps and head, the cumsum, the exponentials and their
+        products (8 operations per element of the K-wide rows), the 120
+        strictly causal entries of A and their products with v, the bonus,
+        q_t S and the state update, in float32."""
+        b, h, t, kd = shape
+        ms = time_kernel(lambda: rw_kernel.rwkv6_scan(r, k, v, lw, u, s0))
+        pl_ms = plain_ms(lambda: rw_ref.wkv_ref(r, k, v, lw, u, s0))
+        c = rw_kernel.CHUNK
+        pairs = c * (c - 1) // 2
+        per_chunk = (8 * c * kd + pairs * 2 * kd + c * 3 * kd
+                     + (pairs + c) * 2 * kd + c * 2 * kd * kd + c * kd
+                     + kd * kd * (2 * c + 2))
+        flops = b * h * (t // c) * per_chunk
+        nbytes = 4 * (5 * b * h * t * kd + h * kd + 2 * b * h * kd * kd)
+        by = nbytes / H100_BYTES_PER_S * 1e3
+        op = flops / H100_F32_FLOPS * 1e3
+        print(f"rwkv6_scan {shape} float32 on {card}: kernel {ms:.4f} "
+              f"ms/launch ({nbytes / ms / 1e6:.1f} GB/s), plain "
+              f"{pl_ms:.3f} ms; bound {max(by, op):.6f} ms ({nbytes} bytes "
+              f"-> {by:.6f} ms; {flops} f32 ops -> {op:.6f} ms); library_ms "
+              f"null (no single PyTorch call computes the recurrence)")
+        return ms, pl_ms, max(by, op), by, op
+
+    rw_num = scan_numbers(RWKV_SCAN, *rw_in)
     paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
                "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s,
-               "qwen3_serve": qwen_s}
+               "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 
@@ -1148,7 +1314,7 @@ def main() -> None:
          "bound_by": "bytes" if nums[j][2] >= nums[j][3] else "operations",
          "library_ms": None, "main_path_s": on_paths(j),
          "shape": shapes[j], "card": card}
-        for j, name in enumerate(KERNELS[:-1])], "paths_s": paths_s}
+        for j, name in enumerate(SOC_KERNELS)], "paths_s": paths_s}
     j = KERNELS.index("flash_attention")
     kernels["kernels"].append({
         "name": "flash_attention", "route": "cuda",
@@ -1167,6 +1333,18 @@ def main() -> None:
         "decode_bound_by": ("bytes" if fa_dec[4] >= fa_dec[5]
                             else "operations"),
         "decode_library_ms": fa_dec[2], "card": card})
+    j = KERNELS.index("rwkv6_scan")
+    kernels["kernels"].append({
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:69",
+        "variant": "float32, chunk 16, initial state passed",
+        "launches": sum(c[j] for c in counts.values()),
+        "launches_by_path": by_path(j), "max_abs_err": rw_err,
+        "ms": rw_num[0], "plain_ms": rw_num[1], "bound_ms": rw_num[2],
+        "bound_by": "bytes" if rw_num[3] >= rw_num[4] else "operations",
+        "library_ms": None, "main_path_s": on_paths(j),
+        "shape": f"(B, H, T, K) {RWKV_SCAN}", "card": card})
     for k in kernels["kernels"]:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")

@@ -1,0 +1,47 @@
+"""Public entry point of the RWKV-6 scan kernel.
+
+:func:`rwkv6_scan` takes the models' (B, H, T, K) layout, clamps the log
+decay at :data:`LOGW_MIN` as ``repro.kernels.rwkv6_scan.ops`` does, and
+dispatches by where the tensors lie: CUDA tensors launch the hand-written
+kernel (:mod:`.kernel`), CPU tensors take the plain step-by-step version
+(:func:`~repro_torch.kernels.rwkv6_scan.ref.wkv_ref`).  There is no
+fallback between them: a CUDA call that cannot build or launch raises.
+:data:`launches` counts the kernel's launches, so a run can show that it
+went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rwkv6_scan import kernel as _kernel
+from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
+
+LOGW_MIN = -4.0
+
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor,
+               s0: torch.Tensor | None = None):
+    """r/k/v/logw: (B, H, T, K) with T a multiple of 16; u: (H, K); s0:
+    (B, H, K, K) or None (zeros).  Returns (y (B, H, T, K), s_final
+    (B, H, K, K)), float32."""
+    global launches
+    logw = torch.clamp(logw.to(torch.float32), min=LOGW_MIN)
+    if r.device.type != "cuda":
+        b, h, _, kd = r.shape
+        if s0 is None:
+            s0 = torch.zeros((b, h, kd, kd), dtype=torch.float32,
+                             device=r.device)
+        return wkv_ref(r, k, v, logw, u, s0)
+    f32 = lambda x: x.to(torch.float32)
+    out = _kernel.rwkv6_scan(f32(r), f32(k), f32(v), logw, f32(u),
+                             None if s0 is None else f32(s0))
+    launches += 1
+    return out

@@ -5,12 +5,17 @@ synthetic numpy pipeline (the same seed gives the reference's prompts),
 the prompt is prefilled, the argmax token is fed back ``gen`` times, and
 the phases are timed, each ending after ``torch.cuda.synchronize()`` on
 the card.  Attention runs through the flash-attention kernel
-(``repro_torch.kernels.flash_attention``); the matmul weights are cast to
-the compute dtype once, before the timed phases (``cast_s``).
+(``repro_torch.kernels.flash_attention``), an RWKV-6 prompt's time mix
+through the RWKV-6 scan kernel (``repro_torch.kernels.rwkv6_scan``); the
+attention and MLP matmul weights and the head are cast to the compute
+dtype once, before the timed phases (``cast_s``; RWKV layers compute in
+float32).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --batch 4 --prompt-len 2048 --gen 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu
 """
 from __future__ import annotations

@@ -111,7 +111,8 @@ def attention_scores(q, k, v, *, causal_offset: int, window: int = 0,
 def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
                 positions: torch.Tensor):
     """q (B, S, H, hd) and k, v (B, S, K, hd) in the compute dtype, q and
-    k qk-normed and rotated."""
+    k qk-normed and rotated (with
+    rotary positions)."""
     dt = common.dtype_of(cfg.compute_dtype)
     hd = cfg.resolved_head_dim
     x = x.to(dt)
@@ -122,8 +123,9 @@ def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
     if cfg.qk_norm:
         q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = common.rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos_emb == "rope":
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

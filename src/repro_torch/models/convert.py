@@ -3,7 +3,8 @@
 The reference keeps each superblock's parameters stacked along a leading
 ``n_super`` axis (``tree["blocks"]["l{i}_{kind}"]``) and the left-over
 layers under ``tree["tail"]["t{i}_{kind}"]``; the port keeps one module
-per layer in order.  ``attn`` and ``mlp`` nodes may be named tuples (as
+per layer in order.  ``attn``, ``mlp``, ``tm`` and ``cm`` nodes (and an
+RWKV layer's cache entry) may be named tuples (as
 ``jax.tree_util.tree_map(np.asarray, params)`` leaves them) or dicts;
 :func:`params_to_numpy` writes dicts.
 """
@@ -13,10 +14,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp, transformer
+from repro_torch.models import attention, common, mlp, rwkv6, transformer
 
 _ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
+_STATE = rwkv6.RwkvState._fields
 
 
 def _fields(node, names):
@@ -26,12 +28,14 @@ def _fields(node, names):
 
 
 def _layer_nodes(cfg: ArchConfig, tree: dict):
-    """``(node, index)`` per layer in order: the reference's layer tree
-    and its index along the stacked axis (None in the tail)."""
+    """``(kind, node, index)`` per layer in order: the layer's kind, the
+    reference's layer tree and its index along the stacked axis (None in
+    the tail)."""
     pattern, n_super, tail = transformer.superblock_layout(cfg)
-    out = [(tree["blocks"][f"l{i}_{kind}"], s)
+    out = [(kind, tree["blocks"][f"l{i}_{kind}"], s)
            for s in range(n_super) for i, kind in enumerate(pattern)]
-    out += [(tree["tail"][f"t{i}_{pattern[i]}"], None) for i in range(tail)]
+    out += [(pattern[i], tree["tail"][f"t{i}_{pattern[i]}"], None)
+            for i in range(tail)]
     return out
 
 
@@ -46,10 +50,18 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
     layers = []
-    for node, s in _layer_nodes(cfg, tree):
-        attn = attention.AttnParams(*(t(a, s) for a in
-                                      _fields(node["attn"], _ATTN)))
-        ff = mlp.MLPParams(*(t(a, s) for a in _fields(node["mlp"], _MLP)))
+    for kind, node, s in _layer_nodes(cfg, tree):
+        fields = lambda sub, names: (t(a, s) for a in _fields(node[sub],
+                                                              names))
+        if kind == "rwkv":
+            layers.append(transformer.RwkvLayer(
+                t(node["ln1"], s), t(node["ln2"], s),
+                rwkv6.TimeMixParams(*fields("tm", rwkv6.TIME_MIX_FIELDS)),
+                rwkv6.ChannelMixParams(*fields("cm",
+                                               rwkv6.CHANNEL_MIX_FIELDS))))
+            continue
+        attn = attention.AttnParams(*fields("attn", _ATTN))
+        ff = mlp.MLPParams(*fields("mlp", _MLP))
         layers.append(transformer.Layer(t(node["ln1"], s),
                                         t(node["ln2"], s), attn, ff))
     return transformer.Transformer(layers, t(tree["embed"], None),
@@ -64,9 +76,14 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
     n = lambda p: p.detach().to("cpu", torch.float32).numpy()
 
     def layer(p):
-        return {"ln1": n(p.ln1), "ln2": n(p.ln2),
-                "attn": {f: n(getattr(p.attn, f)) for f in _ATTN},
-                "mlp": {f: n(getattr(p.mlp, f)) for f in _MLP}}
+        subs = ((("tm", rwkv6.TIME_MIX_FIELDS),
+                 ("cm", rwkv6.CHANNEL_MIX_FIELDS))
+                if isinstance(p, transformer.RwkvLayer)
+                else (("attn", _ATTN), ("mlp", _MLP)))
+        out = {"ln1": n(p.ln1), "ln2": n(p.ln2)}
+        for sub, names in subs:
+            out[sub] = {f: n(getattr(getattr(p, sub), f)) for f in names}
+        return out
 
     def stack(trees):
         if isinstance(trees[0], dict):
@@ -87,14 +104,17 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
 
 def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> list:
     """The reference's cache tree (numpy leaves; each attention layer a
-    ``(k, v)`` pair) as the port's per-layer list, in the compute
-    dtype."""
+    ``(k, v)`` pair, each RWKV layer an ``RwkvState``) as the port's
+    per-layer list: K/V in the compute dtype, RWKV states in float32 (the
+    layers read them in float32)."""
     transformer.check_supported(cfg)
     dt = common.dtype_of(cfg.compute_dtype)
 
-    def t(a, s):
+    def t(a, s, dtype=dt):
         a = np.asarray(a if s is None else a[s], np.float32)
-        return torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
-    return [(t(node[0], s), t(node[1], s))
-            for node, s in _layer_nodes(cfg, tree)]
+    return [rwkv6.RwkvState(*(t(a, s, torch.float32)
+                              for a in _fields(node, _STATE)))
+            if kind == "rwkv" else (t(node[0], s), t(node[1], s))
+            for kind, node, s in _layer_nodes(cfg, tree)]

@@ -1,23 +1,28 @@
-"""Model assembly for the dense attention families: prefill and greedy
-decode with a KV cache.
+"""Model assembly for the dense attention families and RWKV-6: prefill
+and greedy decode with a KV cache or recurrent states.
 
 The same semantics as ``repro.models.transformer`` for layers of the
-attention kinds.  The reference stacks each superblock's parameters along
-a leading axis for ``lax.scan``; here the layers are a ``ModuleList`` of
-``n_layers`` in order (superblock ``s``, position ``i`` is layer
+attention and RWKV kinds.  The reference stacks each superblock's
+parameters along a leading axis for ``lax.scan``; here the layers are a
+``ModuleList`` of ``n_layers`` in order (superblock ``s``, position ``i`` is layer
 ``s * len(pattern) + i``, then the tail), and a loop runs them.  The
 parameter names follow the reference's tree (``layers.<n>.ln1``,
-``.attn.wq``, ``.mlp.w_gate``, ``embed``, ``lm_head``, ``final_norm``);
+``.attn.wq``, ``.mlp.w_gate``, ``.tm.wr``, ``.cm.wk``, ``embed``,
+``lm_head``, ``final_norm``);
 :mod:`repro_torch.models.convert` carries a reference tree across.
 
 Parameters are float32 and are cast to ``cfg.compute_dtype`` at use, as
 in the reference; :func:`compute_copy` makes that cast once for the
 matmul weights (the numbers are the same, the cast being deterministic).
-The cache holds one ``(k, v)`` pair of ``(B, max_len, K, hd)``
-compute-dtype tensors per layer and is updated in place.
+RWKV layers compute in float32 against their float32 weights, as the
+reference's do, so the copy leaves them as they are.  The cache holds one
+``(k, v)`` pair of ``(B, max_len, K, hd)`` compute-dtype tensors per
+attention layer, updated in place, and one
+:class:`~repro_torch.models.rwkv6.RwkvState` per RWKV layer, replaced by
+each step's new state.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): recurrent layers (RWKV-6, RG-LRU), Mixture-of-Experts, M-RoPE,
+item): RG-LRU layers, Mixture-of-Experts, M-RoPE,
 sinusoidal positions, audio codebooks, the int8 KV cache, local
 (sliding-window) layers with their rolling cache, and Gemma-2's
 post-norms, embedding scale, tied head and final soft-cap.
@@ -28,7 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, rwkv6
 
 
 # --------------------------------------------------------------------------
@@ -66,15 +71,13 @@ def layer_window(cfg: ArchConfig, kind: str) -> int:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a feature the port lacks."""
     missing = []
-    if cfg.family == "ssm":
-        missing.append("RWKV-6 layers (ROADMAP B7)")
     if cfg.family == "hybrid":
         missing.append("RG-LRU layers (ROADMAP B8)")
     if cfg.n_experts:
         missing.append("Mixture-of-Experts layers (ROADMAP B6)")
     if cfg.mrope_sections or cfg.family == "vlm":
         missing.append("M-RoPE and the vision frontend (ROADMAP A15)")
-    if cfg.pos_emb != "rope":
+    if cfg.pos_emb not in ("rope", "none"):
         missing.append(f"{cfg.pos_emb} positions (ROADMAP A15)")
     if cfg.n_codebooks:
         missing.append("audio codebooks (ROADMAP A15)")
@@ -106,6 +109,19 @@ class Layer(nn.Module):
         self.mlp = mlp_params
 
 
+class RwkvLayer(nn.Module):
+    """One residual RWKV-6 layer: ``ln1``, ``tm`` (time mix), ``ln2``,
+    ``cm`` (channel mix)."""
+
+    def __init__(self, ln1, ln2, tm: rwkv6.TimeMixParams,
+                 cm: rwkv6.ChannelMixParams):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1.detach(), requires_grad=False)
+        self.ln2 = nn.Parameter(ln2.detach(), requires_grad=False)
+        self.tm = tm
+        self.cm = cm
+
+
 class Transformer(nn.Module):
     """``embed`` (V, D), ``layers``, ``final_norm`` (D,), ``lm_head``
     (D, V)."""
@@ -126,10 +142,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     check_supported(cfg)
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
-    layers = [Layer(zeros(), zeros(),
+    layers = [RwkvLayer(zeros(), zeros(),
+                        rwkv6.init_time_mix(cfg, generator, device),
+                        rwkv6.init_channel_mix(cfg, generator, device))
+              if kind == "rwkv" else
+              Layer(zeros(), zeros(),
                     attention.init_attn(cfg, generator, device),
                     mlp.init_mlp(cfg, generator, device))
-              for _ in layer_kinds(cfg)]
+              for kind in layer_kinds(cfg)]
     embed = common.embed_init((cfg.vocab, d), generator=generator,
                               device=device)
     lm_head = common.dense_init((d, cfg.vocab), 0, generator=generator,
@@ -138,13 +158,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
-    """``params`` with every matmul weight cast once to the compute dtype
-    (the norms stay float32 and shared, the embedding table stays as it
-    is: it is cast after the gather).  Computes the same numbers as
-    ``params``; with a float32 compute dtype it shares every tensor."""
+    """``params`` with every attention and MLP matmul weight and the head
+    cast once to the compute dtype (the norms stay float32 and shared, the
+    embedding table stays as it is: it is cast after the gather; RWKV
+    layers, which compute in float32, are shared as they are).  Computes
+    the same numbers as ``params``; with a float32 compute dtype it shares
+    every tensor."""
     dt = common.dtype_of(cfg.compute_dtype)
     c = lambda w: w.to(dt)
-    layers = [Layer(l.ln1, l.ln2,
+    layers = [l if isinstance(l, RwkvLayer) else
+              Layer(l.ln1, l.ln2,
                     attention.AttnParams(c(l.attn.wq), c(l.attn.wk),
                                          c(l.attn.wv), c(l.attn.wo),
                                          l.attn.q_norm, l.attn.k_norm),
@@ -158,11 +181,19 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
 # --------------------------------------------------------------------------
 # Layers, embedding, head
 # --------------------------------------------------------------------------
-def apply_layer(cfg: ArchConfig, kind: str, p: Layer, x: torch.Tensor,
+def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_pos: int | None = None):
-    """One residual layer of an attention kind; returns ``(x, cache)``."""
+    """One residual layer; returns ``(x, cache)``: an attention layer's
+    cache written in place, an RWKV layer's new state (None without
+    one)."""
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
+    if kind == "rwkv":
+        out, state = rwkv6.time_mix(cfg, p.tm, h, cache)
+        x = x + out
+        h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
+        out2, state = rwkv6.channel_mix(cfg, p.cm, h2, state)
+        return x + out2, state
     out, cache = attention.attend(cfg, p.attn, h, positions,
                                   layer_window=layer_window(cfg, kind),
                                   cache_kv=cache, cache_pos=cache_pos)
@@ -189,27 +220,35 @@ def lm_logits(cfg: ArchConfig, params: Transformer,
 # --------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> list:
-    """One zeroed ``(k, v)`` pair of (B, max_len, K, hd) per layer."""
+    """Per layer, a zeroed ``(k, v)`` pair of (B, max_len, K, hd) for an
+    attention layer, a zeroed :class:`~repro_torch.models.rwkv6.RwkvState`
+    for an RWKV layer (``max_len`` unused)."""
     check_supported(cfg)
     dt = common.dtype_of(cfg.compute_dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return [(torch.zeros(shape, dtype=dt, device=device),
-             torch.zeros(shape, dtype=dt, device=device))
-            for _ in layer_kinds(cfg)]
+    return [rwkv6.init_state(cfg, batch, dt, device) if kind == "rwkv"
+            else (torch.zeros(shape, dtype=dt, device=device),
+                  torch.zeros(shape, dtype=dt, device=device))
+            for kind in layer_kinds(cfg)]
 
 
 def _run_layers(cfg, params, h, positions, cache, pos):
+    """Runs every layer; returns ``(h, cache)`` with each layer's entry
+    as :func:`apply_layer` returns it."""
+    new_cache = []
     for kind, p, c in zip(layer_kinds(cfg), params.layers, cache):
-        h, _ = apply_layer(cfg, kind, p, h, positions, cache=c,
+        h, c = apply_layer(cfg, kind, p, h, positions, cache=c,
                            cache_pos=pos)
-    return h
+        new_cache.append(c)
+    return h, new_cache
 
 
 def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
             max_len: int | None = None):
     """Forward over the prompt ``batch["tokens"]`` (B, S); returns
     ``(cache, logits)`` with a cache of capacity ``max(max_len, S)``
-    holding the prompt's K/V and the last token's logits (B, 1, V).
+    holding the prompt's K/V (and the RWKV layers' states after the
+    prompt) and the last token's logits (B, 1, V).
 
     Each layer computes its K/V once, writes them to the cache and
     attends to them there (the reference computes them twice, for the
@@ -220,7 +259,7 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(s, device=h.device)[None, :]
     cache = init_cache(cfg, b, max(max_len or s, s, 1), h.device)
-    h = _run_layers(cfg, params, h, positions, cache, 0)
+    h, cache = _run_layers(cfg, params, h, positions, cache, 0)
     return cache, lm_logits(cfg, params, h[:, -1:, :])
 
 
@@ -228,9 +267,10 @@ def decode_step(cfg: ArchConfig, params: Transformer, cache: list,
                 batch: dict, pos: int):
     """One-token decode: ``batch["tokens"]`` (B, 1) at absolute position
     ``pos``.  Writes the token's K/V into ``cache`` in place and returns
-    ``(cache, logits)`` with logits (B, 1, V)."""
+    ``(cache, logits)`` with logits (B, 1, V) and the RWKV layers' new
+    states in the returned cache."""
     check_supported(cfg)
     h = embed_tokens(cfg, params, batch["tokens"])
     positions = torch.full((h.shape[0], 1), pos, device=h.device)
-    h = _run_layers(cfg, params, h, positions, cache, pos)
+    h, cache = _run_layers(cfg, params, h, positions, cache, pos)
     return cache, lm_logits(cfg, params, h)

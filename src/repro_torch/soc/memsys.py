@@ -8,9 +8,11 @@ execution time, off-chip bytes, active cycles, communication cycles.  The
 model is analytical (service rates + proportional sharing of bandwidth).
 
 Every float operation follows ``repro.soc.memsys`` in order and
-association, and the float sums over concurrent slots run left to right
-(:func:`repro_torch.ordered.seqsum`), which is what the CUDA episode
-kernel does too.  ``fault=None`` is the healthy program; a
+association as XLA compiles it: XLA rewrites a quotient divided again,
+``a / b / c``, into ``a / (b * c)``, so the two controller bandwidths are
+written that way here (and in the CUDA kernel).  The float sums over
+concurrent slots run left to right (:func:`repro_torch.ordered.seqsum`),
+which is what the CUDA episode kernel does too.  ``fault=None`` is the healthy program; a
 :class:`~repro_torch.soc.faults.StepFault` row perturbs the timing as
 ``repro.soc.memsys`` does.
 """
@@ -274,7 +276,7 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
 
     def llc_path(dir_cost_per_line, extra_lat, fill_bw_scale):
         per_line = s.line / s.llc_bw + dir_cost_per_line
-        ctl_bw = s.line / per_line / llc_slow
+        ctl_bw = s.line / (per_line * llc_slow)
         hit_bw = torch.minimum(llc_hit_bw, ctl_bw)
         fill = torch.clamp(line_fill_bw * fill_bw_scale, min=1e-3)
         comm = (llc_hit_bytes / torch.clamp(hit_bw, min=1e-3)
@@ -305,7 +307,7 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
     fc_dirty = _where(fits_l2, zero, l2_miss_bytes * dirty_frac * 0.5)
     per_line_fc = (s.line / s.llc_bw
                    + s.dir_lookup * (1.0 + 0.5 * n_llc_users * pressure))
-    fc_ctl_bw = s.line / per_line_fc / llc_slow
+    fc_ctl_bw = s.line / (per_line_fc * llc_slow)
     fc_evict = _where(fits_llc, zero, fc_llc_miss * dirty_frac)
     fc_write_off = _where(fits_llc, zero, _where(fits_l2, zero, write_bytes))
     fc_comm = (

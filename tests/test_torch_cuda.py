@@ -1,6 +1,7 @@
 """The CUDA soc_step kernels (episode and serve, healthy and faulted; the
-episode kernel's MLP instantiations) and the flash-attention kernel (K3)
-against their plain PyTorch versions, on the card.
+episode kernel's MLP instantiations), the flash-attention kernel (K3) and
+the RWKV-6 scan kernel (K5) against their plain PyTorch versions, on the
+card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -18,6 +19,8 @@ from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rwkv6_scan import ops as rw_ops
+from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
 from repro_torch.kernels.soc_step import ops, ref
 from repro_torch.soc import faults, nn as socnn, traffic, vecenv
 from repro_torch.soc.apps import make_application, make_phase
@@ -385,3 +388,34 @@ def test_cuda_flash_attention_matches_plain(shape, dtype, feat):
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+# ----------------------------------------------------------- rwkv6 scan
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("shape", [(1, 2, 32, 16), (2, 4, 64, 32),
+                                   (1, 1, 128, 64), (2, 3, 48, 64)])
+def test_cuda_rwkv6_scan_matches_plain(shape, state):
+    """K5 against ``ref.wkv_ref`` on the same inputs (rtol = atol = 2e-5),
+    from a zero or a random state, with r, k, v and logw read in place
+    from the models' (B, T, H, K) layout."""
+    _need_card()
+    b, h, t, k = shape
+    rng = np.random.default_rng(0)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to("cuda")
+    r, kk, v = (mk(b, t, h, k).transpose(1, 2) for _ in range(3))
+    logw = torch.clamp(-torch.exp(0.5 * mk(b, t, h, k)), min=-4.0) \
+        .transpose(1, 2)
+    u = mk(h, k)
+    s0 = mk(b, h, k, k) if state else torch.zeros((b, h, k, k),
+                                                  device="cuda")
+    before = rw_ops.launches
+    y, s_fin = rw_ops.rwkv6_scan(r, kk, v, logw, u, s0 if state else None)
+    torch.cuda.synchronize()
+    assert rw_ops.launches == before + 1
+    y_want, s_want = wkv_ref(r, kk, v, logw, u, s0)
+    assert y.shape == (b, h, t, k) and s_fin.shape == (b, h, k, k)
+    for got, want in ((y, y_want), (s_fin, s_want)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)

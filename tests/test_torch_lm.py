@@ -195,9 +195,9 @@ def test_compute_copy_computes_the_same_numbers():
     assert torch.equal(d1, d2)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "rwkv6-3b",
-                                  "granite-moe-3b-a800m", "qwen2-vl-2b",
-                                  "recurrentgemma-9b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-3b-a800m",
+                                  "qwen2-vl-2b", "recurrentgemma-9b",
+                                  "musicgen-large"])
 def test_unported_features_raise(arch):
     cfg = smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
