@@ -1,20 +1,21 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
-        [--path fig6|fig9|fig10|fig11|fig13|qwen3|rwkv6]
+        [--path fig6|fig9|fig10|fig11|fig13|qwen3|rwkv6|granite]
 
 Runs one of the full-width paths ``chip_smoke.py`` drives (default the
 Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
 ``fig10`` ``benchmarks/torch_fig10_faults.py``'s, ``fig11``
 ``benchmarks/torch_fig11_serving.py``'s, ``fig13``
-``benchmarks/torch_fig13_generalize.py``'s, ``qwen3`` Qwen3-8B serving
-and ``rwkv6`` rwkv6-3b serving through ``repro_torch.launch.serve`` at
-``chip_smoke.py``'s shape, with the weights made once) once to warm up,
+``benchmarks/torch_fig13_generalize.py``'s, ``qwen3`` Qwen3-8B serving,
+``rwkv6`` rwkv6-3b serving and ``granite`` granite-moe-3b-a800m serving
+through ``repro_torch.launch.serve`` at ``chip_smoke.py``'s shape, with
+the weights made once) once to warm up,
 then (1) times its wall and its host-side pieces one by one with the
 device synchronized around each (for the two serving paths: ``serve``'s
 own phase times), and (2) runs it again under ``torch.profiler``
 and prints the device's busy share of the wall time and the device time
-by kernel name.  Needs a CUDA card; prints the card's name and power
+by kernel name (device events only).  Needs a CUDA card; prints the card's name and power
 limit beside every number.
 """
 from __future__ import annotations
@@ -218,7 +219,8 @@ def fig13_pieces(dev):
     }
 
 
-LM_ARCHS = {"qwen3": "qwen3-8b", "rwkv6": "rwkv6-3b"}
+LM_ARCHS = {"qwen3": "qwen3-8b", "rwkv6": "rwkv6-3b",
+            "granite": "granite-moe-3b-a800m"}
 
 
 def lm_path(dev, arch):
@@ -309,7 +311,7 @@ def main():
     print(f"traced {args.path} path: {traced:.1f} ms wall, device busy "
           f"{busy:.1f} ms ({100 * busy / traced:.1f}%), idle "
           f"{100 * (1 - busy / traced):.1f}% on {card}")
-    for dev_us, key, count in sorted(rows, reverse=True)[:12]:
+    for dev_us, key, count in sorted(rows, reverse=True)[:16]:
         print(f"  device {dev_us / 1e3:9.2f} ms  x{count:<6d} {key[:70]}")
 
 

@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from this checkout, one ``nvcc`` per
 source, started together (``soc_step.cu``: ``soc_step_episode`` and
 ``soc_step_serve``, each in a healthy and a faulted instantiation, and the
 episode kernel's MLP instantiations, healthy and faulted;
-``flash_attention.cu``: K3; ``rwkv6_scan.cu``: K5), and holds each
+``flash_attention.cu``: K3; ``rwkv6_scan.cu``: K5; ``moe_gmm.cu``: K4),
+and holds each
 against its plain PyTorch version at the shapes its paths give it; checks the card against the CPU
 plain path on small inputs (batched training, serving, stacked episodes
 on 2 lanes, each also under a fault storm, a killed and resumed
@@ -57,6 +58,20 @@ from a seed); and drives an eighth path:
     tokens, bf16 compute; every time mix of the prefill through K5 (32
     launches), decode through the model's step function, K3 never.
 
+Then it holds the grouped expert-matmul kernel (K4) against its plain
+version at the granite serving path's prefill (gate/up and down) and
+decode shapes and at ``tests/test_kernels.py``'s shapes, in float32 and
+bf16, with every row past its group's size exactly 0; checks the card
+against the CPU on the granite smoke serve (float32); and drives a ninth
+path:
+
+  * granite-moe-3b-a800m serving at full width: random float32 weights
+    made on the card from a seed, the same 4 prompts of 2,048 tokens and
+    32 greedy tokens, bf16 compute; every attention through K3 (32 x 33
+    launches) and every expert product through K4 (3 x 32 x 33), K5
+    never; it prints the prefill's mean drop_frac and the smallest top-k
+    margin the router saw.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.
@@ -64,8 +79,9 @@ and reported with 0 launches.
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
 version, its bound and, for K3, PyTorch's
-``scaled_dot_product_attention`` on the same inputs (no single PyTorch
-call computes the SoC step or the WKV recurrence).  Exits non-zero,
+``scaled_dot_product_attention`` on the same inputs, for K4 cuBLAS's
+dense batched product over the whole buffer (no single PyTorch call
+computes the SoC step or the WKV recurrence).  Exits non-zero,
 printing no result, without a CUDA card or outside a checkout of the
 repository.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists
@@ -101,10 +117,11 @@ SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
                   "depth", "degraded")
 # per path: launches of (K1 episode, K2 serve, K1f faulted episode, K2f
 # faulted serve, K1m MLP episode, K1m faulted, K3 flash attention, K5
-# RWKV-6 scan)
+# RWKV-6 scan, K4 grouped expert matmul)
 KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
            "soc_step_serve_faulted", "soc_step_episode_mlp",
-           "soc_step_episode_mlp_faulted", "flash_attention", "rwkv6_scan")
+           "soc_step_episode_mlp_faulted", "flash_attention", "rwkv6_scan",
+           "moe_gmm")
 SOC_KERNELS = KERNELS[:6]
 # held against their plain versions only: no path of the reference runs
 # an MLP agent under faults
@@ -128,6 +145,18 @@ RWKV_SCAN = (QWEN_BATCH, 40, QWEN_PROMPT, 64)
 # tests/test_kernels.py's scan shapes and its state-composition case
 RWKV_SHAPES = [(1, 2, 32, 16), (2, 4, 64, 32), (1, 1, 128, 64)]
 RWKV_COMPOSE = (1, 2, 64, 16)
+# K4 at the granite-moe-3b-a800m serving path's shapes (B, E, C, D, F):
+# the prefill's gate/up and down products (capacity 432 rows of the 48
+# padded experts, 40 routed) and a decode step's gate/up (capacity 8, at
+# most one row per group)
+GMM_PREFILL = (QWEN_BATCH, 48, 432, 1536, 512)
+GMM_DOWN = (QWEN_BATCH, 48, 432, 512, 1536)
+GMM_DECODE = (QWEN_BATCH, 48, 8, 1536, 512)
+GMM_REAL = 40
+# tests/test_kernels.py's grouped-matmul shapes (E, C, D, F) and its bf16
+# tolerance
+GMM_SHAPES = [(4, 64, 128, 96), (8, 32, 64, 64), (2, 128, 256, 128)]
+GMM_BF16_TOL = dict(rtol=5e-2, atol=5e-1)
 
 
 def fail(msg: str, code: int = 1):
@@ -223,6 +252,10 @@ def main() -> None:
         from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
         from repro_torch.kernels.rwkv6_scan import ops as rw_ops
         from repro_torch.kernels.rwkv6_scan import ref as rw_ref
+        from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+        from repro_torch.kernels.moe_gmm import ops as gmm_ops
+        from repro_torch.kernels.moe_gmm import ref as gmm_ref
+        from repro_torch.models import mlp as lm_mlp
         from repro_torch.launch import serve as lm_serve
         from repro_torch.models import transformer as lm
         from repro_torch.checkpoint.manager import CheckpointManager
@@ -259,13 +292,13 @@ def main() -> None:
         return lib, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(timed_build, m)
-                  for m in (soc_kernel, fa_kernel, rw_kernel)]
+                  for m in (soc_kernel, fa_kernel, rw_kernel, gmm_kernel)]
         for f in builds:
             lib, secs = f.result()
             print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
-    print(f"builds: {time.perf_counter() - t0:.2f} s for all three")
+    print(f"builds: {time.perf_counter() - t0:.2f} s for all four")
 
     # ---- 2. soc_step_episode vs plain at the Fig. 6 shapes ----------------
     soc = SOC_MOTIV_PAR
@@ -603,12 +636,13 @@ def main() -> None:
     read = lambda: (soc_ops.launches, soc_ops.serve_launches,
                     soc_ops.fault_launches, soc_ops.fault_serve_launches,
                     soc_ops.mlp_launches, soc_ops.mlp_fault_launches,
-                    fa_ops.launches, rw_ops.launches)
+                    fa_ops.launches, rw_ops.launches, gmm_ops.launches)
 
     def reset_counts():
         soc_ops.reset_launches()
         fa_ops.reset_launches()
         rw_ops.reset_launches()
+        gmm_ops.reset_launches()
 
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
@@ -628,7 +662,7 @@ def main() -> None:
     t_end = time.perf_counter()
     counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0, 0):
+    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0, 0, 0):
         fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
              f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
@@ -666,7 +700,8 @@ def main() -> None:
     fig9_s = time.perf_counter() - t9
     counts["fig9"] = read()
     e9 = r9["_engine"]
-    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0, 0):
+    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0, 0,
+                          0):
         fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
              f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
@@ -705,7 +740,7 @@ def main() -> None:
     counts["fig11"] = read()
     e11 = r11["_engine"]
     want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"], 0, 0, 0, 0, 0, 0)
+              e11["expected_serve_launches"], 0, 0, 0, 0, 0, 0, 0)
     if counts["fig11"] != want11:
         fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
              f"expected {dict(zip(KERNELS, want11))}")
@@ -833,7 +868,7 @@ def main() -> None:
     counts["fig10"] = read()
     e10 = r10["_engine"]
     want10 = (e10["expected_episode_launches"], 0,
-              e10["expected_fault_episode_launches"], 0, 0, 0, 0, 0)
+              e10["expected_fault_episode_launches"], 0, 0, 0, 0, 0, 0)
     if counts["fig10"] != want10 or 0 in want10[0:3:2]:
         fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
              f"expected {dict(zip(KERNELS, want10))}")
@@ -870,7 +905,7 @@ def main() -> None:
     torch.cuda.synchronize()
     storm_s = time.perf_counter() - t_st
     counts["storm_serving"] = read()
-    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0, 0):
+    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0, 0, 0):
         fail(f"storm serving launched "
              f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
              f"{KERNELS[3]}")
@@ -897,8 +932,8 @@ def main() -> None:
     counts["fig13"] = read()
     e13 = r13["_engine"]
     want13 = (e13["expected_episode_launches"], 0, 0, 0,
-              e13["expected_mlp_episode_launches"], 0, 0, 0)
-    if counts["fig13"] != want13 or 0 in want13[::4]:
+              e13["expected_mlp_episode_launches"], 0, 0, 0, 0)
+    if counts["fig13"] != want13 or 0 in want13[0:5:4]:
         fail(f"Fig. 13 launched {dict(zip(KERNELS, counts['fig13']))}, "
              f"expected {dict(zip(KERNELS, want13))}")
     vals = r13["train_reward_history"] + [
@@ -1000,7 +1035,7 @@ def main() -> None:
     torch.cuda.synchronize()
     qwen_s = time.perf_counter() - t_q
     counts["qwen3_serve"] = read()
-    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0)
+    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0, 0)
     if counts["qwen3_serve"] != want_q:
         fail(f"Qwen3-8B serve launched "
              f"{dict(zip(KERNELS, counts['qwen3_serve']))}, expected "
@@ -1112,7 +1147,7 @@ def main() -> None:
     torch.cuda.synchronize()
     rwkv_s = time.perf_counter() - t_r
     counts["rwkv6_serve"] = read()
-    want_r = (0, 0, 0, 0, 0, 0, 0, rcfg.n_layers)
+    want_r = (0, 0, 0, 0, 0, 0, 0, rcfg.n_layers, 0)
     if counts["rwkv6_serve"] != want_r:
         fail(f"rwkv6-3b serve launched "
              f"{dict(zip(KERNELS, counts['rwkv6_serve']))}, expected "
@@ -1134,6 +1169,156 @@ def main() -> None:
           f"{dict(zip(KERNELS, counts['rwkv6_serve']))}; first tokens "
           f"{r_out['generated'][0, :8].tolist()}")
     del r_out
+    torch.cuda.empty_cache()
+
+    # ---- 9i. moe_gmm (K4) vs plain: the granite serving path's prefill
+    # (gate/up and down) and decode shapes, tests/test_kernels.py's shapes,
+    # in float32 at 2e-5 and bf16 at the reference's tolerance -------------
+    gmm_gen = torch.Generator(device=dev).manual_seed(0)
+
+    def gmm_inputs(lead, e, c, d, f, dt, hi, real=None):
+        """x (*lead, E, C, D), w (E, D, F) (at the model's init scale
+        where ``real`` is given) and seeded group sizes in [0, hi], the
+        padded experts' (from ``real`` on) at 0."""
+        mk = lambda *shape: torch.randn(*shape, generator=gmm_gen,
+                                        device=dev)
+        w = mk(e, d, f) / (d ** 0.5 if real else 1.0)
+        sizes = torch.randint(0, hi + 1, (*lead, e), generator=gmm_gen,
+                              device=dev, dtype=torch.int32)
+        if real:
+            sizes[..., real:] = 0
+        return mk(*lead, e, c, d).to(dt), w.to(dt), sizes
+
+    def gmm_check(what, x, w, sizes):
+        """K4 against ``ref.gmm_ref`` on the same inputs, rows past each
+        group's size exactly 0; returns the max abs error."""
+        tol = (GMM_BF16_TOL if x.dtype == torch.bfloat16
+               else dict(rtol=TOL, atol=TOL))
+        got = gmm_kernel.moe_gmm(x, w, sizes)
+        torch.cuda.synchronize()
+        want = gmm_ref.gmm_ref(x, w, sizes)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != x.dtype or not torch.allclose(
+                got.float(), want.float(), **tol):
+            fail(f"moe_gmm vs plain {what}: max abs err {err}")
+        past = torch.arange(x.shape[-2], device=dev) >= sizes[..., None]
+        if not bool((got[past] == 0).all()):
+            fail(f"moe_gmm {what}: a row past its group's size is not 0")
+        print(f"moe_gmm vs plain {what}: max abs err {err:.3e} (rtol "
+              f"{tol['rtol']}, atol {tol['atol']}), rows past each size 0")
+        return err
+
+    gmm_errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for what, (b_, e, c, d, f), hi in (
+                ("prefill gate/up", GMM_PREFILL, GMM_PREFILL[2]),
+                ("prefill down", GMM_DOWN, GMM_DOWN[2]),
+                ("decode gate/up", GMM_DECODE, 1),
+                ("decode down", GMM_DECODE[:3] + GMM_DECODE[3:][::-1], 1)):
+            err = gmm_check(f"{what} {(b_, e, c, d, f)} {dt}",
+                            *gmm_inputs((b_,), e, c, d, f, dt, hi, GMM_REAL))
+            gmm_errs[dt] = max(gmm_errs.get(dt, 0.0), err)
+        for shape in GMM_SHAPES:
+            gmm_check(f"{shape} {dt}", *gmm_inputs((), *shape, dt, shape[1]))
+
+    # the MoE layers' routing on a path, read back after it (the router
+    # passes through unchanged)
+    routes = []
+    route_fn = lm_mlp.route
+
+    def observed_route(*args, **kwargs):
+        routes.append(route_fn(*args, **kwargs))
+        return routes[-1]
+
+    def min_margin(rs, k):
+        """The smallest gap between the k-th and the (k+1)-th router
+        probability over the tokens of ``rs``."""
+        gaps = []
+        for r in rs:
+            top = torch.topk(r.probs, k + 1, dim=-1).values
+            gaps.append((top[..., k - 1] - top[..., k]).min().item())
+        return min(gaps)
+
+    # ---- 9j. the granite smoke serve: card == CPU plain path (float32) ----
+    gcfg_s = smoke_config("granite-moe-3b-a800m")
+    granite_smoke_params = lambda: lm.init_params(
+        gcfg_s, torch.Generator().manual_seed(0), "cpu")
+    g_cpu = lm_serve.serve(gcfg_s, 2, 19, 8, device="cpu",
+                           params=granite_smoke_params())
+    lm_mlp.route = observed_route
+    try:
+        g_card = lm_serve.serve(gcfg_s, 2, 19, 8, device=dev,
+                                params=granite_smoke_params().to(dev))
+    finally:
+        lm_mlp.route = route_fn
+    if not np.array_equal(g_card["generated"], g_cpu["generated"]):
+        fail("granite smoke serve: card and CPU generated different tokens")
+    g_lm_err = max((g_card[k].cpu() - g_cpu[k]).abs().max().item()
+                   for k in ("prefill_logits", "logits"))
+    if g_lm_err > LM_TOL:
+        fail(f"granite smoke serve: card logits {g_lm_err} from the CPU's")
+    print(f"granite smoke serve (B=2, prompt 19, gen 8, float32, "
+          f"{gcfg_s.n_experts} experts padded to {gcfg_s.padded_experts}, "
+          f"top-{gcfg_s.top_k}): tokens equal on the card and the CPU, "
+          f"logits within {g_lm_err:.3e} (bound {LM_TOL}); smallest top-k "
+          f"margin the router saw {min_margin(routes, gcfg_s.top_k):.3e}")
+    routes.clear()
+
+    # ---- 9k. granite-moe-3b-a800m serving at full width -------------------
+    gcfg = get_arch("granite-moe-3b-a800m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    lm_mlp.route = observed_route
+    try:
+        t_g = time.perf_counter()
+        g_out = lm_serve.serve(gcfg, batch=QWEN_BATCH,
+                               prompt_len=QWEN_PROMPT, gen=QWEN_GEN, seed=0,
+                               device=dev)
+        torch.cuda.synchronize()
+        granite_s = time.perf_counter() - t_g
+    finally:
+        lm_mlp.route = route_fn
+    counts["granite_serve"] = read()
+    steps_g = gcfg.n_layers * (1 + QWEN_GEN)
+    want_g = (0, 0, 0, 0, 0, 0, steps_g, 0, 3 * steps_g)
+    if counts["granite_serve"] != want_g:
+        fail(f"granite-moe-3b-a800m serve launched "
+             f"{dict(zip(KERNELS, counts['granite_serve']))}, expected "
+             f"{dict(zip(KERNELS, want_g))}")
+    if not (bool(torch.isfinite(g_out["prefill_logits"]).all())
+            and bool(torch.isfinite(g_out["logits"]).all())):
+        fail("granite-moe-3b-a800m serve: non-finite logits")
+    if g_out["generated"].shape != (QWEN_BATCH, QWEN_GEN):
+        fail(f"granite-moe-3b-a800m serve: generated "
+             f"{g_out['generated'].shape}")
+    g_mem = torch.cuda.max_memory_allocated()
+    pre_routes = [r for r in routes if r.probs.shape[1] == QWEN_PROMPT]
+    dec_routes = [r for r in routes if r.probs.shape[1] == 1]
+    if (len(pre_routes), len(dec_routes)) != (gcfg.n_layers,
+                                              gcfg.n_layers * QWEN_GEN):
+        fail(f"granite-moe-3b-a800m serve: {len(pre_routes)} prefill and "
+             f"{len(dec_routes)} decode MoE calls")
+    g_drop = sum(1.0 - r.keep.float().mean().item()
+                 for r in pre_routes) / len(pre_routes)
+    print(f"granite-moe-3b-a800m serve (B={QWEN_BATCH}, prompt "
+          f"{QWEN_PROMPT}, gen {QWEN_GEN}, bf16 compute, float32 parameters "
+          f"and router) on {card}: prefill {g_out['prefill_s']:.4f} s, "
+          f"decode {g_out['decode_s']:.4f} s "
+          f"({g_out['decode_s'] / QWEN_GEN * 1e3:.2f} ms/step, "
+          f"{g_out['decode_tok_per_s']:.1f} tok/s), bf16 weight copy "
+          f"{g_out['cast_s']:.4f} s, {granite_s:.3f} s wall with the "
+          f"weights' init; peak memory {g_mem / 2**30:.2f} GiB; prefill's "
+          f"mean drop_frac {g_drop:.4f}, capacity {pre_routes[0].cap} rows; "
+          f"smallest top-k margin {min_margin(pre_routes, gcfg.top_k):.3e}; "
+          f"launches {dict(zip(KERNELS, counts['granite_serve']))}; first "
+          f"tokens {g_out['generated'][0, :8].tolist()}")
+    # the group sizes K4 took in the first layer's prefill and first
+    # decode step, for the times below
+    gmm_sizes = (pre_routes[0].sizes, dec_routes[0].sizes)
+    del g_out, pre_routes, dec_routes
+    routes.clear()
     torch.cuda.empty_cache()
 
     # ---- 10. times and bounds ---------------------------------------------
@@ -1290,9 +1475,44 @@ def main() -> None:
         return ms, pl_ms, max(by, op), by, op
 
     rw_num = scan_numbers(RWKV_SCAN, *rw_in)
+
+    def gmm_numbers(what, shape, sizes):
+        """(ms, plain ms, cuBLAS ms, bound ms, bytes ms, ops ms) of K4 in
+        bf16 at ``shape`` with the path's group ``sizes`` (B, E): the kept
+        x rows read once, the weights of every expert that some batch row
+        routes to read once, the whole output written once; two
+        operations per kept row and weight, at the bf16 tensor-core peak.
+        The library call is the dense batched product the reference
+        computes, ``torch.matmul`` over the whole buffer (cuBLAS)."""
+        b_, e, c, d, f = shape
+        x = torch.randn(b_, e, c, d, generator=gmm_gen,
+                        device=dev).to(torch.bfloat16)
+        w = (torch.randn(e, d, f, generator=gmm_gen, device=dev)
+             / d ** 0.5).to(torch.bfloat16)
+        ms = time_kernel(lambda: gmm_kernel.moe_gmm(x, w, sizes))
+        pl_ms = plain_ms(lambda: gmm_ref.gmm_ref(x, w, sizes))
+        lib_ms = time_kernel(lambda: torch.matmul(x, w))
+        rows = int(sizes.sum())
+        experts = int((sizes.sum(0) > 0).sum())
+        nbytes = 2 * (rows * d + experts * d * f + b_ * e * c * f)
+        flops = 2 * rows * d * f
+        by = nbytes / H100_BYTES_PER_S * 1e3
+        op = flops / H100_BF16_FLOPS * 1e3
+        print(f"moe_gmm {what} {shape} bf16 on {card}: kernel {ms:.4f} "
+              f"ms/launch ({flops / ms / 1e9:.2f} TFLOP/s over {rows} kept "
+              f"rows, {experts} experts' weights), plain {pl_ms:.3f} ms, "
+              f"cuBLAS matmul {lib_ms:.4f} ms; bound {max(by, op):.6f} ms "
+              f"({nbytes} bytes -> {by:.6f} ms; {flops} bf16 ops -> "
+              f"{op:.6f} ms)")
+        return ms, pl_ms, lib_ms, max(by, op), by, op
+
+    gmm_pre = gmm_numbers("prefill gate/up", GMM_PREFILL, gmm_sizes[0])
+    gmm_down = gmm_numbers("prefill down", GMM_DOWN, gmm_sizes[0])
+    gmm_dec = gmm_numbers("decode gate/up", GMM_DECODE, gmm_sizes[1])
     paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
                "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s,
-               "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s}
+               "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s,
+               "granite_serve": granite_s}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 
@@ -1345,6 +1565,28 @@ def main() -> None:
         "bound_by": "bytes" if rw_num[3] >= rw_num[4] else "operations",
         "library_ms": None, "main_path_s": on_paths(j),
         "shape": f"(B, H, T, K) {RWKV_SCAN}", "card": card})
+    j = KERNELS.index("moe_gmm")
+    bound_by = lambda n: "bytes" if n[4] >= n[5] else "operations"
+    kernels["kernels"].append({
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:51",
+        "variant": "bf16, B x E groups per launch, CUDA-core FMAs",
+        "launches": sum(c[j] for c in counts.values()),
+        "launches_by_path": by_path(j),
+        "max_abs_err": gmm_errs[torch.bfloat16],
+        "max_abs_err_float32": gmm_errs[torch.float32],
+        "ms": gmm_pre[0], "plain_ms": gmm_pre[1], "bound_ms": gmm_pre[3],
+        "bound_by": bound_by(gmm_pre), "library_ms": gmm_pre[2],
+        "main_path_s": on_paths(j),
+        "shape": f"prefill gate/up (B, E, C, D, F) {GMM_PREFILL}",
+        "down_ms": gmm_down[0], "down_plain_ms": gmm_down[1],
+        "down_bound_ms": gmm_down[3], "down_bound_by": bound_by(gmm_down),
+        "down_library_ms": gmm_down[2],
+        "decode_shape": str(GMM_DECODE), "decode_ms": gmm_dec[0],
+        "decode_plain_ms": gmm_dec[1], "decode_bound_ms": gmm_dec[3],
+        "decode_bound_by": bound_by(gmm_dec),
+        "decode_library_ms": gmm_dec[2], "card": card})
     for k in kernels["kernels"]:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")

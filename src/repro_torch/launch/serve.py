@@ -6,15 +6,19 @@ the prompt is prefilled, the argmax token is fed back ``gen`` times, and
 the phases are timed, each ending after ``torch.cuda.synchronize()`` on
 the card.  Attention runs through the flash-attention kernel
 (``repro_torch.kernels.flash_attention``), an RWKV-6 prompt's time mix
-through the RWKV-6 scan kernel (``repro_torch.kernels.rwkv6_scan``); the
-attention and MLP matmul weights and the head are cast to the compute
-dtype once, before the timed phases (``cast_s``; RWKV layers compute in
+through the RWKV-6 scan kernel (``repro_torch.kernels.rwkv6_scan``), every
+expert product of an MoE layer through the grouped-matmul kernel
+(``repro_torch.kernels.moe_gmm``); the attention, MLP and expert matmul
+weights and the head are cast to the compute dtype once, before the
+timed phases (``cast_s``; RWKV layers and the MoE router compute in
 float32).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu
 """
@@ -30,7 +34,6 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.synthetic import DataConfig, host_batch
-from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer
 
 
@@ -59,9 +62,6 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
     data = host_batch(cfg, DataConfig(prompt_len, batch, seed=seed), 0)
     prompt = {"tokens": torch.from_numpy(data["tokens"]).to(dev)}
 
-    prefill_fn = steps_lib.make_prefill_step(cfg, max_len=prompt_len + gen)
-    decode_fn = steps_lib.make_decode_step(cfg)
-
     _sync(dev)
     t0 = time.perf_counter()
     run = transformer.compute_copy(cfg, params)
@@ -69,7 +69,8 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
     t_cast = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cache, prefill_logits = prefill_fn(run, prompt)
+    cache, prefill_logits = transformer.prefill(cfg, run, prompt,
+                                                max_len=prompt_len + gen)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -77,8 +78,8 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
     toks, logits = [], []
     t1 = time.perf_counter()
     for i in range(gen):
-        cache, step_logits = decode_fn(run, cache, {"tokens": tok},
-                                       prompt_len + i)
+        cache, step_logits = transformer.decode_step(
+            cfg, run, cache, {"tokens": tok}, prompt_len + i)
         tok = torch.argmax(step_logits, dim=-1).to(torch.int32)
         toks.append(tok)
         logits.append(step_logits)

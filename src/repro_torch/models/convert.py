@@ -3,10 +3,11 @@
 The reference keeps each superblock's parameters stacked along a leading
 ``n_super`` axis (``tree["blocks"]["l{i}_{kind}"]``) and the left-over
 layers under ``tree["tail"]["t{i}_{kind}"]``; the port keeps one module
-per layer in order.  ``attn``, ``mlp``, ``tm`` and ``cm`` nodes (and an
-RWKV layer's cache entry) may be named tuples (as
+per layer in order.  ``attn``, ``mlp``, ``moe``, ``tm`` and ``cm`` nodes
+(and an RWKV layer's cache entry) may be named tuples (as
 ``jax.tree_util.tree_map(np.asarray, params)`` leaves them) or dicts;
-:func:`params_to_numpy` writes dicts.
+:func:`params_to_numpy` writes dicts.  A tree with a tied head has no
+``lm_head``, and passes both ways without one.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.models import attention, common, mlp, rwkv6, transformer
 
 _ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
+_MOE = ("router", "w_gate", "w_up", "w_down")
 _STATE = rwkv6.RwkvState._fields
 
 
@@ -61,11 +63,13 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
                                                rwkv6.CHANNEL_MIX_FIELDS))))
             continue
         attn = attention.AttnParams(*fields("attn", _ATTN))
-        ff = mlp.MLPParams(*fields("mlp", _MLP))
+        ff = (mlp.MoEParams(*fields("moe", _MOE)) if "moe" in node
+              else mlp.MLPParams(*fields("mlp", _MLP)))
         layers.append(transformer.Layer(t(node["ln1"], s),
                                         t(node["ln2"], s), attn, ff))
+    head = tree.get("lm_head")
     return transformer.Transformer(layers, t(tree["embed"], None),
-                                   t(tree["lm_head"], None),
+                                   None if head is None else t(head, None),
                                    t(tree["final_norm"], None))
 
 
@@ -79,7 +83,8 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
         subs = ((("tm", rwkv6.TIME_MIX_FIELDS),
                  ("cm", rwkv6.CHANNEL_MIX_FIELDS))
                 if isinstance(p, transformer.RwkvLayer)
-                else (("attn", _ATTN), ("mlp", _MLP)))
+                else (("attn", _ATTN),
+                      ("moe", _MOE) if hasattr(p, "moe") else ("mlp", _MLP)))
         out = {"ln1": n(p.ln1), "ln2": n(p.ln2)}
         for sub, names in subs:
             out[sub] = {f: n(getattr(getattr(p, sub), f)) for f in names}
@@ -95,7 +100,9 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
     blocks = {f"l{i}_{kind}": stack(layers[i:n_super * span:span])
               for i, kind in enumerate(pattern)}
     tree = {"blocks": blocks, "embed": n(params.embed),
-            "lm_head": n(params.lm_head), "final_norm": n(params.final_norm)}
+            "final_norm": n(params.final_norm)}
+    if params.lm_head is not None:
+        tree["lm_head"] = n(params.lm_head)
     if tail:
         tree["tail"] = {f"t{i}_{pattern[i]}": layers[n_super * span + i]
                         for i in range(tail)}

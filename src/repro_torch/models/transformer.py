@@ -1,19 +1,23 @@
-"""Model assembly for the dense attention families and RWKV-6: prefill
-and greedy decode with a KV cache or recurrent states.
+"""Model assembly for the dense and Mixture-of-Experts attention families
+and RWKV-6: prefill and greedy decode with a KV cache or recurrent
+states.
 
 The same semantics as ``repro.models.transformer`` for layers of the
-attention and RWKV kinds.  The reference stacks each superblock's
+attention and RWKV kinds, with a gated MLP or an MoE layer, and a head
+of its own or tied to the embedding.  The reference stacks each superblock's
 parameters along a leading axis for ``lax.scan``; here the layers are a
 ``ModuleList`` of ``n_layers`` in order (superblock ``s``, position ``i`` is layer
 ``s * len(pattern) + i``, then the tail), and a loop runs them.  The
 parameter names follow the reference's tree (``layers.<n>.ln1``,
-``.attn.wq``, ``.mlp.w_gate``, ``.tm.wr``, ``.cm.wk``, ``embed``,
-``lm_head``, ``final_norm``);
+``.attn.wq``, ``.mlp.w_gate``, ``.moe.router``, ``.tm.wr``, ``.cm.wk``,
+``embed``, ``lm_head`` (absent when tied), ``final_norm``);
 :mod:`repro_torch.models.convert` carries a reference tree across.
 
 Parameters are float32 and are cast to ``cfg.compute_dtype`` at use, as
 in the reference; :func:`compute_copy` makes that cast once for the
-matmul weights (the numbers are the same, the cast being deterministic).
+matmul weights, the expert weights (contiguous, for the grouped-matmul
+kernel) and the head (a tied head's ``embed.T``) (the numbers are the
+same, the cast being deterministic; the MoE router stays float32).
 RWKV layers compute in float32 against their float32 weights, as the
 reference's do, so the copy leaves them as they are.  The cache holds one
 ``(k, v)`` pair of ``(B, max_len, K, hd)`` compute-dtype tensors per
@@ -22,10 +26,10 @@ attention layer, updated in place, and one
 each step's new state.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): RG-LRU layers, Mixture-of-Experts, M-RoPE,
+item): RG-LRU layers, arctic's dense residual beside its MoE, M-RoPE,
 sinusoidal positions, audio codebooks, the int8 KV cache, local
 (sliding-window) layers with their rolling cache, and Gemma-2's
-post-norms, embedding scale, tied head and final soft-cap.
+post-norms, embedding scale and final soft-cap.
 """
 from __future__ import annotations
 
@@ -73,8 +77,9 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = []
     if cfg.family == "hybrid":
         missing.append("RG-LRU layers (ROADMAP B8)")
-    if cfg.n_experts:
-        missing.append("Mixture-of-Experts layers (ROADMAP B6)")
+    if cfg.moe_dense_residual:
+        missing.append("the dense residual MLP beside the MoE (ROADMAP "
+                       "A15)")
     if cfg.mrope_sections or cfg.family == "vlm":
         missing.append("M-RoPE and the vision frontend (ROADMAP A15)")
     if cfg.pos_emb not in ("rope", "none"):
@@ -85,8 +90,8 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append("the int8 KV cache (ROADMAP A15)")
     if "attn_local" in superblock_layout(cfg)[0]:
         missing.append("local layers and their rolling cache (ROADMAP A15)")
-    gemma = [f for f in ("post_norms", "embed_scale", "tie_embeddings",
-                         "final_softcap") if getattr(cfg, f)]
+    gemma = [f for f in ("post_norms", "embed_scale", "final_softcap")
+             if getattr(cfg, f)]
     if gemma:
         missing.append(f"Gemma-2's {', '.join(gemma)} (ROADMAP A15)")
     if missing:
@@ -98,15 +103,19 @@ def check_supported(cfg: ArchConfig) -> None:
 # Parameters
 # --------------------------------------------------------------------------
 class Layer(nn.Module):
-    """One residual attention layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One residual attention layer: ``ln1``, ``attn``, ``ln2`` and
+    ``mlp`` (a gated MLP) or ``moe`` (an MoE layer)."""
 
     def __init__(self, ln1, ln2, attn: attention.AttnParams,
-                 mlp_params: mlp.MLPParams):
+                 ff: mlp.MLPParams | mlp.MoEParams):
         super().__init__()
         self.ln1 = nn.Parameter(ln1.detach(), requires_grad=False)
         self.ln2 = nn.Parameter(ln2.detach(), requires_grad=False)
         self.attn = attn
-        self.mlp = mlp_params
+        if isinstance(ff, mlp.MoEParams):
+            self.moe = ff
+        else:
+            self.mlp = ff
 
 
 class RwkvLayer(nn.Module):
@@ -124,13 +133,14 @@ class RwkvLayer(nn.Module):
 
 class Transformer(nn.Module):
     """``embed`` (V, D), ``layers``, ``final_norm`` (D,), ``lm_head``
-    (D, V)."""
+    (D, V), None when the head is tied to ``embed``."""
 
     def __init__(self, layers, embed, lm_head, final_norm):
         super().__init__()
         self.layers = nn.ModuleList(layers)
         self.embed = nn.Parameter(embed.detach(), requires_grad=False)
-        self.lm_head = nn.Parameter(lm_head.detach(), requires_grad=False)
+        self.lm_head = (None if lm_head is None else
+                        nn.Parameter(lm_head.detach(), requires_grad=False))
         self.final_norm = nn.Parameter(final_norm.detach(),
                                        requires_grad=False)
 
@@ -148,34 +158,45 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
               if kind == "rwkv" else
               Layer(zeros(), zeros(),
                     attention.init_attn(cfg, generator, device),
-                    mlp.init_mlp(cfg, generator, device))
+                    mlp.init_moe(cfg, generator, device) if cfg.n_experts
+                    else mlp.init_mlp(cfg, generator, device))
               for kind in layer_kinds(cfg)]
     embed = common.embed_init((cfg.vocab, d), generator=generator,
                               device=device)
-    lm_head = common.dense_init((d, cfg.vocab), 0, generator=generator,
-                                device=device)
+    lm_head = (None if cfg.tie_embeddings else
+               common.dense_init((d, cfg.vocab), 0, generator=generator,
+                                 device=device))
     return Transformer(layers, embed, lm_head, zeros())
 
 
 def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
-    """``params`` with every attention and MLP matmul weight and the head
-    cast once to the compute dtype (the norms stay float32 and shared, the
-    embedding table stays as it is: it is cast after the gather; RWKV
-    layers, which compute in float32, are shared as they are).  Computes
-    the same numbers as ``params``; with a float32 compute dtype it shares
-    every tensor."""
+    """``params`` with every attention, MLP and expert matmul weight and
+    the head cast once to the compute dtype (the norms and the MoE router
+    stay float32 and shared, the embedding table stays as it is: it is
+    cast after the gather; RWKV layers, which compute in float32, are
+    shared as they are).  A tied head's copy is ``embed.T`` cast, held as
+    the copy's ``lm_head``.  Computes the same numbers as ``params``; with
+    a float32 compute dtype it shares every tensor."""
     dt = common.dtype_of(cfg.compute_dtype)
     c = lambda w: w.to(dt)
+
+    def ff(l):
+        if hasattr(l, "moe"):
+            m, ce = l.moe, lambda w: c(w).contiguous()
+            return mlp.MoEParams(m.router, ce(m.w_gate), ce(m.w_up),
+                                 ce(m.w_down))
+        return mlp.MLPParams(c(l.mlp.w_gate), c(l.mlp.w_up),
+                             c(l.mlp.w_down))
+
     layers = [l if isinstance(l, RwkvLayer) else
               Layer(l.ln1, l.ln2,
                     attention.AttnParams(c(l.attn.wq), c(l.attn.wk),
                                          c(l.attn.wv), c(l.attn.wo),
                                          l.attn.q_norm, l.attn.k_norm),
-                    mlp.MLPParams(c(l.mlp.w_gate), c(l.mlp.w_up),
-                                  c(l.mlp.w_down)))
+                    ff(l))
               for l in params.layers]
-    return Transformer(layers, params.embed, c(params.lm_head),
-                       params.final_norm)
+    head = params.lm_head if params.lm_head is not None else params.embed.T
+    return Transformer(layers, params.embed, head.to(dt), params.final_norm)
 
 
 # --------------------------------------------------------------------------
@@ -199,6 +220,8 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                                   cache_kv=cache, cache_pos=cache_pos)
     x = x + out
     h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
+    if cfg.n_experts:
+        return x + mlp.moe(cfg, p.moe, h2)[0], cache
     return x + mlp.mlp(cfg, p.mlp, h2), cache
 
 
@@ -212,7 +235,8 @@ def lm_logits(cfg: ArchConfig, params: Transformer,
               h: torch.Tensor) -> torch.Tensor:
     dt = h.dtype
     h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
-    return (h @ params.lm_head.to(dt)).to(torch.float32)
+    head = params.lm_head if params.lm_head is not None else params.embed.T
+    return (h @ head.to(dt)).to(torch.float32)
 
 
 # --------------------------------------------------------------------------

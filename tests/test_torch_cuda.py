@@ -1,7 +1,7 @@
 """The CUDA soc_step kernels (episode and serve, healthy and faulted; the
-episode kernel's MLP instantiations), the flash-attention kernel (K3) and
-the RWKV-6 scan kernel (K5) against their plain PyTorch versions, on the
-card.
+episode kernel's MLP instantiations), the flash-attention kernel (K3),
+the RWKV-6 scan kernel (K5) and the grouped expert-matmul kernel (K4)
+against their plain PyTorch versions, on the card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -19,6 +19,8 @@ from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ref import gmm_ref
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
 from repro_torch.kernels.soc_step import ops, ref
@@ -419,3 +421,34 @@ def test_cuda_rwkv6_scan_matches_plain(shape, state):
     for got, want in ((y, y_want), (s_fin, s_want)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    **TOL)
+
+
+# ------------------------------------------------------ grouped matmul
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,lead", [
+    ((4, 64, 128, 96), ()), ((8, 32, 64, 64), ()), ((2, 128, 256, 128), ()),
+    ((6, 432, 96, 40), (2,)), ((48, 8, 64, 32), (4,)), ((5, 3, 17, 9), (2,))])
+def test_cuda_moe_gmm_matches_plain(shape, lead, dtype):
+    """K4 against ``ref.gmm_ref`` on the same inputs (float32 at rtol =
+    atol = 2e-5, bf16 at ``tests/test_kernels.py``'s 5e-2 / 5e-1), at the
+    reference's test shapes and batched ones (a prefill-like capacity, a
+    decode-like 8 rows, ragged edges), rows past each size exactly 0."""
+    _need_card()
+    e, c, d, f = shape
+    rng = np.random.default_rng(0)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to("cuda", dtype)
+    x, w = mk(*lead, e, c, d), mk(e, d, f)
+    sizes = torch.from_numpy(rng.integers(0, c + 1, (*lead, e)).astype(
+        np.int32)).to("cuda")
+    before = gmm_ops.launches
+    got = gmm_ops.moe_gmm(x, w, sizes)
+    torch.cuda.synchronize()
+    assert gmm_ops.launches == before + 1 and got.dtype == dtype
+    tol = (dict(rtol=5e-2, atol=5e-1) if dtype == torch.bfloat16 else TOL)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               gmm_ref(x, w, sizes).float().cpu().numpy(),
+                               **tol)
+    past = torch.arange(c, device="cuda") >= sizes[..., None]
+    assert bool((got[past] == 0).all())

@@ -195,7 +195,7 @@ def test_compute_copy_computes_the_same_numbers():
     assert torch.equal(d1, d2)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-3b-a800m",
+@pytest.mark.parametrize("arch", ["gemma2-9b", "arctic-480b",
                                   "qwen2-vl-2b", "recurrentgemma-9b",
                                   "musicgen-large"])
 def test_unported_features_raise(arch):
