@@ -1,15 +1,16 @@
 """Where the port's main path spends its time on the card.
 
     PYTHONPATH=src python -m benchmarks.torch_main_path_profile \
-        [--path fig6|fig9|fig10|fig11|fig13|qwen3|rwkv6|granite]
+        [--path fig6|fig9|fig10|fig11|fig13|qwen3|rwkv6|granite|\
+                recurrentgemma]
 
 Runs one of the full-width paths ``chip_smoke.py`` drives (default the
 Fig. 6 slice; ``fig9`` is ``benchmarks/torch_fig9_socs.py``'s port run,
 ``fig10`` ``benchmarks/torch_fig10_faults.py``'s, ``fig11``
 ``benchmarks/torch_fig11_serving.py``'s, ``fig13``
 ``benchmarks/torch_fig13_generalize.py``'s, ``qwen3`` Qwen3-8B serving,
-``rwkv6`` rwkv6-3b serving and ``granite`` granite-moe-3b-a800m serving
-through ``repro_torch.launch.serve`` at ``chip_smoke.py``'s shape, with
+``rwkv6`` rwkv6-3b serving, ``granite`` granite-moe-3b-a800m serving and
+``recurrentgemma`` recurrentgemma-9b serving through ``repro_torch.launch.serve`` at ``chip_smoke.py``'s shape, with
 the weights made once) once to warm up,
 then (1) times its wall and its host-side pieces one by one with the
 device synchronized around each (for the two serving paths: ``serve``'s
@@ -220,7 +221,8 @@ def fig13_pieces(dev):
 
 
 LM_ARCHS = {"qwen3": "qwen3-8b", "rwkv6": "rwkv6-3b",
-            "granite": "granite-moe-3b-a800m"}
+            "granite": "granite-moe-3b-a800m",
+            "recurrentgemma": "recurrentgemma-9b"}
 
 
 def lm_path(dev, arch):

@@ -6,8 +6,8 @@ Builds the port's CUDA kernels from this checkout, one ``nvcc`` per
 source, started together (``soc_step.cu``: ``soc_step_episode`` and
 ``soc_step_serve``, each in a healthy and a faulted instantiation, and the
 episode kernel's MLP instantiations, healthy and faulted;
-``flash_attention.cu``: K3; ``rwkv6_scan.cu``: K5; ``moe_gmm.cu``: K4),
-and holds each
+``flash_attention.cu``: K3; ``rwkv6_scan.cu``: K5; ``moe_gmm.cu``: K4;
+``rglru_scan.cu``: K6), and holds each
 against its plain PyTorch version at the shapes its paths give it; checks the card against the CPU
 plain path on small inputs (batched training, serving, stacked episodes
 on 2 lanes, each also under a fault storm, a killed and resumed
@@ -72,6 +72,22 @@ path:
     never; it prints the prefill's mean drop_frac and the smallest top-k
     margin the router saw.
 
+Then it holds the RG-LRU scan kernel (K6) against its plain step-by-step
+version at the recurrentgemma-9b prefill's shape, from a zero and a
+random initial state, and at ``tests/test_kernels.py``'s shapes; holds K3
+at that path's prefill and decode shapes (head dim 256, one kv head,
+window 2,048), in bf16 and float32; checks the card against the CPU on
+the recurrentgemma smoke serve (float32, the reference's zero biases,
+norms and constant ``lam`` set from a seed, rings that wrap); and drives
+a tenth path:
+
+  * recurrentgemma-9b serving at full width: random float32 weights made
+    on the card from a seed, the same 4 prompts of 2,048 tokens and 32
+    greedy tokens, bf16 compute (the RG-LRU blocks in float32); every
+    RG-LRU prefill through K6 (26 launches) and every local attention
+    through K3 (12 x 33), decode's recurrence through the model's step
+    function.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.
@@ -81,7 +97,7 @@ paths' headline numbers and wall times, and times each kernel, its plain
 version, its bound and, for K3, PyTorch's
 ``scaled_dot_product_attention`` on the same inputs, for K4 cuBLAS's
 dense batched product over the whole buffer (no single PyTorch call
-computes the SoC step or the WKV recurrence).  Exits non-zero,
+computes the SoC step, the WKV or the RG-LRU recurrence).  Exits non-zero,
 printing no result, without a CUDA card or outside a checkout of the
 repository.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists
@@ -117,11 +133,11 @@ SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
                   "depth", "degraded")
 # per path: launches of (K1 episode, K2 serve, K1f faulted episode, K2f
 # faulted serve, K1m MLP episode, K1m faulted, K3 flash attention, K5
-# RWKV-6 scan, K4 grouped expert matmul)
+# RWKV-6 scan, K4 grouped expert matmul, K6 RG-LRU scan)
 KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
            "soc_step_serve_faulted", "soc_step_episode_mlp",
            "soc_step_episode_mlp_faulted", "flash_attention", "rwkv6_scan",
-           "moe_gmm")
+           "moe_gmm", "rglru_scan")
 SOC_KERNELS = KERNELS[:6]
 # held against their plain versions only: no path of the reference runs
 # an MLP agent under faults
@@ -157,6 +173,16 @@ GMM_REAL = 40
 # tolerance
 GMM_SHAPES = [(4, 64, 128, 96), (8, 32, 64, 64), (2, 128, 256, 128)]
 GMM_BF16_TOL = dict(rtol=5e-2, atol=5e-1)
+# K6 at the recurrentgemma-9b prefill's shape (B, T, W), tests/
+# test_kernels.py's rglru shapes and tolerance; K3 at that path's prefill
+# (16 query heads on one kv head of 256, window 2048) and decode (one row
+# over the full 2,048-row ring) shapes
+RG_SCAN = (QWEN_BATCH, QWEN_PROMPT, 4096)
+RG_SHAPES = [(2, 128, 32), (1, 256, 64), (3, 64, 16)]
+RG_TOL = 1e-5
+RG_WINDOW = 2048
+FA_RG_PREFILL = (QWEN_BATCH, 16, 1, QWEN_PROMPT, QWEN_PROMPT, 256)
+FA_RG_DECODE = (QWEN_BATCH, 16, 1, 1, RG_WINDOW, 256)
 
 
 def fail(msg: str, code: int = 1):
@@ -255,6 +281,9 @@ def main() -> None:
         from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
         from repro_torch.kernels.moe_gmm import ops as gmm_ops
         from repro_torch.kernels.moe_gmm import ref as gmm_ref
+        from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+        from repro_torch.kernels.rglru_scan import ops as rg_ops
+        from repro_torch.kernels.rglru_scan import ref as rg_ref
         from repro_torch.models import mlp as lm_mlp
         from repro_torch.launch import serve as lm_serve
         from repro_torch.models import transformer as lm
@@ -292,13 +321,13 @@ def main() -> None:
         return lib, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(timed_build, m)
-                  for m in (soc_kernel, fa_kernel, rw_kernel, gmm_kernel)]
+    sources = (soc_kernel, fa_kernel, rw_kernel, gmm_kernel, rg_kernel)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = [pool.submit(timed_build, m) for m in sources]
         for f in builds:
             lib, secs = f.result()
             print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
-    print(f"builds: {time.perf_counter() - t0:.2f} s for all four")
+    print(f"builds: {time.perf_counter() - t0:.2f} s for all five")
 
     # ---- 2. soc_step_episode vs plain at the Fig. 6 shapes ----------------
     soc = SOC_MOTIV_PAR
@@ -636,13 +665,15 @@ def main() -> None:
     read = lambda: (soc_ops.launches, soc_ops.serve_launches,
                     soc_ops.fault_launches, soc_ops.fault_serve_launches,
                     soc_ops.mlp_launches, soc_ops.mlp_fault_launches,
-                    fa_ops.launches, rw_ops.launches, gmm_ops.launches)
+                    fa_ops.launches, rw_ops.launches, gmm_ops.launches,
+                    rg_ops.launches)
 
     def reset_counts():
         soc_ops.reset_launches()
         fa_ops.reset_launches()
         rw_ops.reset_launches()
         gmm_ops.reset_launches()
+        rg_ops.reset_launches()
 
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
@@ -662,7 +693,7 @@ def main() -> None:
     t_end = time.perf_counter()
     counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0, 0, 0):
+    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0, 0, 0, 0):
         fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
              f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
@@ -701,7 +732,7 @@ def main() -> None:
     counts["fig9"] = read()
     e9 = r9["_engine"]
     if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0, 0,
-                          0):
+                          0, 0):
         fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
              f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
@@ -740,7 +771,7 @@ def main() -> None:
     counts["fig11"] = read()
     e11 = r11["_engine"]
     want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"], 0, 0, 0, 0, 0, 0, 0)
+              e11["expected_serve_launches"], 0, 0, 0, 0, 0, 0, 0, 0)
     if counts["fig11"] != want11:
         fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
              f"expected {dict(zip(KERNELS, want11))}")
@@ -868,7 +899,8 @@ def main() -> None:
     counts["fig10"] = read()
     e10 = r10["_engine"]
     want10 = (e10["expected_episode_launches"], 0,
-              e10["expected_fault_episode_launches"], 0, 0, 0, 0, 0, 0)
+              e10["expected_fault_episode_launches"], 0, 0, 0, 0, 0, 0,
+              0)
     if counts["fig10"] != want10 or 0 in want10[0:3:2]:
         fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
              f"expected {dict(zip(KERNELS, want10))}")
@@ -905,7 +937,7 @@ def main() -> None:
     torch.cuda.synchronize()
     storm_s = time.perf_counter() - t_st
     counts["storm_serving"] = read()
-    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0, 0, 0):
+    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0, 0, 0, 0):
         fail(f"storm serving launched "
              f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
              f"{KERNELS[3]}")
@@ -932,7 +964,7 @@ def main() -> None:
     counts["fig13"] = read()
     e13 = r13["_engine"]
     want13 = (e13["expected_episode_launches"], 0, 0, 0,
-              e13["expected_mlp_episode_launches"], 0, 0, 0, 0)
+              e13["expected_mlp_episode_launches"], 0, 0, 0, 0, 0)
     if counts["fig13"] != want13 or 0 in want13[0:5:4]:
         fail(f"Fig. 13 launched {dict(zip(KERNELS, counts['fig13']))}, "
              f"expected {dict(zip(KERNELS, want13))}")
@@ -1035,7 +1067,7 @@ def main() -> None:
     torch.cuda.synchronize()
     qwen_s = time.perf_counter() - t_q
     counts["qwen3_serve"] = read()
-    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0, 0)
+    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0, 0, 0)
     if counts["qwen3_serve"] != want_q:
         fail(f"Qwen3-8B serve launched "
              f"{dict(zip(KERNELS, counts['qwen3_serve']))}, expected "
@@ -1147,7 +1179,7 @@ def main() -> None:
     torch.cuda.synchronize()
     rwkv_s = time.perf_counter() - t_r
     counts["rwkv6_serve"] = read()
-    want_r = (0, 0, 0, 0, 0, 0, 0, rcfg.n_layers, 0)
+    want_r = (0, 0, 0, 0, 0, 0, 0, rcfg.n_layers, 0, 0)
     if counts["rwkv6_serve"] != want_r:
         fail(f"rwkv6-3b serve launched "
              f"{dict(zip(KERNELS, counts['rwkv6_serve']))}, expected "
@@ -1282,7 +1314,7 @@ def main() -> None:
         lm_mlp.route = route_fn
     counts["granite_serve"] = read()
     steps_g = gcfg.n_layers * (1 + QWEN_GEN)
-    want_g = (0, 0, 0, 0, 0, 0, steps_g, 0, 3 * steps_g)
+    want_g = (0, 0, 0, 0, 0, 0, steps_g, 0, 3 * steps_g, 0)
     if counts["granite_serve"] != want_g:
         fail(f"granite-moe-3b-a800m serve launched "
              f"{dict(zip(KERNELS, counts['granite_serve']))}, expected "
@@ -1319,6 +1351,141 @@ def main() -> None:
     gmm_sizes = (pre_routes[0].sizes, dec_routes[0].sizes)
     del g_out, pre_routes, dec_routes
     routes.clear()
+    torch.cuda.empty_cache()
+
+    # ---- 9l. rglru_scan (K6) vs plain: the recurrentgemma-9b prefill's
+    # shape from a zero and a random h0, tests/test_kernels.py's shapes,
+    # at rtol = atol = 1e-5 -----------------------------------------------
+    rg_gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rg_inputs(b, t, w):
+        """log_a (as tests/test_kernels.py draws it), b and a random h0,
+        on the card."""
+        mk = lambda *shape: torch.randn(*shape, generator=rg_gen, device=dev)
+        return -torch.exp(mk(b, t, w)), mk(b, t, w), mk(b, w)
+
+    def rg_check(what, log_a, bb, h0=None):
+        """K6 on ``b`` with ``h0`` folded into its first step, as ``ops``
+        folds it, against ``ref.rglru_ref`` stepping from ``h0``; returns
+        the max abs error."""
+        folded = bb
+        if h0 is not None:
+            folded = bb.clone()
+            folded[:, 0] = folded[:, 0] + torch.exp(log_a[:, 0]) * h0
+        got = rg_kernel.rglru_scan(log_a, folded)
+        torch.cuda.synchronize()
+        start = torch.zeros_like(bb[:, 0]) if h0 is None else h0
+        want = rg_ref.rglru_ref(log_a, bb, start)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not all(torch.allclose(g, w, rtol=RG_TOL, atol=RG_TOL)
+                   for g, w in zip(got, want)):
+            fail(f"rglru_scan vs plain {what}: max abs err {err}")
+        print(f"rglru_scan vs plain {what}: max abs err {err:.3e} (bound "
+              f"{RG_TOL})")
+        return err
+
+    *rg_in, rg_h0 = rg_inputs(*RG_SCAN)
+    rg_err = rg_check(f"{RG_SCAN} from a zero state", *rg_in)
+    rg_err = max(rg_err, rg_check(f"{RG_SCAN} from a random h0", *rg_in,
+                                  rg_h0))
+    for shape in RG_SHAPES:
+        rg_check(f"{shape}", *rg_inputs(*shape)[:2])
+        rg_check(f"{shape} from a random h0", *rg_inputs(*shape))
+    rg_check("(2, 37, 100): T and W divided by no tile",
+             *rg_inputs(2, 37, 100))
+    del rg_h0
+
+    # ---- 9m. flash_attention (K3) at the recurrentgemma-9b path's shapes:
+    # head dim 256, 16 query heads on one kv head, the prefill's window of
+    # 2,048, the decode over the whole ring; bf16 and float32 -------------
+    rg_fa = {}
+    for dt in (torch.bfloat16, torch.float32):
+        pre = qkv(*FA_RG_PREFILL, dt)
+        dec = qkv(*FA_RG_DECODE, dt)
+        err = fa_vs_plain(f"recurrentgemma prefill {FA_RG_PREFILL} {dt}, "
+                          f"window {RG_WINDOW}", *pre, window=RG_WINDOW)
+        err = max(err, fa_vs_plain(f"recurrentgemma decode {FA_RG_DECODE} "
+                                   f"{dt} over the whole ring", *dec))
+        if dt == torch.bfloat16:
+            fa_err = max(fa_err, err)
+            rg_fa = {"prefill": pre, "decode": dec}
+    del pre, dec
+
+    # ---- 9n. the recurrentgemma smoke serve: card == CPU plain path
+    # (float32) ------------------------------------------------------------
+    gmcfg_s = smoke_config("recurrentgemma-9b")
+
+    def rgemma_smoke_params():
+        """Random smoke weights with the reference's zero-initialised
+        norms, ``ba``, ``bx`` and ``conv_b`` and its constant ``lam`` set
+        from a seed, so a swapped bias or a per-channel error shows."""
+        p = lm.init_params(gmcfg_s, torch.Generator().manual_seed(0), "cpu")
+        g = torch.Generator().manual_seed(1)
+        normal = lambda w, sc: w.copy_(sc * torch.randn(w.shape,
+                                                        generator=g))
+        for layer in p.layers:
+            normal(layer.ln1, 0.3)
+            normal(layer.ln2, 0.3)
+            if hasattr(layer, "rg"):
+                for name, sc in (("ba", 0.5), ("bx", 0.5), ("conv_b", 0.5),
+                                 ("lam", 1.0)):
+                    normal(getattr(layer.rg, name), sc)
+        return p
+
+    c_cpu = lm_serve.serve(gmcfg_s, 2, 19, 8, device="cpu",
+                           params=rgemma_smoke_params())
+    c_card = lm_serve.serve(gmcfg_s, 2, 19, 8, device=dev,
+                            params=rgemma_smoke_params().to(dev))
+    if not np.array_equal(c_card["generated"], c_cpu["generated"]):
+        fail("recurrentgemma smoke serve: card and CPU generated different "
+             "tokens")
+    rg_lm_err = max((c_card[k].cpu() - c_cpu[k]).abs().max().item()
+                    for k in ("prefill_logits", "logits"))
+    if rg_lm_err > LM_TOL:
+        fail(f"recurrentgemma smoke serve: card logits {rg_lm_err} from "
+             "the CPU's")
+    print(f"recurrentgemma smoke serve (B=2, prompt 19, gen 8, float32, "
+          f"window {gmcfg_s.sliding_window}: the prompt and the decode wrap "
+          f"the ring): tokens equal on the card and the CPU, logits within "
+          f"{rg_lm_err:.3e} (bound {LM_TOL})")
+
+    # ---- 9o. recurrentgemma-9b serving at full width -----------------------
+    gmcfg = get_arch("recurrentgemma-9b")
+    kinds = lm.layer_kinds(gmcfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t_rg = time.perf_counter()
+    c_out = lm_serve.serve(gmcfg, batch=QWEN_BATCH, prompt_len=QWEN_PROMPT,
+                           gen=QWEN_GEN, seed=0, device=dev)
+    torch.cuda.synchronize()
+    rgemma_s = time.perf_counter() - t_rg
+    counts["recurrentgemma_serve"] = read()
+    want_c = (0, 0, 0, 0, 0, 0, kinds.count("attn_local") * (1 + QWEN_GEN),
+              0, 0, kinds.count("rg"))
+    if counts["recurrentgemma_serve"] != want_c:
+        fail(f"recurrentgemma-9b serve launched "
+             f"{dict(zip(KERNELS, counts['recurrentgemma_serve']))}, "
+             f"expected {dict(zip(KERNELS, want_c))}")
+    if not (bool(torch.isfinite(c_out["prefill_logits"]).all())
+            and bool(torch.isfinite(c_out["logits"]).all())):
+        fail("recurrentgemma-9b serve: non-finite logits")
+    if c_out["generated"].shape != (QWEN_BATCH, QWEN_GEN):
+        fail(f"recurrentgemma-9b serve: generated "
+             f"{c_out['generated'].shape}")
+    c_mem = torch.cuda.max_memory_allocated()
+    print(f"recurrentgemma-9b serve (B={QWEN_BATCH}, prompt {QWEN_PROMPT}, "
+          f"gen {QWEN_GEN}, bf16 compute, float32 parameters and RG-LRU "
+          f"blocks, window {gmcfg.sliding_window}) on {card}: prefill "
+          f"{c_out['prefill_s']:.4f} s, decode {c_out['decode_s']:.4f} s "
+          f"({c_out['decode_s'] / QWEN_GEN * 1e3:.2f} ms/step, "
+          f"{c_out['decode_tok_per_s']:.1f} tok/s), bf16 weight copy "
+          f"{c_out['cast_s']:.4f} s, {rgemma_s:.3f} s wall with the "
+          f"weights' init; peak memory {c_mem / 2**30:.2f} GiB; launches "
+          f"{dict(zip(KERNELS, counts['recurrentgemma_serve']))}; first "
+          f"tokens {c_out['generated'][0, :8].tolist()}")
+    del c_out
     torch.cuda.empty_cache()
 
     # ---- 10. times and bounds ---------------------------------------------
@@ -1506,13 +1673,36 @@ def main() -> None:
               f"{op:.6f} ms)")
         return ms, pl_ms, lib_ms, max(by, op), by, op
 
+    def rglru_numbers(shape, log_a, bb):
+        """(ms, plain ms, bound ms, bytes ms, ops ms) of K6 on (log_a, b)
+        at the path's prefill shape: log_a and b read once, h and h_final
+        written once; an exp, a multiply and an add per element, float32
+        (the exp counted as one operation)."""
+        b_, t, w = shape
+        ms = time_kernel(lambda: rg_kernel.rglru_scan(log_a, bb))
+        zeros = torch.zeros((b_, w), device=dev)
+        pl_ms = plain_ms(lambda: rg_ref.rglru_ref(log_a, bb, zeros))
+        nbytes = 4 * (3 * b_ * t * w + b_ * w)
+        flops = 3 * b_ * t * w
+        by = nbytes / H100_BYTES_PER_S * 1e3
+        op = flops / H100_F32_FLOPS * 1e3
+        print(f"rglru_scan {shape} float32 on {card}: kernel {ms:.4f} "
+              f"ms/launch ({nbytes / ms / 1e6:.1f} GB/s), plain "
+              f"{pl_ms:.3f} ms; bound {max(by, op):.6f} ms ({nbytes} bytes "
+              f"-> {by:.6f} ms; {flops} f32 ops -> {op:.6f} ms); library_ms "
+              f"null (no single PyTorch call computes the recurrence)")
+        return ms, pl_ms, max(by, op), by, op
+
+    rg_num = rglru_numbers(RG_SCAN, *rg_in)
+    fa_rg_pre = attention_numbers(FA_RG_PREFILL, *rg_fa["prefill"], True)
+    fa_rg_dec = attention_numbers(FA_RG_DECODE, *rg_fa["decode"], True)
     gmm_pre = gmm_numbers("prefill gate/up", GMM_PREFILL, gmm_sizes[0])
     gmm_down = gmm_numbers("prefill down", GMM_DOWN, gmm_sizes[0])
     gmm_dec = gmm_numbers("decode gate/up", GMM_DECODE, gmm_sizes[1])
     paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
                "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s,
                "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s,
-               "granite_serve": granite_s}
+               "granite_serve": granite_s, "recurrentgemma_serve": rgemma_s}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 
@@ -1552,7 +1742,14 @@ def main() -> None:
         "decode_bound_ms": fa_dec[3],
         "decode_bound_by": ("bytes" if fa_dec[4] >= fa_dec[5]
                             else "operations"),
-        "decode_library_ms": fa_dec[2], "card": card})
+        "decode_library_ms": fa_dec[2],
+        "rg_shape": f"prefill {FA_RG_PREFILL}, window {RG_WINDOW}",
+        "rg_ms": fa_rg_pre[0], "rg_plain_ms": fa_rg_pre[1],
+        "rg_bound_ms": fa_rg_pre[3], "rg_library_ms": fa_rg_pre[2],
+        "rg_decode_shape": str(FA_RG_DECODE), "rg_decode_ms": fa_rg_dec[0],
+        "rg_decode_plain_ms": fa_rg_dec[1],
+        "rg_decode_bound_ms": fa_rg_dec[3],
+        "rg_decode_library_ms": fa_rg_dec[2], "card": card})
     j = KERNELS.index("rwkv6_scan")
     kernels["kernels"].append({
         "name": "rwkv6_scan", "route": "cuda",
@@ -1587,6 +1784,18 @@ def main() -> None:
         "decode_plain_ms": gmm_dec[1], "decode_bound_ms": gmm_dec[3],
         "decode_bound_by": bound_by(gmm_dec),
         "decode_library_ms": gmm_dec[2], "card": card})
+    j = KERNELS.index("rglru_scan")
+    kernels["kernels"].append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
+        "variant": "float32, one thread per channel, h0 folded by ops",
+        "launches": sum(c[j] for c in counts.values()),
+        "launches_by_path": by_path(j), "max_abs_err": rg_err,
+        "ms": rg_num[0], "plain_ms": rg_num[1], "bound_ms": rg_num[2],
+        "bound_by": "bytes" if rg_num[3] >= rg_num[4] else "operations",
+        "library_ms": None, "main_path_s": on_paths(j),
+        "shape": f"(B, T, W) {RG_SCAN}", "card": card})
     for k in kernels["kernels"]:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")

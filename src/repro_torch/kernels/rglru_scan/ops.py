@@ -1,0 +1,43 @@
+"""Public entry point of the RG-LRU scan kernel.
+
+:func:`rglru_scan` folds an initial state into the first step as
+``repro.kernels.rglru_scan.ops`` does, casts to float32, and dispatches by
+where the tensors lie: CUDA tensors launch the hand-written kernel
+(:mod:`.kernel`), CPU tensors take the plain step-by-step version
+(:func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref`).  There is no
+fallback between them: a CUDA call that cannot build or launch raises.
+:data:`launches` counts the kernel's launches, so a run can show that it
+went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rglru_scan import kernel as _kernel
+from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
+               h0: torch.Tensor | None = None):
+    """log_a/b: (B, T, W); h0: (B, W) or None (zeros), folded into the
+    first step: ``b[:, 0] += exp(log_a[:, 0]) * h0``.  Returns (h (B, T, W),
+    h_final (B, W)), float32."""
+    global launches
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] = b[:, 0] + torch.exp(log_a[:, 0]) * h0
+    log_a, b = log_a.to(torch.float32), b.to(torch.float32)
+    if log_a.device.type != "cuda":
+        zeros = torch.zeros((b.shape[0], b.shape[2]), dtype=torch.float32,
+                            device=b.device)
+        return rglru_ref(log_a, b, zeros)
+    out = _kernel.rglru_scan(log_a, b)
+    launches += 1
+    return out

@@ -8,10 +8,13 @@ the card.  Attention runs through the flash-attention kernel
 (``repro_torch.kernels.flash_attention``), an RWKV-6 prompt's time mix
 through the RWKV-6 scan kernel (``repro_torch.kernels.rwkv6_scan``), every
 expert product of an MoE layer through the grouped-matmul kernel
-(``repro_torch.kernels.moe_gmm``); the attention, MLP and expert matmul
-weights and the head are cast to the compute dtype once, before the
-timed phases (``cast_s``; RWKV layers and the MoE router compute in
-float32).
+(``repro_torch.kernels.moe_gmm``), an RG-LRU prompt's recurrence through
+the RG-LRU scan kernel (``repro_torch.kernels.rglru_scan``); the
+attention, MLP and expert matmul weights and the head are cast to the
+compute dtype once, before the timed phases (``cast_s``; RWKV layers,
+RG-LRU blocks and the MoE router compute in float32).  The cache holds
+``prompt_len + gen`` rows (the reference's ``max_len``); a local layer's
+ring holds at most its window.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --batch 4 --prompt-len 2048 --gen 32
@@ -19,6 +22,8 @@ float32).
         --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu
 """

@@ -1,6 +1,6 @@
-"""Grouped-query attention: causal masking, sliding-window layers, tanh
-logit soft-capping, qwen3's per-head qk-RMSNorm, and a KV-cache decode
-path.
+"""Grouped-query attention: causal masking, sliding-window (local) layers
+with their rolling KV ring, tanh logit soft-capping, qwen3's per-head
+qk-RMSNorm, and a KV-cache decode path.
 
 The same semantics as ``repro.models.attention``, with one difference of
 route: the reference computes attention with XLA (``attention_scores``)
@@ -8,11 +8,14 @@ and validates its Pallas kernel against the same math, while here
 :func:`attend` sends both prefill and decode attention through the
 flash-attention kernel (:func:`repro_torch.kernels.flash_attention.ops.
 flash_attention`: the CUDA kernel on the card, its plain version on the
-CPU).  :func:`attention_scores` stays as the reference's plain function;
-no path calls it.
+CPU).  :func:`attention_scores` stays as the reference's plain function,
+the tests' oracle (its ``rolling`` option is the reference's ring
+decode); no path calls it.
 
 The KV cache is a pair of plain compute-dtype tensors per layer, written
-in place.  The int8 cache and the rolling window buffer are not ported.
+in place: ``max_len`` rows for a global layer, a ring of
+``min(max_len, window)`` rows for a local one.  The int8 cache is not
+ported.
 """
 from __future__ import annotations
 
@@ -129,33 +132,74 @@ def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
     return q, k, v
 
 
+def ring_write(entry: torch.Tensor, val: torch.Tensor, pos: int) -> None:
+    """Write ``val`` (B, S, K, hd), the keys or values of positions ``pos ..
+    pos + S - 1``, into a local layer's ring of ``size`` rows, in place:
+    position ``t`` goes to row ``t % size``, and of more than ``size`` new
+    rows only the last ``size`` are kept (the reference's prefill and
+    decode writes)."""
+    size, s = _plain(entry).shape[1], val.shape[1]
+    keep = min(s, size)
+    val = val[:, s - keep:]
+    start = (pos + s - keep) % size
+    first = min(keep, size - start)
+    cache_write(entry, val[:, :first], start)
+    if first < keep:
+        cache_write(entry, val[:, first:], 0)
+
+
 def attend(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
            positions: torch.Tensor, *, layer_window: int = 0,
            cache_kv=None, cache_pos: int | None = None):
     """The attention sub-layer; returns ``(out, cache_kv)``.
 
-    Without a cache: causal attention over ``x``'s own keys.  With
-    ``cache_kv`` = (k_cache, v_cache), each (B, S_max, K, hd): the new
-    keys and values are written at ``cache_pos`` (in place) and the
-    queries attend to the cache's first ``cache_pos + S`` rows.  With the
-    queries end-aligned to those keys every written key is visible to the
-    causal mask, which is the reference's masked full-cache attention
-    (masked logits contribute an exact 0 after ``exp``).
+    Without a cache: causal attention over ``x``'s own keys, within
+    ``layer_window`` of each query when it is > 0.
+
+    A global layer's ``cache_kv`` = (k_cache, v_cache), each (B, S_max, K,
+    hd): the new keys and values are written at ``cache_pos`` (in place)
+    and the queries attend to the cache's first ``cache_pos + S`` rows.
+    With the queries end-aligned to those keys every written key is
+    visible to the causal mask, which is the reference's masked full-cache
+    attention (masked logits contribute an exact 0 after ``exp``).
+
+    A local layer's cache (``layer_window`` > 0) is a ring of ``size`` =
+    ``min(max_len, window)`` rows (:func:`ring_write`).  A prompt (S > 1,
+    from ``cache_pos`` 0) attends to its own keys within the window and is
+    then written to the ring.  A decode step (S = 1) writes at ``cache_pos
+    % size`` and attends to the ring's first ``min(cache_pos + 1, size)``
+    rows, all of them in the past and within the window, with no mask but
+    that count (the reference's ``rolling=True``).
     """
     dt = common.dtype_of(cfg.compute_dtype)
     q, k, v = project_qkv(cfg, p, x, positions)
+    s = x.shape[1]
+    window = layer_window
     if cache_kv is None:
         keys, values = k, v
+    elif layer_window:
+        k_cache, v_cache = cache_kv
+        if s > 1 and cache_pos != 0:
+            raise NotImplementedError(
+                "a local layer takes a prompt only from position 0")
+        ring_write(k_cache, k, cache_pos)
+        ring_write(v_cache, v, cache_pos)
+        if s > 1:
+            keys, values = k, v
+        else:
+            n = min(cache_pos + 1, _plain(k_cache).shape[1])
+            keys = cache_read(k_cache[:, :n], dt)
+            values = cache_read(v_cache[:, :n], dt)
+            window = 0
     else:
         k_cache, v_cache = cache_kv
         cache_write(k_cache, k, cache_pos)
         cache_write(v_cache, v, cache_pos)
-        end = cache_pos + x.shape[1]
+        end = cache_pos + s
         keys = cache_read(k_cache[:, :end], dt)
         values = cache_read(v_cache[:, :end], dt)
     out = fa_ops.flash_attention(q, keys, values, causal=True,
-                                 window=layer_window,
-                                 softcap=cfg.attn_softcap)
-    b, s = x.shape[:2]
+                                 window=window, softcap=cfg.attn_softcap)
+    b = x.shape[0]
     out = out.reshape(b, s, -1) @ p.wo.to(dt).flatten(0, 1)
     return out, cache_kv

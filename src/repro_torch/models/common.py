@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -21,6 +22,19 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+class FrozenParams(nn.Module):
+    """Frozen float32 parameters named by ``FIELDS``, given in that
+    order."""
+
+    FIELDS: tuple = ()
+
+    def __init__(self, *args):
+        super().__init__()
+        for name, t in zip(self.FIELDS, args, strict=True):
+            setattr(self, name, nn.Parameter(t.detach(),
+                                             requires_grad=False))
 
 
 # ----------------------------------------------------------------- init ----

@@ -3,10 +3,10 @@
 The reference keeps each superblock's parameters stacked along a leading
 ``n_super`` axis (``tree["blocks"]["l{i}_{kind}"]``) and the left-over
 layers under ``tree["tail"]["t{i}_{kind}"]``; the port keeps one module
-per layer in order.  ``attn``, ``mlp``, ``moe``, ``tm`` and ``cm`` nodes
-(and an RWKV layer's cache entry) may be named tuples (as
-``jax.tree_util.tree_map(np.asarray, params)`` leaves them) or dicts;
-:func:`params_to_numpy` writes dicts.  A tree with a tied head has no
+per layer in order.  ``attn``, ``mlp``, ``moe``, ``tm``, ``cm`` and
+``rg`` nodes (and an RWKV or RG-LRU layer's cache entry) may be named
+tuples (as ``jax.tree_util.tree_map(np.asarray, params)`` leaves them) or
+dicts; :func:`params_to_numpy` writes dicts.  A tree with a tied head has no
 ``lm_head``, and passes both ways without one.
 """
 from __future__ import annotations
@@ -15,12 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp, rwkv6, transformer
+from repro_torch.models import (attention, common, mlp, rglru, rwkv6,
+                                transformer)
 
 _ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
 _MOE = ("router", "w_gate", "w_up", "w_down")
-_STATE = rwkv6.RwkvState._fields
+_STATES = {"rwkv": rwkv6.RwkvState, "rg": rglru.RGLRUState}
 
 
 def _fields(node, names):
@@ -62,6 +63,12 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
                 rwkv6.ChannelMixParams(*fields("cm",
                                                rwkv6.CHANNEL_MIX_FIELDS))))
             continue
+        if kind == "rg":
+            layers.append(transformer.RgLayer(
+                t(node["ln1"], s), t(node["ln2"], s),
+                rglru.RGLRUParams(*fields("rg", rglru.RGLRU_FIELDS)),
+                mlp.MLPParams(*fields("mlp", _MLP))))
+            continue
         attn = attention.AttnParams(*fields("attn", _ATTN))
         ff = (mlp.MoEParams(*fields("moe", _MOE)) if "moe" in node
               else mlp.MLPParams(*fields("mlp", _MLP)))
@@ -80,11 +87,14 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
     n = lambda p: p.detach().to("cpu", torch.float32).numpy()
 
     def layer(p):
-        subs = ((("tm", rwkv6.TIME_MIX_FIELDS),
-                 ("cm", rwkv6.CHANNEL_MIX_FIELDS))
-                if isinstance(p, transformer.RwkvLayer)
-                else (("attn", _ATTN),
-                      ("moe", _MOE) if hasattr(p, "moe") else ("mlp", _MLP)))
+        if isinstance(p, transformer.RwkvLayer):
+            subs = (("tm", rwkv6.TIME_MIX_FIELDS),
+                    ("cm", rwkv6.CHANNEL_MIX_FIELDS))
+        elif isinstance(p, transformer.RgLayer):
+            subs = (("rg", rglru.RGLRU_FIELDS), ("mlp", _MLP))
+        else:
+            subs = (("attn", _ATTN),
+                    ("moe", _MOE) if hasattr(p, "moe") else ("mlp", _MLP))
         out = {"ln1": n(p.ln1), "ln2": n(p.ln2)}
         for sub, names in subs:
             out[sub] = {f: n(getattr(getattr(p, sub), f)) for f in names}
@@ -111,9 +121,10 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
 
 def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> list:
     """The reference's cache tree (numpy leaves; each attention layer a
-    ``(k, v)`` pair, each RWKV layer an ``RwkvState``) as the port's
-    per-layer list: K/V in the compute dtype, RWKV states in float32 (the
-    layers read them in float32)."""
+    ``(k, v)`` pair, a local layer's of its ring's size, each RWKV layer
+    an ``RwkvState``, each RG-LRU layer an ``RGLRUState``) as the port's
+    per-layer list: K/V in the compute dtype, recurrent states in float32
+    (the layers read them in float32)."""
     transformer.check_supported(cfg)
     dt = common.dtype_of(cfg.compute_dtype)
 
@@ -121,7 +132,11 @@ def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> list:
         a = np.asarray(a if s is None else a[s], np.float32)
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
-    return [rwkv6.RwkvState(*(t(a, s, torch.float32)
-                              for a in _fields(node, _STATE)))
-            if kind == "rwkv" else (t(node[0], s), t(node[1], s))
-            for kind, node, s in _layer_nodes(cfg, tree)]
+    def entry(kind, node, s):
+        if kind in _STATES:
+            state = _STATES[kind]
+            return state(*(t(a, s, torch.float32)
+                           for a in _fields(node, state._fields)))
+        return (t(node[0], s), t(node[1], s))
+
+    return [entry(*n) for n in _layer_nodes(cfg, tree)]

@@ -21,7 +21,6 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
@@ -37,19 +36,7 @@ TIME_MIX_FIELDS = ("mix_base", "mix_lora_a", "mix_lora_b", "wr", "wk", "wv",
 CHANNEL_MIX_FIELDS = ("mix_k", "mix_r", "wk", "wv", "wr")
 
 
-class _Params(nn.Module):
-    """Frozen float32 parameters named by ``FIELDS``."""
-
-    FIELDS: tuple = ()
-
-    def __init__(self, *args):
-        super().__init__()
-        for name, t in zip(self.FIELDS, args, strict=True):
-            setattr(self, name, nn.Parameter(t.detach(),
-                                             requires_grad=False))
-
-
-class TimeMixParams(_Params):
+class TimeMixParams(common.FrozenParams):
     """``mix_base`` (5, D), ``mix_lora_a`` (5, D, R), ``mix_lora_b``
     (5, R, D), ``wr``/``wk``/``wv``/``wg``/``wo`` (D, D), ``w_base`` (D,),
     ``w_lora_a`` (D, R), ``w_lora_b`` (R, D), ``u`` and ``ln_w`` (D,)."""
@@ -57,7 +44,7 @@ class TimeMixParams(_Params):
     FIELDS = TIME_MIX_FIELDS
 
 
-class ChannelMixParams(_Params):
+class ChannelMixParams(common.FrozenParams):
     """``mix_k``, ``mix_r`` (D,), ``wk`` (D, F), ``wv`` (F, D), ``wr``
     (D, D)."""
 

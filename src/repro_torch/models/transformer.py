@@ -1,15 +1,16 @@
-"""Model assembly for the dense and Mixture-of-Experts attention families
-and RWKV-6: prefill and greedy decode with a KV cache or recurrent
-states.
+"""Model assembly for the dense and Mixture-of-Experts attention families,
+RWKV-6 and the RecurrentGemma hybrid: prefill and greedy decode with a KV
+cache or recurrent states.
 
 The same semantics as ``repro.models.transformer`` for layers of the
-attention and RWKV kinds, with a gated MLP or an MoE layer, and a head
-of its own or tied to the embedding.  The reference stacks each superblock's
-parameters along a leading axis for ``lax.scan``; here the layers are a
-``ModuleList`` of ``n_layers`` in order (superblock ``s``, position ``i`` is layer
-``s * len(pattern) + i``, then the tail), and a loop runs them.  The
-parameter names follow the reference's tree (``layers.<n>.ln1``,
-``.attn.wq``, ``.mlp.w_gate``, ``.moe.router``, ``.tm.wr``, ``.cm.wk``,
+attention (global and local), RWKV and RG-LRU kinds, with a gated MLP or
+an MoE layer, the embedding scale, and a head of its own or tied to the
+embedding.  The reference stacks each superblock's parameters along a
+leading axis for ``lax.scan``; here the layers are a ``ModuleList`` of
+``n_layers`` in order (superblock ``s``, position ``i`` is layer ``s *
+len(pattern) + i``, then the tail), and a loop runs them.  The parameter
+names follow the reference's tree (``layers.<n>.ln1``, ``.attn.wq``,
+``.mlp.w_gate``, ``.moe.router``, ``.tm.wr``, ``.cm.wk``, ``.rg.wa``,
 ``embed``, ``lm_head`` (absent when tied), ``final_norm``);
 :mod:`repro_torch.models.convert` carries a reference tree across.
 
@@ -18,18 +19,19 @@ in the reference; :func:`compute_copy` makes that cast once for the
 matmul weights, the expert weights (contiguous, for the grouped-matmul
 kernel) and the head (a tied head's ``embed.T``) (the numbers are the
 same, the cast being deterministic; the MoE router stays float32).
-RWKV layers compute in float32 against their float32 weights, as the
-reference's do, so the copy leaves them as they are.  The cache holds one
-``(k, v)`` pair of ``(B, max_len, K, hd)`` compute-dtype tensors per
-attention layer, updated in place, and one
-:class:`~repro_torch.models.rwkv6.RwkvState` per RWKV layer, replaced by
-each step's new state.
+RWKV layers and RG-LRU blocks compute in float32 against their float32
+weights, as the reference's do, so the copy leaves them as they are.  The
+cache holds one ``(k, v)`` pair of compute-dtype tensors per attention
+layer, updated in place (``(B, max_len, K, hd)`` for a global layer, a
+ring of ``min(max_len, window)`` rows for a local one), one
+:class:`~repro_torch.models.rwkv6.RwkvState` per RWKV layer and one
+float32 :class:`~repro_torch.models.rglru.RGLRUState` per RG-LRU layer,
+replaced by each step's new state.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): RG-LRU layers, arctic's dense residual beside its MoE, M-RoPE,
-sinusoidal positions, audio codebooks, the int8 KV cache, local
-(sliding-window) layers with their rolling cache, and Gemma-2's
-post-norms, embedding scale and final soft-cap.
+item): arctic's dense residual beside its MoE, M-RoPE, sinusoidal
+positions, audio codebooks, the int8 KV cache, and Gemma-2's post-norms
+and final soft-cap.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp, rwkv6
+from repro_torch.models import attention, common, mlp, rglru, rwkv6
 
 
 # --------------------------------------------------------------------------
@@ -75,8 +77,6 @@ def layer_window(cfg: ArchConfig, kind: str) -> int:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a feature the port lacks."""
     missing = []
-    if cfg.family == "hybrid":
-        missing.append("RG-LRU layers (ROADMAP B8)")
     if cfg.moe_dense_residual:
         missing.append("the dense residual MLP beside the MoE (ROADMAP "
                        "A15)")
@@ -88,10 +88,7 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append("audio codebooks (ROADMAP A15)")
     if cfg.kv_cache_dtype == "int8":
         missing.append("the int8 KV cache (ROADMAP A15)")
-    if "attn_local" in superblock_layout(cfg)[0]:
-        missing.append("local layers and their rolling cache (ROADMAP A15)")
-    gemma = [f for f in ("post_norms", "embed_scale", "final_softcap")
-             if getattr(cfg, f)]
+    gemma = [f for f in ("post_norms", "final_softcap") if getattr(cfg, f)]
     if gemma:
         missing.append(f"Gemma-2's {', '.join(gemma)} (ROADMAP A15)")
     if missing:
@@ -131,6 +128,18 @@ class RwkvLayer(nn.Module):
         self.cm = cm
 
 
+class RgLayer(nn.Module):
+    """One residual RG-LRU layer: ``ln1``, ``rg`` (the Griffin recurrent
+    block), ``ln2``, ``mlp`` (a gated MLP)."""
+
+    def __init__(self, ln1, ln2, rg: rglru.RGLRUParams, ff: mlp.MLPParams):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1.detach(), requires_grad=False)
+        self.ln2 = nn.Parameter(ln2.detach(), requires_grad=False)
+        self.rg = rg
+        self.mlp = ff
+
+
 class Transformer(nn.Module):
     """``embed`` (V, D), ``layers``, ``final_norm`` (D,), ``lm_head``
     (D, V), None when the head is tied to ``embed``."""
@@ -152,15 +161,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     check_supported(cfg)
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
-    layers = [RwkvLayer(zeros(), zeros(),
-                        rwkv6.init_time_mix(cfg, generator, device),
-                        rwkv6.init_channel_mix(cfg, generator, device))
-              if kind == "rwkv" else
-              Layer(zeros(), zeros(),
-                    attention.init_attn(cfg, generator, device),
-                    mlp.init_moe(cfg, generator, device) if cfg.n_experts
-                    else mlp.init_mlp(cfg, generator, device))
-              for kind in layer_kinds(cfg)]
+
+    def layer(kind):
+        if kind == "rwkv":
+            return RwkvLayer(zeros(), zeros(),
+                             rwkv6.init_time_mix(cfg, generator, device),
+                             rwkv6.init_channel_mix(cfg, generator, device))
+        if kind == "rg":
+            return RgLayer(zeros(), zeros(),
+                           rglru.init_rglru(cfg, generator, device),
+                           mlp.init_mlp(cfg, generator, device))
+        return Layer(zeros(), zeros(),
+                     attention.init_attn(cfg, generator, device),
+                     mlp.init_moe(cfg, generator, device) if cfg.n_experts
+                     else mlp.init_mlp(cfg, generator, device))
+
+    layers = [layer(kind) for kind in layer_kinds(cfg)]
     embed = common.embed_init((cfg.vocab, d), generator=generator,
                               device=device)
     lm_head = (None if cfg.tie_embeddings else
@@ -173,10 +189,10 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
     """``params`` with every attention, MLP and expert matmul weight and
     the head cast once to the compute dtype (the norms and the MoE router
     stay float32 and shared, the embedding table stays as it is: it is
-    cast after the gather; RWKV layers, which compute in float32, are
-    shared as they are).  A tied head's copy is ``embed.T`` cast, held as
-    the copy's ``lm_head``.  Computes the same numbers as ``params``; with
-    a float32 compute dtype it shares every tensor."""
+    cast after the gather; RWKV layers and RG-LRU blocks, which compute in
+    float32, are shared as they are).  A tied head's copy is ``embed.T``
+    cast, held as the copy's ``lm_head``.  Computes the same numbers as
+    ``params``; with a float32 compute dtype it shares every tensor."""
     dt = common.dtype_of(cfg.compute_dtype)
     c = lambda w: w.to(dt)
 
@@ -188,13 +204,18 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
         return mlp.MLPParams(c(l.mlp.w_gate), c(l.mlp.w_up),
                              c(l.mlp.w_down))
 
-    layers = [l if isinstance(l, RwkvLayer) else
-              Layer(l.ln1, l.ln2,
-                    attention.AttnParams(c(l.attn.wq), c(l.attn.wk),
-                                         c(l.attn.wv), c(l.attn.wo),
-                                         l.attn.q_norm, l.attn.k_norm),
-                    ff(l))
-              for l in params.layers]
+    def layer(l):
+        if isinstance(l, RwkvLayer):
+            return l
+        if isinstance(l, RgLayer):
+            return RgLayer(l.ln1, l.ln2, l.rg, ff(l))
+        return Layer(l.ln1, l.ln2,
+                     attention.AttnParams(c(l.attn.wq), c(l.attn.wk),
+                                          c(l.attn.wv), c(l.attn.wo),
+                                          l.attn.q_norm, l.attn.k_norm),
+                     ff(l))
+
+    layers = [layer(l) for l in params.layers]
     head = params.lm_head if params.lm_head is not None else params.embed.T
     return Transformer(layers, params.embed, head.to(dt), params.final_norm)
 
@@ -206,8 +227,8 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_pos: int | None = None):
     """One residual layer; returns ``(x, cache)``: an attention layer's
-    cache written in place, an RWKV layer's new state (None without
-    one)."""
+    cache written in place, an RWKV or RG-LRU layer's new state (None
+    without one)."""
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "rwkv":
         out, state = rwkv6.time_mix(cfg, p.tm, h, cache)
@@ -215,9 +236,12 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
         h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
         out2, state = rwkv6.channel_mix(cfg, p.cm, h2, state)
         return x + out2, state
-    out, cache = attention.attend(cfg, p.attn, h, positions,
-                                  layer_window=layer_window(cfg, kind),
-                                  cache_kv=cache, cache_pos=cache_pos)
+    if kind == "rg":
+        out, cache = rglru.recurrent_block(cfg, p.rg, h, cache)
+    else:
+        out, cache = attention.attend(cfg, p.attn, h, positions,
+                                      layer_window=layer_window(cfg, kind),
+                                      cache_kv=cache, cache_pos=cache_pos)
     x = x + out
     h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
@@ -227,8 +251,13 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
 
 def embed_tokens(cfg: ArchConfig, params: Transformer,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype, times sqrt(d_model)
+    held in that dtype where ``cfg.embed_scale``."""
     dt = common.dtype_of(cfg.compute_dtype)
-    return params.embed[tokens.long()].to(dt)
+    h = params.embed[tokens.long()].to(dt)
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    return h
 
 
 def lm_logits(cfg: ArchConfig, params: Transformer,
@@ -244,16 +273,27 @@ def lm_logits(cfg: ArchConfig, params: Transformer,
 # --------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> list:
-    """Per layer, a zeroed ``(k, v)`` pair of (B, max_len, K, hd) for an
-    attention layer, a zeroed :class:`~repro_torch.models.rwkv6.RwkvState`
-    for an RWKV layer (``max_len`` unused)."""
+    """Per layer, a zeroed ``(k, v)`` pair of (B, size, K, hd) for an
+    attention layer (``size`` = ``max_len``, or ``min(max_len, window)``
+    for a local layer's ring), a zeroed
+    :class:`~repro_torch.models.rwkv6.RwkvState` for an RWKV layer and
+    :class:`~repro_torch.models.rglru.RGLRUState` for an RG-LRU layer
+    (``max_len`` unused)."""
     check_supported(cfg)
     dt = common.dtype_of(cfg.compute_dtype)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return [rwkv6.init_state(cfg, batch, dt, device) if kind == "rwkv"
-            else (torch.zeros(shape, dtype=dt, device=device),
-                  torch.zeros(shape, dtype=dt, device=device))
-            for kind in layer_kinds(cfg)]
+
+    def entry(kind):
+        if kind == "rwkv":
+            return rwkv6.init_state(cfg, batch, dt, device)
+        if kind == "rg":
+            return rglru.init_state(cfg, batch, device)
+        window = layer_window(cfg, kind)
+        size = min(max_len, window) if window else max_len
+        shape = (batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return (torch.zeros(shape, dtype=dt, device=device),
+                torch.zeros(shape, dtype=dt, device=device))
+
+    return [entry(kind) for kind in layer_kinds(cfg)]
 
 
 def _run_layers(cfg, params, h, positions, cache, pos):
@@ -271,12 +311,14 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
             max_len: int | None = None):
     """Forward over the prompt ``batch["tokens"]`` (B, S); returns
     ``(cache, logits)`` with a cache of capacity ``max(max_len, S)``
-    holding the prompt's K/V (and the RWKV layers' states after the
-    prompt) and the last token's logits (B, 1, V).
+    (a local layer's ring ``min`` of that and its window) holding the
+    prompt's K/V (a ring its last rows), the recurrent layers' states
+    after the prompt, and the last token's logits (B, 1, V).
 
-    Each layer computes its K/V once, writes them to the cache and
-    attends to them there (the reference computes them twice, for the
-    cache and for attention; the numbers are the same)."""
+    Each layer computes its K/V once and writes them to the cache; a
+    global layer attends to them there, a local one to the K/V it
+    computed (the reference computes them twice, for the cache and for
+    attention; the numbers are the same)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -291,8 +333,8 @@ def decode_step(cfg: ArchConfig, params: Transformer, cache: list,
                 batch: dict, pos: int):
     """One-token decode: ``batch["tokens"]`` (B, 1) at absolute position
     ``pos``.  Writes the token's K/V into ``cache`` in place and returns
-    ``(cache, logits)`` with logits (B, 1, V) and the RWKV layers' new
-    states in the returned cache."""
+    ``(cache, logits)`` with logits (B, 1, V) and the recurrent layers'
+    new states in the returned cache."""
     check_supported(cfg)
     h = embed_tokens(cfg, params, batch["tokens"])
     positions = torch.full((h.shape[0], 1), pos, device=h.device)

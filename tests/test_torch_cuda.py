@@ -1,7 +1,8 @@
 """The CUDA soc_step kernels (episode and serve, healthy and faulted; the
 episode kernel's MLP instantiations), the flash-attention kernel (K3),
-the RWKV-6 scan kernel (K5) and the grouped expert-matmul kernel (K4)
-against their plain PyTorch versions, on the card.
+the RWKV-6 scan kernel (K5), the grouped expert-matmul kernel (K4) and
+the RG-LRU scan kernel (K6) against their plain PyTorch versions, on the
+card.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -21,6 +22,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_ref
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
 from repro_torch.kernels.soc_step import ops, ref
@@ -452,3 +455,32 @@ def test_cuda_moe_gmm_matches_plain(shape, lead, dtype):
                                **tol)
     past = torch.arange(c, device="cuda") >= sizes[..., None]
     assert bool((got[past] == 0).all())
+
+
+# ------------------------------------------------------------ rglru scan
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("shape", [(2, 128, 32), (1, 256, 64), (3, 64, 16),
+                                   (2, 37, 100), (1, 1, 5)])
+def test_cuda_rglru_scan_matches_plain(shape, state):
+    """K6 against ``ref.rglru_ref`` on the same inputs (rtol = atol = 1e-5,
+    ``tests/test_kernels.py``'s), at the reference test's shapes and at
+    lengths and widths no chunk or block divides, from a zero or a random
+    ``h0`` (folded into the first step by ``ops``)."""
+    _need_card()
+    b, t, w = shape
+    rng = np.random.default_rng(0)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to("cuda")
+    log_a, bb = -torch.exp(mk(b, t, w)), mk(b, t, w)
+    h0 = mk(b, w) if state else None
+    before = rg_ops.launches
+    y, h_fin = rg_ops.rglru_scan(log_a, bb, h0)
+    torch.cuda.synchronize()
+    assert rg_ops.launches == before + 1
+    y_want, h_want = rglru_ref(log_a, bb, torch.zeros((b, w), device="cuda")
+                               if h0 is None else h0)
+    assert y.shape == (b, t, w) and h_fin.shape == (b, w)
+    for got, want in ((y, y_want), (h_fin, h_want)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)

@@ -51,8 +51,8 @@ def test_new_subpackages_are_covered():
     """The fault model, the checkpoint package, the neural agent, the
     design-space sampler, XLA's float32 functions and the LM stack
     (configs, synthetic data, models, launch, the flash-attention, RWKV-6
-    scan and grouped expert-matmul kernels) are among the modules the
-    import check above loads."""
+    scan, grouped expert-matmul and RG-LRU scan kernels) are among the
+    modules the import check above loads."""
     mods = _modules()
     for m in ("repro_torch.soc.faults", "repro_torch.checkpoint",
               "repro_torch.checkpoint.ckpt",
@@ -71,14 +71,19 @@ def test_new_subpackages_are_covered():
               "repro_torch.kernels.rwkv6_scan.ref",
               "repro_torch.kernels.moe_gmm.kernel",
               "repro_torch.kernels.moe_gmm.ops",
-              "repro_torch.kernels.moe_gmm.ref"):
+              "repro_torch.kernels.moe_gmm.ref",
+              "repro_torch.models.rglru",
+              "repro_torch.kernels.rglru_scan.kernel",
+              "repro_torch.kernels.rglru_scan.ops",
+              "repro_torch.kernels.rglru_scan.ref"):
         assert m in mods, m
 
 
 def test_chip_smoke_and_port_drivers_load_no_jax():
     """chip_smoke.py and the port drivers it runs import neither JAX nor
     repro, at import and on the port's path (Fig. 10 and Fig. 13 at a tiny
-    size, and the Qwen3, rwkv6 and granite smoke serves)."""
+    size, and the Qwen3, rwkv6, granite and recurrentgemma smoke
+    serves)."""
     root = SRC.parent
     code = (
         "import sys\n"
@@ -98,6 +103,9 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "device='cpu')\n"
         "assert out['generated'].shape == (2, 2)\n"
         "out = serve.serve(smoke_config('granite-moe-3b-a800m'), 2, 8, 2, "
+        "device='cpu')\n"
+        "assert out['generated'].shape == (2, 2)\n"
+        "out = serve.serve(smoke_config('recurrentgemma-9b'), 2, 11, 2, "
         "device='cpu')\n"
         "assert out['generated'].shape == (2, 2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

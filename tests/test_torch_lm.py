@@ -196,8 +196,7 @@ def test_compute_copy_computes_the_same_numbers():
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "arctic-480b",
-                                  "qwen2-vl-2b", "recurrentgemma-9b",
-                                  "musicgen-large"])
+                                  "qwen2-vl-2b", "musicgen-large"])
 def test_unported_features_raise(arch):
     cfg = smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
