@@ -35,16 +35,27 @@ just after:
     averaging over 8 DSE-sampled SoCs and a shared Q-table on the same
     episodes, both scored on held-out apps and held-out SoCs.
 
-Then it holds the flash-attention kernel against its plain version at
-the serving path's prefill and decode shapes, at every
-feature case of ``tests/test_kernels.py`` in float32 and bfloat16, and at
-a Gemma-2-shaped case; checks the card against the CPU on the Qwen3 smoke
-serve; and drives a seventh path:
+Then it holds the flash-attention kernel (K3) against its plain version
+at the Qwen3 and granite serving paths' prefill and decode shapes, at
+every feature case of ``tests/test_kernels.py`` in float32 and bfloat16,
+and at a Gemma-2-shaped case, each call through the body its plan names
+(``tc_prefill``, ``split_decode`` or ``fp32_prefill``) and bitwise equal
+to a second launch; runs the coverage probe (q = 0, a one-hot v: every
+key seen exactly where the mask says) of the tensor-core prefill at the
+Qwen3, granite, recurrentgemma and Gemma-2 local prefill shapes and of
+the split decode at their decode shapes with 1, 4 and 7 query rows (over
+cache slices whose later rows hold v = 1), beside a check with q four
+times larger that each decode row gets its own head's output; times the
+float32 decode through ``split_decode`` and through ``fp32_prefill``;
+counts the HGMMA instructions of the tensor-core bodies in the built
+library (``cuobjdump -sass``) and fails on none; checks the card against
+the CPU on the Qwen3 smoke serve; and drives a seventh path:
 
   * Qwen3-8B serving at full width (``repro_torch.launch.serve``): random
     float32 weights made on the card from a seed, 4 prompts of 2,048
     tokens prefilled and 32 tokens decoded greedily, bf16 compute, every
-    attention through K3 (36 prefill + 36 x 32 decode launches).
+    attention through K3 (36 prefill launches through ``tc_prefill``, 36 x
+    32 decode launches through ``split_decode``, asserted).
 
 Then it holds the RWKV-6 scan kernel (K5) against its plain step-by-step
 version at the rwkv6-3b prefill's shape, from a zero and a random state,
@@ -67,10 +78,10 @@ path:
 
   * granite-moe-3b-a800m serving at full width: random float32 weights
     made on the card from a seed, the same 4 prompts of 2,048 tokens and
-    32 greedy tokens, bf16 compute; every attention through K3 (32 x 33
-    launches) and every expert product through K4 (3 x 32 x 33), K5
-    never; it prints the prefill's mean drop_frac and the smallest top-k
-    margin the router saw.
+    32 greedy tokens, bf16 compute; every attention through K3 (32
+    ``tc_prefill`` and 32 x 32 ``split_decode`` launches) and every expert
+    product through K4 (3 x 32 x 33), K5 never; it prints the prefill's
+    mean drop_frac and the smallest top-k margin the router saw.
 
 Then it holds the RG-LRU scan kernel (K6) against its plain step-by-step
 version at the recurrentgemma-9b prefill's shape, from a zero and a
@@ -85,8 +96,8 @@ a tenth path:
     on the card from a seed, the same 4 prompts of 2,048 tokens and 32
     greedy tokens, bf16 compute (the RG-LRU blocks in float32); every
     RG-LRU prefill through K6 (26 launches) and every local attention
-    through K3 (12 x 33), decode's recurrence through the model's step
-    function.
+    through K3 (12 ``tc_prefill`` and 12 x 32 ``split_decode`` launches),
+    decode's recurrence through the model's step function.
 
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
@@ -94,7 +105,9 @@ and reported with 0 launches.
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
-version, its bound and, for K3, PyTorch's
+version, its bound and, for K3 (at the Qwen3, granite and recurrentgemma
+prefill and decode shapes, as 20 launches in a row, the ``ms`` of every
+kernel, and as the device time of a CUDA graph of 20 launches), PyTorch's
 ``scaled_dot_product_attention`` on the same inputs, for K4 cuBLAS's
 dense batched product over the whole buffer (no single PyTorch call
 computes the SoC step, the WKV or the RG-LRU recurrence).  Exits non-zero,
@@ -183,6 +196,13 @@ RG_TOL = 1e-5
 RG_WINDOW = 2048
 FA_RG_PREFILL = (QWEN_BATCH, 16, 1, QWEN_PROMPT, QWEN_PROMPT, 256)
 FA_RG_DECODE = (QWEN_BATCH, 16, 1, 1, RG_WINDOW, 256)
+# K3 at the granite-moe-3b-a800m serving path's shapes: 24 query heads over
+# 8 kv heads of 64, the same prompt and cache as Qwen3's
+FA_GR_PREFILL = (QWEN_BATCH, 24, 8, QWEN_PROMPT, QWEN_PROMPT, 64)
+FA_GR_DECODE = (QWEN_BATCH, 24, 8, 1, QWEN_PROMPT + 1, 64,
+                QWEN_PROMPT + QWEN_GEN)
+# every bf16 K3 launch on an LM path goes through one of these bodies
+FA_BF16_BODIES = ("tc_prefill", "split_decode")
 
 
 def fail(msg: str, code: int = 1):
@@ -328,6 +348,31 @@ def main() -> None:
             lib, secs = f.result()
             print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
     print(f"builds: {time.perf_counter() - t0:.2f} s for all five")
+    # K3's tensor-core bodies must compile to warpgroup MMAs (HGMMA)
+    sass = subprocess.run(
+        [str(Path(nvcc.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(fa_kernel.build())], capture_output=True, text=True)
+    if sass.returncode != 0:
+        fail(f"cuobjdump: {sass.stderr.strip()}")
+    hgmma, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            hgmma[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            hgmma[fn] += 1
+    hgmma_by_body = {}
+    for body in ("tc_prefill_kernel", "tc_decode_kernel"):
+        for hd in (64, 128, 256):
+            mangled = [f for f in hgmma if f"{body}ILi{hd}E" in f]
+            if len(mangled) != 1:
+                fail(f"flash_attention library: no single {body}<{hd}> in "
+                     f"{sorted(hgmma)}")
+            n = hgmma[mangled[0]]
+            hgmma_by_body[f"{body}<{hd}>"] = n
+            if n == 0:
+                fail(f"flash_attention {body}<{hd}> has no HGMMA")
+    print(f"flash_attention HGMMA instructions in the SASS: {hgmma_by_body}")
 
     # ---- 2. soc_step_episode vs plain at the Fig. 6 shapes ----------------
     soc = SOC_MOTIV_PAR
@@ -675,6 +720,19 @@ def main() -> None:
         gmm_ops.reset_launches()
         rg_ops.reset_launches()
 
+    fa_bodies = {}
+
+    def check_bodies(path, prefill, decode):
+        """Every (bf16) K3 launch of an LM path went through the tensor-core
+        prefill or the split decode, as many of each as its layers say."""
+        got = dict(fa_ops.body_launches)
+        want = {"tc_prefill": prefill, "split_decode": decode,
+                "fp32_prefill": 0}
+        if got != want:
+            fail(f"{path}: K3 bodies {got}, expected {want}")
+        fa_bodies[path] = got
+        print(f"{path}: K3 launches by body {got}")
+
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
     reset_counts()
@@ -987,6 +1045,7 @@ def main() -> None:
     # and decode shapes, tests/test_kernels.py's feature cases in both
     # types, and a Gemma-2-shaped case ------------------------------------
     fa_gen = torch.Generator(device=dev).manual_seed(0)
+    fa_errs = {}
 
     def qkv(b, h, hkv, sq, skv, hd, dt, s_max=None):
         mk = lambda *shape: torch.randn(*shape, generator=fa_gen,
@@ -994,39 +1053,117 @@ def main() -> None:
         return (mk(b, sq, h, hd), mk(b, s_max or skv, hkv, hd),
                 mk(b, s_max or skv, hkv, hd))
 
-    def fa_vs_plain(what, q, k, v, **feat):
+    def fa_vs_plain(what, q, k, v, body=None, **feat):
         """K3 against ``ref.attention_ref`` on the same inputs (rtol = atol
-        = 2e-5 in float32, 2e-2 in bfloat16, the reference's own); returns
-        the max abs error."""
+        = 2e-5 in float32, 2e-2 in bfloat16, the reference's own), through
+        ``body`` where one is named, and bitwise equal to a second launch;
+        returns the max abs error."""
         tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
-        got = fa_kernel.flash_attention(q, k, v, **feat)
+        got, plan = fa_kernel.launch(q, k, v, **feat)
+        again = fa_kernel.flash_attention(q, k, v, **feat)
         torch.cuda.synchronize()
+        if body is not None and plan.body != body:
+            fail(f"flash_attention {what} took {plan.body}, not {body}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention {what}: two launches differ")
         want = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), **feat).transpose(1, 2)
         err = (got.float() - want.float()).abs().max().item()
         if got.dtype != q.dtype or not torch.allclose(
                 got.float(), want.float(), rtol=tol, atol=tol):
             fail(f"flash_attention vs plain {what}: max abs err {err}")
-        print(f"flash_attention vs plain {what}: max abs err {err:.3e} "
-              f"(bound {tol})")
+        key = f"{plan.body} {str(q.dtype).split('.')[-1]}"
+        fa_errs[key] = max(fa_errs.get(key, 0.0), err)
+        print(f"flash_attention vs plain {what} ({plan.body}"
+              f"{f', {plan.splits} splits' if plan.splits > 1 else ''}): "
+              f"max abs err {err:.3e} (bound {tol}); a second launch "
+              f"bitwise equal")
         return err
 
+    def fa_probe(what, shape, body="tc_prefill", s_max=None, **feat):
+        """A bf16 body's coverage probe (``ref.probe_*``): with q = 0 and
+        a one-hot v, every output is exactly 0 where its probe key is
+        hidden and within 1% of 1 / n_visible where it is seen, for probe
+        keys swept over every key; with ``s_max``, k and v are the first
+        Skv rows of an ``s_max``-row cache whose later rows hold v = 1, so
+        a key read past Skv shows too.  Returns the passes."""
+        b, h, hkv, sq, skv, hd = shape
+        passes = -(-skv // (b * hkv * hd))
+        for sweep in range(passes):
+            keys = fa_ref.probe_keys(b, hkv, hd, skv, sweep, device=dev)
+            q, k, v = fa_ref.probe_inputs(b, h, hkv, sq, skv, hd, keys,
+                                          torch.bfloat16, dev, seed=sweep)
+            if s_max:
+                kc = torch.randn((b, s_max, hkv, hd), generator=fa_gen,
+                                 device=dev).to(torch.bfloat16)
+                vc = torch.ones_like(kc)
+                kc[:, :skv], vc[:, :skv] = k, v
+                k, v = kc[:, :skv], vc[:, :skv]
+            out, plan = fa_kernel.launch(q, k, v, **feat)
+            bad = fa_ref.probe_faults(out, fa_ref.probe_expected(
+                keys, sq, skv, h, **feat))
+            if plan.body != body or bad:
+                fail(f"flash_attention coverage probe {what} pass {sweep}: "
+                     f"{bad} wrong outputs ({plan.body}, not {body})")
+            del q, k, v, out
+        print(f"flash_attention coverage probe {what} {shape} {feat} "
+              f"({body}{f', {plan.splits} splits' if plan.splits > 1 else ''}"
+              f"): {passes} passes over all {skv} keys, exact")
+        return passes
+
+    def fa_decode_probes(what, shape, s_max=None, sqs=(1, 4, 7), **feat):
+        """The split decode at ``shape`` with 1, 4 and 7 query rows (the
+        rows that fit one split block): the coverage probe over every key
+        (split and tile edges, the last split's lone key), and random
+        inputs with q four times larger, so each query head's softmax
+        peaks on its own few keys and a row given another head's or
+        another query row's output misses by ~1, not by bf16's ulps."""
+        b, h, hkv, _, skv, hd = shape
+        for sq in sqs:
+            rows = (b, h, hkv, sq, skv, hd)
+            fa_probe(f"{what} Sq {sq}", rows, body="split_decode",
+                     s_max=s_max, **feat)
+            q, kc, vc = qkv(*rows, torch.bfloat16, s_max=s_max)
+            fa_vs_plain(f"{what} {rows} bf16, q x 4", (4 * q.float()).to(
+                torch.bfloat16), kc[:, :skv], vc[:, :skv],
+                body="split_decode", **feat)
+
     qp, kp, vp = qkv(*FA_PREFILL, torch.bfloat16)
-    fa_err = fa_vs_plain(f"prefill {FA_PREFILL} bf16 causal", qp, kp, vp)
+    fa_err = fa_vs_plain(f"prefill {FA_PREFILL} bf16 causal", qp, kp, vp,
+                         body="tc_prefill")
     qd, kc, vc = qkv(*FA_DECODE[:6], torch.bfloat16, s_max=FA_DECODE[6])
     kd, vd = kc[:, :FA_DECODE[4]], vc[:, :FA_DECODE[4]]   # cache slices
     fa_err = max(fa_err, fa_vs_plain(
         f"decode {FA_DECODE[:6]} bf16 over a cache of {FA_DECODE[6]}",
-        qd, kd, vd))
+        qd, kd, vd, body="split_decode"))
+    fa_probe("Qwen3 prefill", FA_PREFILL, causal=True)
+    fa_decode_probes("Qwen3 decode", FA_DECODE[:6], FA_DECODE[6],
+                     causal=True)
+    # granite-moe-3b-a800m's shapes (head dim 64, 24 heads over 8)
+    gr_fa = {"prefill": qkv(*FA_GR_PREFILL, torch.bfloat16)}
+    qg, kgc, vgc = qkv(*FA_GR_DECODE[:6], torch.bfloat16,
+                       s_max=FA_GR_DECODE[6])
+    gr_fa["decode"] = (qg, kgc[:, :FA_GR_DECODE[4]], vgc[:, :FA_GR_DECODE[4]])
+    fa_err = max(fa_err, fa_vs_plain(
+        f"granite prefill {FA_GR_PREFILL} bf16 causal", *gr_fa["prefill"],
+        body="tc_prefill"))
+    fa_err = max(fa_err, fa_vs_plain(
+        f"granite decode {FA_GR_DECODE[:6]} bf16 over a cache of "
+        f"{FA_GR_DECODE[6]}", *gr_fa["decode"], body="split_decode"))
+    fa_probe("granite prefill", FA_GR_PREFILL, causal=True)
+    fa_decode_probes("granite decode", FA_GR_DECODE[:6], FA_GR_DECODE[6],
+                     causal=True)
+    fa_vs_plain(f"granite decode {FA_GR_DECODE[:6]} float32",
+                *qkv(*FA_GR_DECODE[:6], torch.float32), body="split_decode")
     # the same two shapes in float32: the outputs' spread is ~0.04 at
     # Skv 2049, so bf16's 2e-2 would pass a kernel that dropped the
     # newest key (~1e-3) or a whole tile; 2e-5 would not
     fa_vs_plain(f"prefill {FA_PREFILL} float32 causal",
-                *qkv(*FA_PREFILL, torch.float32))
+                *qkv(*FA_PREFILL, torch.float32), body="fp32_prefill")
     q32, kc32, vc32 = qkv(*FA_DECODE[:6], torch.float32, s_max=FA_DECODE[6])
     fa_vs_plain(f"decode {FA_DECODE[:6]} float32 over a cache of "
                 f"{FA_DECODE[6]}", q32, kc32[:, :FA_DECODE[4]],
-                vc32[:, :FA_DECODE[4]])
+                vc32[:, :FA_DECODE[4]], body="split_decode")
     del q32, kc32, vc32
     for dt in (torch.float32, torch.bfloat16):
         for shape in FA_SHAPES:
@@ -1035,7 +1172,12 @@ def main() -> None:
     fa_vs_plain("Gemma-2 (1, 16, 8, 4608, 4608, 256) bf16, window 4096, "
                 "soft-cap 50", *qkv(1, 16, 8, 4608, 4608, 256,
                                     torch.bfloat16),
-                window=4096, softcap=50.0)
+                body="tc_prefill", window=4096, softcap=50.0)
+    # the window's edge: keys 4,096 behind a row drop out of it
+    fa_probe("Gemma-2 local prefill", (1, 16, 8, 4608, 4608, 256),
+             causal=True, window=4096)
+    fa_decode_probes("Gemma-2 local decode", (1, 16, 8, 1, 4608, 256),
+                     causal=True, window=4096)
 
     # ---- 9d. the Qwen3 smoke serve: card == CPU plain path (float32) ------
     scfg = smoke_config("qwen3-8b")
@@ -1067,6 +1209,7 @@ def main() -> None:
     torch.cuda.synchronize()
     qwen_s = time.perf_counter() - t_q
     counts["qwen3_serve"] = read()
+    check_bodies("qwen3_serve", qcfg.n_layers, qcfg.n_layers * QWEN_GEN)
     want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0, 0, 0)
     if counts["qwen3_serve"] != want_q:
         fail(f"Qwen3-8B serve launched "
@@ -1313,6 +1456,7 @@ def main() -> None:
     finally:
         lm_mlp.route = route_fn
     counts["granite_serve"] = read()
+    check_bodies("granite_serve", gcfg.n_layers, gcfg.n_layers * QWEN_GEN)
     steps_g = gcfg.n_layers * (1 + QWEN_GEN)
     want_g = (0, 0, 0, 0, 0, 0, steps_g, 0, 3 * steps_g, 0)
     if counts["granite_serve"] != want_g:
@@ -1403,13 +1547,21 @@ def main() -> None:
         pre = qkv(*FA_RG_PREFILL, dt)
         dec = qkv(*FA_RG_DECODE, dt)
         err = fa_vs_plain(f"recurrentgemma prefill {FA_RG_PREFILL} {dt}, "
-                          f"window {RG_WINDOW}", *pre, window=RG_WINDOW)
+                          f"window {RG_WINDOW}", *pre, window=RG_WINDOW,
+                          body=("tc_prefill" if dt == torch.bfloat16
+                                else "fp32_prefill"))
         err = max(err, fa_vs_plain(f"recurrentgemma decode {FA_RG_DECODE} "
-                                   f"{dt} over the whole ring", *dec))
+                                   f"{dt} over the whole ring", *dec,
+                                   body="split_decode"))
         if dt == torch.bfloat16:
             fa_err = max(fa_err, err)
             rg_fa = {"prefill": pre, "decode": dec}
     del pre, dec
+    fa_probe("recurrentgemma prefill", FA_RG_PREFILL, causal=True,
+             window=RG_WINDOW)
+    # 16 query heads a kv head: 4 query rows fill the block's 64 rows
+    fa_decode_probes("recurrentgemma ring decode", FA_RG_DECODE,
+                     sqs=(1, 4), causal=True)
 
     # ---- 9n. the recurrentgemma smoke serve: card == CPU plain path
     # (float32) ------------------------------------------------------------
@@ -1462,6 +1614,8 @@ def main() -> None:
     torch.cuda.synchronize()
     rgemma_s = time.perf_counter() - t_rg
     counts["recurrentgemma_serve"] = read()
+    check_bodies("recurrentgemma_serve", kinds.count("attn_local"),
+                 kinds.count("attn_local") * QWEN_GEN)
     want_c = (0, 0, 0, 0, 0, 0, kinds.count("attn_local") * (1 + QWEN_GEN),
               0, 0, kinds.count("rg"))
     if counts["recurrentgemma_serve"] != want_c:
@@ -1577,42 +1731,97 @@ def main() -> None:
         print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
               f"library_ms null (no single PyTorch call computes the step)")
 
+    def graph_ms(fn, reps=20):
+        """Device ms per call of ``fn``: ``reps`` calls captured in a CUDA
+        graph and replayed, so the host's launch work is left out."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return event_ms(torch, graph.replay, 3) / reps
+
     def plain_ms(fn, reps=3):
         fn()
         torch.cuda.synchronize()
         return event_ms(torch, fn, reps)
 
     def attention_numbers(shape, q, k, v, causal):
-        """(ms, plain ms, SDPA ms, bound ms, bytes ms, ops ms) of K3 on
-        (q, k, v): the bytes of q, k, v read once and the output written
-        once; the operations of the (query, key) pairs the mask keeps (a
-        multiply and an add per element of QK^T and of PV), at the bf16
-        tensor-core peak."""
+        """(ms, plain ms, SDPA ms, bound ms, bytes ms, ops ms, device ms,
+        SDPA device ms, body) of K3 on (q, k, v): ms from 20 launches in a
+        row, as every kernel's (the wrapper's host work included where it
+        is longer than the kernel), device ms from a CUDA graph of 20
+        launches (the host's work left out); the bytes of q, k, v read
+        once and the output written once; the operations of the (query,
+        key) pairs the mask keeps (a multiply and an add per element of
+        QK^T and of PV), at the bf16 tensor-core peak."""
         b, h, hkv, sq, skv, hd = shape
         feat = dict(causal=causal)
-        ms = time_kernel(lambda: fa_kernel.flash_attention(q, k, v, **feat))
+        kern = lambda: fa_kernel.flash_attention(q, k, v, **feat)
+        # SDPA aligns a causal mask top-left: one query row sees every key
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal and sq > 1, enable_gqa=True)
+        plan = fa_kernel.launch(q, k, v, **feat)[1]
+        dev_ms, ms = graph_ms(kern), time_kernel(kern)
+        lib_dev_ms, lib_ms = graph_ms(sdpa), time_kernel(sdpa)
         pl_ms = plain_ms(lambda: fa_ref.attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             **feat))
-        # SDPA aligns a causal mask top-left: one query row sees every key
-        lib_ms = time_kernel(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal and sq > 1, enable_gqa=True))
         pairs = (sq * (skv - sq + 1) + sq * (sq - 1) // 2 if causal
                  else sq * skv)
         flops = 4 * hd * pairs * b * h
         nbytes = q.element_size() * hd * (2 * b * sq * h + 2 * b * skv * hkv)
         by = nbytes / H100_BYTES_PER_S * 1e3
         op = flops / H100_BF16_FLOPS * 1e3
-        print(f"flash_attention {shape} bf16 on {card}: kernel {ms:.4f} "
-              f"ms/launch ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-              f"{pl_ms:.3f} ms, SDPA {lib_ms:.4f} ms; bound "
+        print(f"flash_attention {shape} bf16 {plan.body} on {card}: kernel "
+              f"{ms:.4f} ms/launch (device {dev_ms:.4f} ms: "
+              f"{flops / dev_ms / 1e9:.2f} TFLOP/s, "
+              f"{nbytes / dev_ms / 1e9:.3f} TB/s), plain {pl_ms:.3f} ms, "
+              f"SDPA {lib_ms:.4f} ms (device {lib_dev_ms:.4f}); bound "
               f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
               f"{flops} bf16 ops -> {op:.6f} ms)")
-        return ms, pl_ms, lib_ms, max(by, op), by, op
+        return (ms, pl_ms, lib_ms, max(by, op), by, op, dev_ms, lib_dev_ms,
+                plan.body)
+
+    def fp32_decode_numbers():
+        """Float32 decode at Qwen3's shape (a float32 compute dtype's
+        serve) through split_decode on CUDA cores and through fp32_prefill
+        on the same inputs, which agree within 2e-5: (ms, device ms) of
+        each."""
+        q, kc, vc = qkv(*FA_DECODE[:6], torch.float32, s_max=FA_DECODE[6])
+        k, v = kc[:, :FA_DECODE[4]], vc[:, :FA_DECODE[4]]
+        t = {}
+        for body in ("split_decode", "fp32_prefill"):
+            run = lambda: fa_kernel.launch(q, k, v, body=body)
+            out, plan = run()
+            if plan.body != body:
+                fail(f"float32 decode took {plan.body}, not {body}")
+            t[body] = (time_kernel(run), graph_ms(run), out)
+        err = (t["split_decode"][2] - t["fp32_prefill"][2]).abs().max().item()
+        if err > 2e-5:
+            fail(f"float32 decode: the two bodies differ by {err}")
+        t = {body: x[:2] for body, x in t.items()}
+        print(f"flash_attention {FA_DECODE[:6]} float32 on {card}: "
+              + ", ".join(f"{body} {ms:.4f} ms/launch (device {d:.4f})"
+                          for body, (ms, d) in t.items())
+              + f"; the two agree within {err:.3e}")
+        return t
 
     fa_pre = attention_numbers(FA_PREFILL, qp, kp, vp, True)
     fa_dec = attention_numbers(FA_DECODE[:6], qd, kd, vd, True)
+    fa_gr_pre = attention_numbers(FA_GR_PREFILL, *gr_fa["prefill"], True)
+    fa_gr_dec = attention_numbers(FA_GR_DECODE[:6], *gr_fa["decode"], True)
+    fa_f32_dec = fp32_decode_numbers()
 
     def scan_numbers(shape, r, k, v, lw, u, s0):
         """(ms, plain ms, bound ms, bytes ms, ops ms) of K5 on the inputs
@@ -1731,7 +1940,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-        "variant": "bf16, causal (prefill and decode)",
+        "variant": "bf16, causal: tc_prefill (wgmma, TMA) and split_decode",
         "launches": sum(c[j] for c in counts.values()),
         "launches_by_path": by_path(j), "max_abs_err": fa_err,
         "ms": fa_pre[0], "plain_ms": fa_pre[1], "bound_ms": fa_pre[3],
@@ -1749,7 +1958,27 @@ def main() -> None:
         "rg_decode_shape": str(FA_RG_DECODE), "rg_decode_ms": fa_rg_dec[0],
         "rg_decode_plain_ms": fa_rg_dec[1],
         "rg_decode_bound_ms": fa_rg_dec[3],
-        "rg_decode_library_ms": fa_rg_dec[2], "card": card})
+        "rg_decode_library_ms": fa_rg_dec[2],
+        "gr_shape": f"prefill {FA_GR_PREFILL}", "gr_ms": fa_gr_pre[0],
+        "gr_plain_ms": fa_gr_pre[1], "gr_bound_ms": fa_gr_pre[3],
+        "gr_library_ms": fa_gr_pre[2],
+        "gr_decode_shape": str(FA_GR_DECODE[:6]),
+        "gr_decode_ms": fa_gr_dec[0], "gr_decode_plain_ms": fa_gr_dec[1],
+        "gr_decode_bound_ms": fa_gr_dec[3],
+        "gr_decode_library_ms": fa_gr_dec[2],
+        "timing": "ms: 20 launches in a row, as every kernel's; device_ms: "
+                  "a CUDA graph of 20 launches replayed",
+        "device_ms": {n: x[6] for n, x in (
+            ("prefill", fa_pre), ("decode", fa_dec), ("rg", fa_rg_pre),
+            ("rg_decode", fa_rg_dec), ("gr", fa_gr_pre),
+            ("gr_decode", fa_gr_dec))},
+        "library_device_ms": {n: x[7] for n, x in (
+            ("prefill", fa_pre), ("decode", fa_dec), ("rg", fa_rg_pre),
+            ("rg_decode", fa_rg_dec), ("gr", fa_gr_pre),
+            ("gr_decode", fa_gr_dec))},
+        "float32_decode_ms": fa_f32_dec,
+        "bodies_by_path": fa_bodies, "max_abs_err_by_body": fa_errs,
+        "hgmma": hgmma_by_body, "card": card})
     j = KERNELS.index("rwkv6_scan")
     kernels["kernels"].append({
         "name": "rwkv6_scan", "route": "cuda",

@@ -35,11 +35,13 @@ def find_nvcc() -> str:
 
 def build(source: Path, name: str, flags: tuple,
           verbose: bool = False) -> Path:
-    """Compile ``source`` with ``flags`` (if this source and these flags
-    have not been built yet) and return the shared library's path; with
-    ``verbose`` print what ``-Xptxas -v`` says of each kernel."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
+    """Compile ``source`` with ``flags`` (if this source, the headers
+    beside it and these flags have not been built yet) and return the
+    shared library's path; with ``verbose`` print what ``-Xptxas -v`` says
+    of each kernel."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     out_dir = BUILD_ROOT / f"{name}-{digest[:16]}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():

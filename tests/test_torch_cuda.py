@@ -18,7 +18,9 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
@@ -384,15 +386,140 @@ def test_cuda_flash_attention_matches_plain(shape, dtype, feat):
                .to("cuda", dtype) for s in ((b, sq, h, hd), (b, skv, hkv, hd),
                                             (b, skv, hkv, hd)))
     before = fa_ops.launches
+    body = fa_kernel.plan(q.shape, k.shape, dtype,
+                          window=feat.get("window", 0)).body
+    by_body = fa_ops.body_launches[body]
     got = fa_ops.flash_attention(q, k, v, **feat)
     torch.cuda.synchronize()
     assert fa_ops.launches == before + 1
+    assert fa_ops.body_launches[body] == by_body + 1
     want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), **feat).transpose(1, 2)
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+# (B, H, Hkv, Sq, Skv, hd), type, window, soft-cap, body: every body at
+# head dims 64 / 128 / 256, rows not a multiple of the tile, Sq < Skv,
+# windows and soft-caps, decode over long rows and short prompts
+FA_BODY_CASES = [
+    ((2, 8, 2, 128, 128, 64), torch.bfloat16, 0, 0.0, "tc_prefill"),
+    ((1, 4, 1, 200, 333, 128), torch.bfloat16, 0, 0.0, "tc_prefill"),
+    ((1, 4, 2, 96, 300, 256), torch.bfloat16, 100, 30.0, "tc_prefill"),
+    ((2, 6, 2, 130, 500, 64), torch.bfloat16, 64, 0.0, "tc_prefill"),
+    ((1, 8, 8, 257, 257, 128), torch.bfloat16, 0, 50.0, "tc_prefill"),
+    ((2, 32, 8, 1, 2049, 128), torch.bfloat16, 0, 0.0, "split_decode"),
+    ((2, 16, 1, 1, 700, 256), torch.bfloat16, 0, 0.0, "split_decode"),
+    ((2, 24, 8, 1, 2049, 64), torch.bfloat16, 0, 0.0, "split_decode"),
+    ((1, 16, 1, 4, 300, 256), torch.bfloat16, 0, 50.0, "split_decode"),
+    ((1, 12, 4, 7, 500, 64), torch.bfloat16, 200, 0.0, "split_decode"),
+    ((2, 4, 4, 33, 70, 16), torch.bfloat16, 0, 0.0, "split_decode"),
+    ((2, 32, 8, 1, 2049, 128), torch.float32, 0, 0.0, "split_decode"),
+    ((1, 16, 1, 3, 300, 256), torch.float32, 100, 30.0, "split_decode"),
+    ((1, 4, 2, 96, 300, 256), torch.float32, 0, 0.0, "fp32_prefill"),
+    ((2, 4, 4, 128, 128, 16), torch.bfloat16, 0, 0.0, "fp32_prefill"),
+    ((1, 13, 1, 5, 300, 64), torch.bfloat16, 0, 0.0, "fp32_prefill"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_BODY_CASES,
+                         ids=lambda c: f"{c[4]}-{c[0]}-{c[1]}-w{c[2]}-"
+                                       f"cap{c[3]}")
+def test_cuda_flash_attention_body_matches_plain(case):
+    """Each body (the plan names it) against ``ref.attention_ref`` at the
+    reference's tolerances, and two launches bitwise equal."""
+    _need_card()
+    shape, dtype, window, softcap, body = case
+    b, h, hkv, sq, skv, hd = shape
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to("cuda", dtype) for s in ((b, sq, h, hd), (b, skv, hkv, hd),
+                                            (b, skv, hkv, hd)))
+    feat = dict(causal=True, window=window, softcap=softcap)
+    got, plan = fa_kernel.launch(q, k, v, **feat)
+    again = fa_kernel.flash_attention(q, k, v, **feat)
+    torch.cuda.synchronize()
+    assert plan.body == body
+    assert torch.equal(got, again)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), **feat).transpose(1, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [
+    ((1, 4, 4, 128, 128, 64), 0), ((2, 8, 2, 200, 333, 128), 0),
+    ((1, 4, 1, 96, 300, 256), 0), ((1, 2, 2, 256, 256, 128), 64),
+    ((2, 6, 2, 130, 500, 64), 100), ((1, 4, 2, 300, 300, 256), 129)])
+def test_cuda_flash_attention_coverage_probe(shape, window):
+    """The tensor-core prefill drops no key and adds none: with q = 0 and
+    a one-hot v, out is > 0 exactly where a row sees the column's probe
+    key, and within 1% of 1 / n_visible there, for probe keys swept over
+    every key (tile edges, the diagonal and the window's edge among them).
+    bf16's 2e-2 against random inputs cannot show one key missing."""
+    _need_card()
+    b, h, hkv, sq, skv, hd = shape
+    feat = dict(causal=True, window=window)
+    for sweep in range(-(-skv // (b * hkv * hd))):
+        keys = fa_ref.probe_keys(b, hkv, hd, skv, sweep, device="cuda")
+        q, k, v = fa_ref.probe_inputs(b, h, hkv, sq, skv, hd, keys,
+                                      torch.bfloat16, "cuda", seed=sweep)
+        out, plan = fa_kernel.launch(q, k, v, **feat)
+        assert plan.body == "tc_prefill"
+        want = fa_ref.probe_expected(keys, sq, skv, h, **feat)
+        assert fa_ref.probe_faults(out, want) == 0
+
+
+# (B, H, Hkv, Sq, Skv, hd), window: the split decode at head dims 64 /
+# 128 / 256 with 1, 4 and 7 query rows (Sq x group <= 64), Skv 2049 (a
+# last split of one key), short rings and a window that starts the keys
+FA_DECODE_PROBES = [
+    ((2, 32, 8, sq, 2049, 128), 0) for sq in (1, 4, 7)] + [
+    ((2, 24, 8, sq, 2049, 64), 0) for sq in (1, 4, 7)] + [
+    ((2, 16, 1, 1, 700, 256), 0), ((2, 16, 1, 4, 2048, 256), 0),
+    ((1, 16, 8, 1, 1100, 256), 1000), ((1, 16, 8, 7, 1100, 256), 1000),
+    ((1, 12, 4, 5, 333, 64), 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", FA_DECODE_PROBES)
+def test_cuda_flash_attention_decode_coverage_probe(shape, window):
+    """The bf16 split decode (on the tensor cores at these head dims) drops
+    no key and adds none: the coverage probe above over every key, k and
+    v read as a cache slice whose later rows hold v = 1.  And with q four
+    times larger, so each query head's softmax peaks on its own keys, it
+    gives each row its own head's and query row's output (a row mapped to
+    another would miss by ~1, past bf16's 2e-2)."""
+    _need_card()
+    b, h, hkv, sq, skv, hd = shape
+    feat = dict(causal=True, window=window)
+    for sweep in range(-(-skv // (b * hkv * hd))):
+        keys = fa_ref.probe_keys(b, hkv, hd, skv, sweep, device="cuda")
+        q, k, v = fa_ref.probe_inputs(b, h, hkv, sq, skv, hd, keys,
+                                      torch.bfloat16, "cuda", seed=sweep)
+        kc = torch.randn((b, skv + 31, hkv, hd), device="cuda").to(k.dtype)
+        vc = torch.ones_like(kc)
+        kc[:, :skv], vc[:, :skv] = k, v
+        out, plan = fa_kernel.launch(q, kc[:, :skv], vc[:, :skv], **feat)
+        assert plan.body == "split_decode"
+        want = fa_ref.probe_expected(keys, sq, skv, h, **feat)
+        assert fa_ref.probe_faults(out, want) == 0
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to("cuda", torch.bfloat16)
+               for s in ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+    q = (4 * q.float()).to(torch.bfloat16)
+    got = fa_kernel.flash_attention(q, k, v, **feat)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), **feat).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
 
 
 # ----------------------------------------------------------- rwkv6 scan
