@@ -22,8 +22,9 @@
 //   work is 137.5 GFLOP against 168 MB at the serving paths' shapes, so the
 //   bound is the bf16 tensor-core rate (0.139 ms at 989 TFLOP/s); CUDA
 //   cores in float32 (67 TFLOP/s) cannot come within 2 ms of it.  So both
-//   products run on the tensor cores as warpgroup MMAs (wgmma, wgmma.cuh):
-//   a block of 384 threads owns 128 query rows of one head.  One thread of
+//   products run on the tensor cores as warpgroup MMAs (wgmma, from the
+//   port's shared kernels/csrc/hopper.cuh): a block of 384 threads owns
+//   128 query rows of one head.  One thread of
 //   the producer warpgroup issues TMA loads: the Q tile once, then K and V
 //   tiles into a two-stage shared-memory ring guarded by mbarriers (full:
 //   the bytes landed; empty: all 256 consumer threads are done with the
@@ -76,13 +77,9 @@
 //   and each K/V tile are staged in shared memory as float32 (rows padded
 //   by 4 floats), the tile's probabilities pass through a small shared
 //   array to the threads that own the output columns.
-#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include "wgmma.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -354,85 +351,6 @@ struct Cfg {
   static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 64 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one TMA box of a 4-D (hd, head, row, batch) tensor into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte swizzled tile at shared address `addr`
-// (1024-aligned pattern): `lbo` is the byte stride between 64-column
-// chunks along a MN-major operand's N, `sbo` between groups of 8 rows
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep reads of an accumulator after the wait that completes it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(NT, 1) tc_prefill_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -629,34 +547,6 @@ __global__ void __launch_bounds__(NT, 1) tc_prefill_kernel(
     }
   }
 }
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// errors of the driver's encoder are returned as 10000 + its CUresult
-constexpr int ENCODE_ERROR = 10000;
 
 // a (hd, heads, rows, batch) bf16 tensor with element strides (sh, ss, sb),
 // read in boxes of 64 columns x `box_heads` heads x `box_rows` rows,
@@ -1002,8 +892,8 @@ __global__ void __launch_bounds__(NT) split_decode_kernel(
       reinterpret_cast<const uint8_t*>(v + b * vsb + hkv * vsh);
 
   auto load_tile = [&](int t, int buf) {
-    const uint32_t k_dst = tc::smem_u32(Ks + buf * KT * C::KST);
-    const uint32_t v_dst = tc::smem_u32(Vs + buf * KT * C::RB);
+    const uint32_t k_dst = smem_u32(Ks + buf * KT * C::KST);
+    const uint32_t v_dst = smem_u32(Vs + buf * KT * C::RB);
     for (int c = tid; c < KT * C::CPR; c += NT) {
       const int j = c / C::CPR, part = c % C::CPR;
       const int key = k_begin + t * KT + j;

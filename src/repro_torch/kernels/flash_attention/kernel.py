@@ -1,8 +1,8 @@
 """ctypes wrapper of the CUDA ``flash_attention`` kernels.
 
-``csrc/flash_attention.cu`` (with ``csrc/wgmma.cuh``) is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C entry point
-per body, on first use (never at import), into
+``csrc/flash_attention.cu`` (with the shared ``kernels/csrc/hopper.cuh``)
+is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C entry point per body, on first use (never at import), into
 ``build/repro_torch/flash_attention-<hash>/`` at the root of the checkout
 (:mod:`repro_torch.kernels.nvcc`).  A missing ``nvcc`` raises: there is no
 fallback.

@@ -1,11 +1,13 @@
-"""Public entry point of the grouped expert-matmul kernel.
+"""Public entry point of the grouped expert-matmul kernels.
 
 :func:`moe_gmm` dispatches by where the tensors lie: CUDA tensors launch
-the hand-written kernel (:mod:`.kernel`), CPU tensors take the plain
-version (:func:`~repro_torch.kernels.moe_gmm.ref.gmm_ref`).  There is no
-fallback between them: a CUDA call that cannot build or launch raises.
-:data:`launches` counts the kernel's launches, so a run can show that it
-went through the kernel.
+the hand-written kernels (:mod:`.kernel`, whose :func:`~.kernel.plan`
+names the body), CPU tensors take the plain version
+(:func:`~repro_torch.kernels.moe_gmm.ref.gmm_ref`).  There is no fallback
+between them: a CUDA call that cannot build or launch raises.
+:data:`launches` counts the kernels' launches and :data:`body_launches`
+the same per body, so a run can show that it went through the kernels,
+and through which.
 """
 from __future__ import annotations
 
@@ -15,11 +17,14 @@ from repro_torch.kernels.moe_gmm import kernel as _kernel
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 launches = 0
+body_launches = dict.fromkeys(_kernel.BODIES, 0)
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for body in body_launches:
+        body_launches[body] = 0
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,
@@ -30,6 +35,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     global launches
     if x.device.type != "cuda":
         return gmm_ref(x, w, group_sizes)
-    out = _kernel.moe_gmm(x, w, group_sizes)
+    out, plan = _kernel.launch(x, w, group_sizes)
     launches += 1
+    body_launches[plan.body] += 1
     return out

@@ -16,6 +16,8 @@ import tempfile
 from pathlib import Path
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# headers the kernels share (``#include "../../csrc/hopper.cuh"``)
+SHARED = Path(__file__).resolve().parent / "csrc"
 SM90A = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,11 +38,12 @@ def find_nvcc() -> str:
 def build(source: Path, name: str, flags: tuple,
           verbose: bool = False) -> Path:
     """Compile ``source`` with ``flags`` (if this source, the headers
-    beside it and these flags have not been built yet) and return the
-    shared library's path; with ``verbose`` print what ``-Xptxas -v`` says
-    of each kernel."""
+    beside it, the shared headers of :data:`SHARED` and these flags have
+    not been built yet) and return the shared library's path; with
+    ``verbose`` print what ``-Xptxas -v`` says of each kernel."""
     text = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+        h.read_bytes() for h in (sorted(source.parent.glob("*.cuh"))
+                                 + sorted(SHARED.glob("*.cuh"))))
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     out_dir = BUILD_ROOT / f"{name}-{digest[:16]}"
     lib = out_dir / f"lib{name}.so"

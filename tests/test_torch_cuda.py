@@ -22,7 +22,9 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm import ref as gmm_probe
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
@@ -573,15 +575,82 @@ def test_cuda_moe_gmm_matches_plain(shape, lead, dtype):
     sizes = torch.from_numpy(rng.integers(0, c + 1, (*lead, e)).astype(
         np.int32)).to("cuda")
     before = gmm_ops.launches
+    by_body = dict(gmm_ops.body_launches)
     got = gmm_ops.moe_gmm(x, w, sizes)
     torch.cuda.synchronize()
     assert gmm_ops.launches == before + 1 and got.dtype == dtype
+    body = gmm_kernel.plan(x.shape, w.shape, dtype).body
+    assert gmm_ops.body_launches[body] == by_body[body] + 1
     tol = (dict(rtol=5e-2, atol=5e-1) if dtype == torch.bfloat16 else TOL)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                gmm_ref(x, w, sizes).float().cpu().numpy(),
                                **tol)
     past = torch.arange(c, device="cuda") >= sizes[..., None]
     assert bool((got[past] == 0).all())
+
+
+# (E, C, D, F), lead, dtype, body: every body of K4 at the granite serving
+# path's prefill gate/up and down and decode gate/up and down shapes, and
+# at ragged edges (C, F and D no tile divides; one row a group; 8 D slices
+# of 520 rows, each staged in two pieces; 45 live rows an expert, in 6
+# chunks)
+GMM_PROBES = [
+    ((48, 432, 1536, 512), (4,), torch.bfloat16, "tc_gmm"),
+    ((48, 432, 512, 1536), (4,), torch.bfloat16, "tc_gmm"),
+    ((4, 64, 128, 96), (), torch.bfloat16, "tc_gmm"),
+    ((6, 300, 200, 40), (2,), torch.bfloat16, "tc_gmm"),
+    ((3, 17, 8, 136), (1,), torch.bfloat16, "tc_gmm"),
+    ((48, 8, 1536, 512), (4,), torch.bfloat16, "gemv_decode"),
+    ((48, 8, 512, 1536), (4,), torch.bfloat16, "gemv_decode"),
+    ((6, 16, 32, 24), (3,), torch.bfloat16, "gemv_decode"),
+    ((5, 1, 2056, 72), (2,), torch.bfloat16, "gemv_decode"),
+    ((7, 5, 4104, 8), (9,), torch.bfloat16, "gemv_decode"),
+    ((5, 3, 17, 9), (2,), torch.bfloat16, "fp32_tiled"),
+    ((48, 8, 64, 32), (4,), torch.float32, "fp32_tiled"),
+    ((6, 432, 96, 40), (2,), torch.float32, "fp32_tiled"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lead,dtype,body", GMM_PROBES)
+def test_cuda_moe_gmm_coverage_probe(shape, lead, dtype, body):
+    """Each body of K4 drops no k tile, shifts no row or column at a tile
+    edge, takes each group's expert (g % E) and zeroes every row past its
+    group's size: the coverage probe (``ref.probe_inputs``: one or two 1s
+    a row of x, small integer weights) is exact, atol 0, with the sizes
+    cycling through 0, 1, 63-65, 127-129, C - 1, C, > C and -3."""
+    _need_card()
+    e, c, d, f = shape
+    x, w, sizes = gmm_probe.probe_inputs(lead, e, c, d, f, dtype, "cuda")
+    out, plan = gmm_kernel.launch(x, w, sizes)
+    torch.cuda.synchronize()
+    assert plan.body == body
+    want = gmm_probe.probe_expected(lead, e, c, d, f, "cuda")
+    assert out.dtype == dtype and torch.equal(out.float(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lead,dtype,body", GMM_PROBES)
+def test_cuda_moe_gmm_launches_bitwise_equal(shape, lead, dtype, body):
+    """Two launches of a body on the same random inputs are bitwise equal
+    (gemv_decode adds its D slices' partials in rank order, without
+    atomics), and within the reference's tolerance of the plain version."""
+    _need_card()
+    e, c, d, f = shape
+    rng = np.random.default_rng(1)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to("cuda", dtype)
+    x, w = mk(*lead, e, c, d), mk(e, d, f)
+    sizes = torch.from_numpy(rng.integers(-1, c + 2, (*lead, e)).astype(
+        np.int32)).to("cuda")
+    got, plan = gmm_kernel.launch(x, w, sizes)
+    again = gmm_kernel.moe_gmm(x, w, sizes)
+    torch.cuda.synchronize()
+    assert plan.body == body and torch.equal(got, again)
+    tol = (dict(rtol=5e-2, atol=5e-1) if dtype == torch.bfloat16 else TOL)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               gmm_ref(x, w, sizes).float().cpu().numpy(),
+                               **tol)
 
 
 # ------------------------------------------------------------ rglru scan

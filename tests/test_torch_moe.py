@@ -20,10 +20,17 @@ within 1e-5 absolute (measured 3.0e-7 for the logits, 1.2e-6 for the
 caches), every greedy token equal; bf16 logits within 2e-2
 (measured 3.9e-3) at each step, decoding the reference's tokens.  The bf16 combine, which adds each token's
 contributions in ascending expert order and rounds after each add, is
-held bitwise at 40 experts and top-8.  The CUDA kernel's own test
-against the plain version needs the card and no JAX, so it lives in
+held bitwise at 40 experts and top-8.  The kernel's ``plan`` (which of
+its three bodies a call takes) is held at the serving path's and the
+reference test's shapes and at the shapes the tensor-core bodies refuse;
+the coverage probe (``ref.probe_inputs``) is exact against the
+reference's ``gmm_ref`` and its Pallas kernel, and each fault it is meant
+to show changes its product.  The CUDA kernels' own tests against the
+plain version and the probe need the card and no JAX, so they live in
 ``tests/test_torch_cuda.py``.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +44,7 @@ from repro.launch import serve as j_serve
 from repro.models import mlp as jm, transformer as jt
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data.synthetic import DataConfig, host_batch
-from repro_torch.kernels.moe_gmm import kernel, ops
+from repro_torch.kernels.moe_gmm import kernel, ops, ref as gmm_probe
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import convert, mlp as tm, transformer as tt
@@ -168,6 +175,170 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
     monkeypatch.setattr(kernel, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel._load()
+
+
+def test_build_is_keyed_on_the_shared_headers(monkeypatch, tmp_path):
+    """A change to a header of ``kernels/csrc`` (included by K3 and K4 from
+    another directory) gives a new build, not the stale library; an
+    unchanged one reuses it."""
+    from repro_torch.kernels import nvcc
+    shared, src = tmp_path / "shared", tmp_path / "k" / "csrc"
+    shared.mkdir()
+    src.mkdir(parents=True)
+    (src / "k.cu").write_text('#include "../../shared/hopper.cuh"\n')
+    header = shared / "hopper.cuh"
+    header.write_text("// one\n")
+    runs = []
+
+    def fake_nvcc(cmd, **kwargs):
+        runs.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_text("lib")
+        return type("Done", (), {"returncode": 0, "stdout": "",
+                                 "stderr": ""})()
+
+    monkeypatch.setattr(nvcc, "SHARED", shared)
+    monkeypatch.setattr(nvcc, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(nvcc, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(nvcc.subprocess, "run", fake_nvcc)
+    first = nvcc.build(src / "k.cu", "k", nvcc.SM90A)
+    assert nvcc.build(src / "k.cu", "k", nvcc.SM90A) == first
+    header.write_text("// two\n")
+    second = nvcc.build(src / "k.cu", "k", nvcc.SM90A)
+    assert second != first and second.exists() and len(runs) == 2
+
+
+# ------------------------------------- K4's plan and its coverage probe ----
+# (x shape, w shape, dtype) -> (body, D slices): the granite serving path's
+# prefill and decode products, tests/test_kernels.py's shapes, and the
+# shapes the tensor-core bodies do not take
+PLAN_CASES = {
+    "granite prefill gate/up": ((4, 48, 432, 1536), (48, 1536, 512),
+                                "bfloat16", ("tc_gmm", 1)),
+    "granite prefill down": ((4, 48, 432, 512), (48, 512, 1536), "bfloat16",
+                             ("tc_gmm", 1)),
+    "granite decode gate/up": ((4, 48, 8, 1536), (48, 1536, 512),
+                               "bfloat16", ("gemv_decode", 4)),
+    "granite decode down": ((4, 48, 8, 512), (48, 512, 1536), "bfloat16",
+                            ("gemv_decode", 2)),
+    "granite prefill, float32": ((4, 48, 432, 1536), (48, 1536, 512),
+                                 "float32", ("fp32_tiled", 1)),
+    "granite decode, float32": ((4, 48, 8, 1536), (48, 1536, 512),
+                                "float32", ("fp32_tiled", 1)),
+    **{f"test_kernels {s}": ((s[0], s[1], s[2]), (s[0], s[2], s[3]),
+                             "bfloat16", ("tc_gmm", 1)) for s in GMM_SHAPES},
+    **{f"test_kernels {s}, float32": ((s[0], s[1], s[2]), (s[0], s[2], s[3]),
+                                      "float32", ("fp32_tiled", 1))
+       for s in GMM_SHAPES},
+    "16 rows a group": ((2, 6, 16, 32), (6, 32, 24), "bfloat16",
+                        ("gemv_decode", 1)),
+    "17 rows a group": ((2, 6, 17, 32), (6, 32, 24), "bfloat16",
+                        ("tc_gmm", 1)),
+    "unaligned (5, 3, 17, 9)": ((2, 5, 3, 17), (5, 17, 9), "bfloat16",
+                                ("fp32_tiled", 1)),
+    "F not a multiple of 8": ((4, 64, 128), (4, 128, 20), "bfloat16",
+                              ("fp32_tiled", 1)),
+    "D not a multiple of 8": ((2, 4, 8, 36), (4, 36, 64), "bfloat16",
+                              ("fp32_tiled", 1)),
+    "D 0": ((2, 32, 0), (2, 0, 16), "bfloat16", ("fp32_tiled", 1)),
+    "long D": ((1, 4, 8, 8192), (4, 8192, 64), "bfloat16",
+               ("gemv_decode", 8)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_names_the_body(case):
+    """``kernel.plan`` takes bf16 groups of more than 16 rows to the
+    tensor-core body, of at most 16 (decode) to the GEMV body with its D
+    slices, and float32 or shapes TMA's 16-byte strides refuse to the
+    CUDA-core body; from the shapes and the type alone."""
+    x_shape, w_shape, dtype, want = PLAN_CASES[case]
+    got = kernel.plan(torch.Size(x_shape), torch.Size(w_shape),
+                      DTYPES[dtype][1])
+    assert (got.body, got.splits) == want and got.body in kernel.BODIES
+
+
+@pytest.mark.parametrize("d,splits", [(8, 1), (511, 1), (512, 2),
+                                      (1023, 2), (1024, 4), (1536, 4),
+                                      (2048, 8), (100000, 8)])
+def test_decode_splits_keep_256_rows_a_slice(d, splits):
+    assert kernel.decode_splits(d) == splits
+    assert splits == 1 or d // splits >= kernel.MIN_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GMM_SHAPES)
+def test_probe_matches_reference_and_pallas(shape, dtype):
+    """The coverage probe's expected product (from its codes alone) is the
+    plain version's, the reference's ``gmm_ref``'s and its Pallas
+    kernel's (interpret mode) exactly, in both types, with sizes 0, 1,
+    63-65, 127-129, C - 1, C, > C and -3."""
+    e, c, d, f = shape
+    x, w, sizes = gmm_probe.probe_inputs((), e, c, d, f, DTYPES[dtype][1])
+    want = gmm_probe.probe_expected((), e, c, d, f)
+    assert sorted(set(sizes.tolist())) == sorted(set(
+        (0, 1, 63, 64, 65, 127, 128, 129, c - 1, c, c + 5, -3)[:e]))
+    assert torch.equal(gmm_ref(x, w, sizes).float(), want)
+    jdt = DTYPES[dtype][0]
+    jx = jnp.asarray(x.float().numpy(), jdt)
+    jw = jnp.asarray(w.float().numpy(), jdt)
+    js = jnp.asarray(sizes.numpy())
+    for got in (j_gmm_ref(jx, jw, js), j_gmm(jx, jw, js, **GMM_BLOCKS)):
+        np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                      want.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_probe_batched_matches_pallas_row_by_row(dtype):
+    """The probe with a batch axis (sizes cycling over all 18 groups):
+    each batch row's expected product is the reference's Pallas kernel's
+    on that row, exactly."""
+    lead, (e, c, d, f) = (3,), (6, 16, 32, 24)
+    x, w, sizes = gmm_probe.probe_inputs(lead, e, c, d, f, DTYPES[dtype][1])
+    want = gmm_probe.probe_expected(lead, e, c, d, f)
+    assert torch.equal(ops.moe_gmm(x, w, sizes).float(), want)
+    jdt = DTYPES[dtype][0]
+    for b in range(lead[0]):
+        got = j_gmm(jnp.asarray(x[b].float().numpy(), jdt),
+                    jnp.asarray(w.float().numpy(), jdt),
+                    jnp.asarray(sizes[b].numpy()), **GMM_BLOCKS)
+        np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                      want[b].numpy())
+
+
+def _probe_fault(fault, x, w, sizes):
+    """The plain product with one of the faults the probe must show."""
+    if fault == "wrong expert":
+        return gmm_ref(x, w.roll(1, 0), sizes)
+    if fault == "dropped k tile":
+        x = x.clone()
+        x[..., 64:128] = 0
+        return gmm_ref(x, w, sizes)
+    if fault == "sizes of another group":
+        return gmm_ref(x, w, sizes.roll(1, -1))
+    if fault == "rows past the size kept":
+        return gmm_ref(x, w, torch.full_like(sizes, x.shape[-2]))
+    out = gmm_ref(x, w, sizes).clone()
+    if fault == "column shifted at a tile edge":
+        out[..., 128:] = out[..., 127:-1].clone()
+    elif fault == "row shifted at a tile edge":
+        out[..., 128:, :] = out[..., 127:-1, :].clone()
+    return out
+
+
+@pytest.mark.parametrize("fault", [
+    "wrong expert", "dropped k tile", "sizes of another group",
+    "rows past the size kept", "column shifted at a tile edge",
+    "row shifted at a tile edge"])
+def test_probe_shows_each_fault(fault):
+    """Each fault the probe is meant to catch changes its product: a wrong
+    expert, a k tile of 64 left out, another group's size, rows past the
+    size not zeroed, a column or a row shifted by one at a 128 edge."""
+    lead, (e, c, d, f) = (2,), (6, 200, 256, 192)
+    x, w, sizes = gmm_probe.probe_inputs(lead, e, c, d, f, torch.bfloat16)
+    want = gmm_probe.probe_expected(lead, e, c, d, f)
+    assert torch.equal(gmm_ref(x, w, sizes).float(), want)
+    bad = _probe_fault(fault, x, w, sizes).float()
+    assert not torch.equal(bad, want)
 
 
 # ------------------------------------------------------------ MoE layer ----
