@@ -1,0 +1,346 @@
+"""Where one step of the soc_step episode kernel (K1, K1m) spends its
+cycles, and what the operations on its dependent chain cost, on the card.
+
+    PYTHONPATH=src:. python -m benchmarks.torch_soc_step_phases \
+        [--tree DIR] [--mlp] [--latency] [--vs DIR2]
+
+Builds ``DIR/src/repro_torch/kernels/soc_step/csrc/soc_step.cu`` (default:
+this checkout's) with ``-DSOC_STEP_PHASES``, which turns on the source's
+``clock64()`` stamps: lane 0 adds the cycles between consecutive stamps
+into one counter per phase of the step.  A source without stamps (the
+body before the Hopper redesign, unpacked with ``git archive``) gets them
+inserted at the anchors in :data:`PARENT_STAMPS` first.  The build is a
+scratch build under ``build/repro_torch/``; the committed kernel never
+has the stamps.  It then runs the episode kernel once at Fig. 6's shape
+(``SOC_MOTIV_PAR``, B = 120 learning agents, a 540-step app; ``--mlp``:
+120 learning sense networks through K1m) through ``DIR``'s own
+``kernel.py`` and prints the cycles per step of each phase.
+
+``--latency`` builds ``benchmarks/csrc/soc_step_latency.cu`` (which
+includes this checkout's kernel source) and prints the cycles of each
+operation on the step's chain (float add, multiply, IEEE division, the
+kernel's ``qdiv``, ``xla_log`` and ``tmin``, a shared-memory load,
+``__shfl_sync``, a shared-memory store and load across ``__syncwarp``),
+the numbers that
+``kernel.chain_cycles`` prices the chain with.  Prints the card's name,
+power limit and SM clock beside them.  ``--vs DIR2`` also times
+``DIR2``'s and ``DIR``'s own kernels (no stamps) at the same shape, in
+turns (DIR2, DIR, DIR, DIR2), and says whether their outputs are bitwise
+equal.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch import random as prng
+from repro_torch.core import qlearn, rewards
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.soc_step import ref as soc_ref
+from repro_torch.soc import apps, nn as socnn, vecenv as vec
+from repro_torch.soc.config import SOC_MOTIV_PAR
+
+ROOT = Path(__file__).resolve().parents[1]
+REL_SOURCE = Path("src/repro_torch/kernels/soc_step/csrc/soc_step.cu")
+REL_KERNEL = Path("src/repro_torch/kernels/soc_step/kernel.py")
+WEIGHTS = [
+    (0.675, 0.075, 0.25), (0.125, 0.125, 0.75), (1.0, 0.0, 0.0),
+    (0.0, 0.0, 1.0), (0.05, 0.05, 0.90), (0.33, 0.33, 0.34),
+    (0.5, 0.25, 0.25), (0.25, 0.5, 0.25), (0.8, 0.1, 0.1),
+    (0.1, 0.8, 0.1), (0.45, 0.1, 0.45), (0.6, 0.0, 0.4),
+    (0.9, 0.05, 0.05), (0.2, 0.2, 0.6), (0.4, 0.4, 0.2),
+]
+N_SEEDS, ITERS, N_PHASES, SEED = 8, 10, 6, 11
+LAT_NAMES = ("f32 add", "f32 multiply", "IEEE division", "xla_log", "tmin",
+             "shared load", "__shfl_sync", "store + __syncwarp + load",
+             "qdiv (branch-free division)")
+BLOCK_NAMES = ("timing, four modes (qdiv)", "timing, four modes (IEEE /)",
+               "reward, four modes (qdiv)", "selection",
+               "MLP forward (14, 16, 16, 4)", "MLP TD update (14, 16, 16, 4)")
+
+# The stamp machinery, shared by both bodies: lane 0 adds the cycles since
+# the previous stamp to phase k's counter; the block's counters go to a
+# device array at the end, summed over blocks.
+STAMP_DEFS = r"""
+#ifdef SOC_STEP_PHASES
+namespace {
+constexpr int N_PH = 12;
+__device__ unsigned long long g_phase_cycles[N_PH];
+__shared__ long long ph_acc[N_PH];
+__shared__ long long ph_last;
+}
+#define PH_INIT() do { if (threadIdx.x == 0) { \
+  for (int k_ = 0; k_ < N_PH; ++k_) ph_acc[k_] = 0; ph_last = clock64(); } \
+  __syncwarp(); } while (0)
+#define PH(k) do { if (threadIdx.x == 0) { long long t_ = clock64(); \
+  ph_acc[k] += t_ - ph_last; ph_last = t_; } } while (0)
+#define PH_FLUSH() do { if (threadIdx.x == 0) for (int k_ = 0; k_ < N_PH; \
+  ++k_) atomicAdd(&g_phase_cycles[k_], (unsigned long long)ph_acc[k_]); \
+  } while (0)
+extern "C" int soc_step_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase_cycles,
+                                       N_PH * sizeof(unsigned long long));
+  if (reset) {
+    unsigned long long z[N_PH] = {};
+    cudaMemcpyToSymbol(g_phase_cycles, z, sizeof z);
+  }
+  return (int)e;
+}
+#endif
+"""
+
+# (anchor in the body before the redesign, text put in front of it)
+PARENT_STAMPS = [
+    ("namespace {\n\nconstexpr int MAX_T", STAMP_DEFS + "\n"),
+    ("    warm_t = x.fresh ? 1.0f : self_row[TBL_WARM];", "    PH(1);\n"),
+    ("  if constexpr (MLP) {\n    __syncwarp();\n    mlp_forward_warp",
+     "  PH(2);\n"),
+    ("    if (lead && m->qfun != 0.0f) {", "    PH(3);\n"),
+    ("    const int mode =\n        ((x.avail[action]", "    PH(4);\n"),
+    ("    // ---- reward input: true or DDR-attributed", "    PH(5);\n"),
+    ("    // ---- reward: rewards.evaluate with the extrema update",
+     "    PH(6);\n"),
+    ("    // ---- learn + bookkeeping", "    PH(7);\n"),
+    ("  if constexpr (MLP)\n    mlp_td_update_warp", "  PH(8);\n"),
+    ("}\n\n// The MLP's static shape", "  PH(9);\n"),
+    ("    for (int j = lane; j < nf; j += 32) xrow[j] = xf_b[(size_t)i * nf"
+     " + j];\n    if (lane < 5) irow[lane] = xi_b[(size_t)i * 5 + lane];\n"
+     "    __syncwarp();\n    if (MLP", "    PH(10);\n"),
+    ("    if (MLP || lane == 0) {   // the MLP step uses the whole warp",
+     "    PH(0);\n"),
+    ("  float* qo = qtable_out + (size_t)b * nq;", "  PH_FLUSH();\n"),
+    ("  float* q = smem;                   // n_states * A",
+     "  PH_INIT();\n"),
+]
+PARENT_PHASES = ("row load (global, after the previous step)",
+                 "masked read + observe (lane 0)",
+                 "Q-row read, warmth, MLP features (lane 0)",
+                 "MLP forward (warp)", "selection (lane 0)",
+                 "timing: invocation_perf_cached (lane 0)",
+                 "DDR attribution (lane 0)", "reward + extrema (lane 0)",
+                 "writes: Q, extrema, slot row (lane 0)",
+                 "MLP TD update (warp)", "y store + __syncwarp",
+                 "(unused)")
+# the phases of the redesigned body, in its PH() order
+NEW_PHASES = ("ring: wait for the staged rows",
+              "per-slot terms (lane t)", "ordered sums (lane j)",
+              "observe + the four modes' timings",
+              "DDR attribution (four modes)", "reward (four modes)",
+              "Q-row, MLP features + forward (warp)",
+              "selection + picking shuffles", "writes",
+              "MLP TD update (warp) + __syncwarp",
+              "y flush (a chunk's end)", "(unused)")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi",
+         "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def stamped_source(tree: Path) -> tuple[Path, tuple]:
+    """The source of ``tree`` with its stamps on, and its phase names."""
+    text = (tree / REL_SOURCE).read_text()
+    if "SOC_STEP_PHASES" in text:
+        return tree / REL_SOURCE, NEW_PHASES
+    for anchor, stamp in PARENT_STAMPS:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"anchor not found once in {tree / REL_SOURCE}:"
+                             f" {anchor!r}")
+        text = text.replace(anchor, stamp + anchor)
+    out = nvcc.BUILD_ROOT / "soc_step_phases_src" / "soc_step.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out, PARENT_PHASES
+
+
+def load_kernel_module(tree: Path, lib_path: Path):
+    """``tree``'s ``kernel.py`` as a module of its own, bound to the
+    stamped library."""
+    spec = importlib.util.spec_from_file_location(
+        f"soc_step_kernel_{abs(hash(str(tree)))}", tree / REL_KERNEL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build = lambda verbose=False: lib_path
+    mod._lib = None
+    return mod
+
+
+def fig6_inputs(dev, mlp: bool):
+    """The packed arguments of one Fig. 6 training launch (B = 120)."""
+    soc = SOC_MOTIV_PAR
+    env = vec.VecEnv(soc, device=dev)
+    app = apps.make_application(soc, seed=SEED, n_phases=N_PHASES)
+    compiled = vec.compile_app(app, soc, seed=SEED)
+    sched = compiled.schedule.to(dev)
+    b = len(WEIGHTS) * N_SEEDS
+    cfg = qlearn.QConfig(decay_steps=compiled.n_steps * ITERS)
+    grid = [(w, s) for w in WEIGHTS for s in range(N_SEEDS)]
+    wb = rewards.stack_weights([w for w, _ in grid], device=dev)
+    keys = prng.PRNGKey(np.asarray([SEED + 100003 * s for _, s in grid],
+                                   np.uint32), device=dev)
+    if mlp:
+        spec = vec.mlp_policy_spec(socnn.init_mlp_qstate(keys), sched)
+    else:
+        spec = vec.learned_policy_spec(qlearn.init_qstate_batch(cfg, b, dev),
+                                       sched)
+    xs, _ = vec.episode_inputs(env.params, sched, spec, cfg, keys)
+    xf, xi = soc_ref.pack_inputs(xs)
+    extra = () if spec.mlp is None else (spec.qfun, spec.mlp.lr)
+    consts = soc_ref.pack_consts(env.static, spec.learned, wb, b, dev, *extra)
+    ex0 = rewards.init_reward_state(soc.n_accs, (b,), dev).extrema
+    args = [xf, xi, consts, spec.qstate.qtable.contiguous(), ex0]
+    kw = dict(n_threads=xs.others.shape[-1], n_tiles=xs.tiles.shape[-1],
+              n_actions=4)
+    if spec.mlp is not None:
+        args.append(spec.mlp.wpack.contiguous())
+        kw.update(mlp_dims=socnn.mlp_dims(spec.mlp.cfg),
+                  mlp_feats=spec.mlp.cfg.features)
+    return args, kw
+
+
+def phases(tree: Path, mlp: bool) -> dict:
+    source, names = stamped_source(tree)
+    from repro_torch.kernels.soc_step import kernel as this_kernel
+    lib_path = nvcc.build(source, "soc_step_phases",
+                          this_kernel.NVCC_FLAGS + ("-DSOC_STEP_PHASES",))
+    mod = load_kernel_module(tree, lib_path)
+    args, kw = fig6_inputs(torch.device("cuda"), mlp)
+    lib = mod._load()
+    lib.soc_step_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    buf = (ctypes.c_ulonglong * 12)()
+    mod.soc_step_episode(*args, **kw)
+    torch.cuda.synchronize()
+    lib.soc_step_phase_cycles(buf, 1)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    mod.soc_step_episode(*args, **kw)
+    ev1.record()
+    torch.cuda.synchronize()
+    if lib.soc_step_phase_cycles(buf, 1) != 0:
+        raise SystemExit("reading the phase counters failed")
+    b, s = args[0].shape[:2]
+    per_step = [v / (b * s) for v in buf]
+    total = sum(per_step)
+    out = {"tree": str(tree), "mlp": mlp, "B": b, "S": s,
+           "stamped_ms": ev0.elapsed_time(ev1), "card": card_line(),
+           "cycles_per_step": total,
+           "phases": {n: c for n, c in zip(names, per_step) if c}}
+    print(f"{'K1m' if mlp else 'K1'} phases, {tree} at B={b} S={s} on "
+          f"{out['card']} (stamped build {out['stamped_ms']:.3f} ms):")
+    for n, c in out["phases"].items():
+        print(f"  {n:48s} {c:9.1f} cycles/step ({100 * c / total:5.1f}%)")
+    out["implied_sm_mhz"] = total * s / (out["stamped_ms"] * 1e3)
+    print(f"  {'total':48s} {total:9.1f} cycles/step (the stamped launch "
+          f"implies {out['implied_sm_mhz']:.0f} MHz)")
+    return out
+
+
+def compare(trees, mlp: bool, reps: int = 5) -> dict:
+    """ms a launch of each tree's own (unstamped) kernel at Fig. 6's
+    shape, timed in turns (first, second, second, first)."""
+    mods = []
+    for tree in trees:
+        spec = importlib.util.spec_from_file_location(
+            f"soc_step_kernel_plain_{len(mods)}", tree / REL_KERNEL)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mods.append(mod)
+    args, kw = fig6_inputs(torch.device("cuda"), mlp)
+    outs = [mod.soc_step_episode(*args, **kw) for mod in mods]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    times = {str(t): [] for t in trees}
+    for j in (0, 1, 1, 0) if len(mods) == 2 else (0, 0):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        for _ in range(reps):
+            mods[j].soc_step_episode(*args, **kw)
+        ev1.record()
+        torch.cuda.synchronize()
+        times[str(trees[j])].append(ev0.elapsed_time(ev1) / reps)
+    print(f"{'K1m' if mlp else 'K1'} at Fig. 6's shape on {card_line()}, "
+          f"ms a launch in turns: "
+          + "; ".join(f"{t}: {v}" for t, v in times.items())
+          + f"; outputs bitwise equal: {same}")
+    return {"ms": times, "bitwise_equal": same}
+
+
+def latency() -> dict:
+    src = ROOT / "benchmarks" / "csrc" / "soc_step_latency.cu"
+    from repro_torch.kernels.soc_step import kernel as this_kernel
+    # key the build on the kernel source the benchmark includes, too
+    text = src.read_text() + this_kernel.SOURCE.read_text()
+    copy = nvcc.BUILD_ROOT / "soc_step_latency_src" / str(
+        abs(hash(text))) / "soc_step_latency.cu"
+    copy.parent.mkdir(parents=True, exist_ok=True)
+    copy.write_text(src.read_text().replace(
+        '"../../src/repro_torch/kernels/soc_step/csrc/soc_step.cu"',
+        f'"{this_kernel.SOURCE}"'))
+    lib = ctypes.CDLL(str(nvcc.build(copy, "soc_step_latency",
+                                      this_kernel.NVCC_FLAGS)))
+    out = (ctypes.c_longlong * len(LAT_NAMES))()
+    n = ctypes.c_int()
+    if lib.soc_step_latency(out, ctypes.byref(n)) != 0:
+        raise SystemExit("latency kernel failed")
+    res = {name: out[i] / n.value for i, name in enumerate(LAT_NAMES)}
+    print(f"latencies on {card_line()} (cycles, {n.value} dependent "
+          f"operations each):")
+    for name, c in res.items():
+        print(f"  {name:28s} {c:7.2f}")
+    # the step's building blocks on a real row: Fig. 6's first agent, step
+    # 100 of its training episode
+    args, kw = fig6_inputs(torch.device("cuda"), False)
+    xf, consts = args[0], args[2]
+    row = xf[0, 100].cpu().numpy().astype("float32")
+    crow = consts[0].cpu().numpy().astype("float32")
+    n_tiles, T = kw["n_tiles"], kw["n_threads"]
+    F = row.size - 4 - n_tiles - T - 12
+    blocks = (ctypes.c_longlong * len(BLOCK_NAMES))()
+    fp = ctypes.POINTER(ctypes.c_float)
+    if lib.soc_step_block_latency(
+            crow.ctypes.data_as(fp),
+            row.ctypes.data_as(fp), crow.size, row.size, n_tiles, T, F,
+            blocks, ctypes.byref(n)) != 0:
+        raise SystemExit("block latency kernel failed")
+    print(f"building blocks of the step (cycles a call, {n.value} "
+          f"dependent calls, one warp):")
+    for i, name in enumerate(BLOCK_NAMES):
+        res[name] = blocks[i] / n.value
+        print(f"  {name:40s} {res[name]:9.1f}")
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--mlp", action="store_true")
+    ap.add_argument("--latency", action="store_true")
+    ap.add_argument("--vs", help="a second tree whose kernel is timed "
+                    "in turns with --tree's (no stamps)")
+    ap.add_argument("--out")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    res = {"phases": phases(Path(a.tree).resolve(), a.mlp)}
+    if a.vs:
+        res["compare"] = compare([Path(a.vs).resolve(),
+                                  Path(a.tree).resolve()], a.mlp)
+    if a.latency:
+        res["latency"] = latency()
+    if a.out:
+        Path(a.out).write_text(json.dumps(res, indent=1))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from this checkout, one ``nvcc`` per
 source, started together (``soc_step.cu``: ``soc_step_episode`` and
@@ -108,7 +108,16 @@ a tenth path:
 
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
-and reported with 0 launches.
+and reported with 0 launches.  Every SoC kernel must equal its plain
+version bitwise; the episode kernel is also held bitwise against the
+CPU plain version over a grid of slot and tile counts (``coverage.
+coverage_case``), at ring edges and with both MLP embeddings.  It times
+the episode kernel at each path's shapes, recorded as the paths launch
+it, beside its chain bound (``kernel.chain_cycles`` at the SM clock);
+with ``--parent DIR`` (a ``git archive`` of another commit) it builds
+that commit's ``soc_step.cu`` too and times its episode kernel on the
+same arguments in turns (parent, this, this, parent), after checking
+their outputs bitwise equal.
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
@@ -165,6 +174,8 @@ SOC_KERNELS = KERNELS[:6]
 # held against their plain versions only: no path of the reference runs
 # an MLP agent under faults
 OFF_PATH = ("soc_step_episode_mlp_faulted",)
+# the episode kernel's coverage grid of slot and tile counts
+COVER_T, COVER_TILES = (1, 7, 16, 31, 32, 33, 64), (1, 2, 4, 16)
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak
 # K3 at the serving path's shapes, (B, H, Hkv, Sq, Skv, hd): prefill of a
 # 2,048-token prompt; decode at the first generated token, over a cache
@@ -282,8 +293,36 @@ class _Killer:
         self._inner.wait()
 
 
+def load_parent_kernel(parent: Path):
+    """The soc_step wrapper module of another checkout (``--parent``), as
+    a module of its own: it builds that checkout's ``soc_step.cu`` into
+    this checkout's build directory, keyed by that source."""
+    import importlib.util
+    path = parent / "src" / "repro_torch" / "kernels" / "soc_step" / "kernel.py"
+    if not path.exists():
+        fail(f"--parent {parent}: no {path.relative_to(parent)}")
+    spec = importlib.util.spec_from_file_location("parent_soc_step_kernel",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
+    argv = sys.argv[1:]
+    if argv and (len(argv) != 2 or argv[0] != "--parent"):
+        fail("usage: python3 chip_smoke.py [--parent DIR]")
+    parent = Path(argv[1]).resolve() if argv else None
     try:
         import torch
     except ImportError as e:
@@ -322,6 +361,7 @@ def main() -> None:
         from repro_torch.core import policies as pol
         from repro_torch.core import qlearn, rewards
         from repro_torch.core.modes import CoherenceMode
+        from repro_torch.kernels.soc_step import coverage
         from repro_torch.kernels.soc_step import kernel as soc_kernel
         from repro_torch.kernels.soc_step import ops as soc_ops
         from repro_torch.kernels.soc_step import ref as soc_ref
@@ -352,12 +392,18 @@ def main() -> None:
 
     t0 = time.perf_counter()
     sources = (soc_kernel, fa_kernel, rw_kernel, gmm_kernel, rg_kernel)
+    parent_kernel = None
+    if parent is not None:
+        # the parent commit's episode kernel, timed in turns with this one
+        parent_kernel = load_parent_kernel(parent)
+        sources += (parent_kernel,)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = [pool.submit(timed_build, m) for m in sources]
         for f in builds:
             lib, secs = f.result()
             print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
-    print(f"builds: {time.perf_counter() - t0:.2f} s for all five")
+    print(f"builds: {time.perf_counter() - t0:.2f} s for all "
+          f"{len(sources)}")
     # the tensor-core bodies (K3's, K4's tc_gmm) must compile to warpgroup
     # MMAs (HGMMA)
     def hgmma_counts(mod, bodies):
@@ -457,8 +503,11 @@ def main() -> None:
                 fail(f"{what}: {label} max abs err "
                      f"{(a - r).abs().max().item()}")
             err = max(err, (a - r).abs().max().item())
+        if err != 0.0:
+            fail(f"{what}: not bitwise equal to the plain version (max abs "
+                 f"err {err})")
         print(f"{what} B={n} S={xs.acc_id.shape[1]}: integer traces equal, "
-              f"max abs err {err:.3e} (bound {TOL})")
+              f"max abs err {err:.3e} (bitwise)")
         return err, ev0.elapsed_time(ev1), (args, kw), out
 
     ep_err = 0.0
@@ -543,6 +592,83 @@ def main() -> None:
     epmf_err, epmf_plain_ms, packed_mf, _ = episode_vs_plain(
         "soc_step_episode_mlp_faulted vs plain (storm 1.0)", env, mlp_spec,
         wb, xs)
+
+    # ---- 2d. the episode kernel bitwise over the slot and tile grid: K1
+    # and K1f at every T x n_tiles of COVER_T x COVER_TILES (one slot, a
+    # lane's two slots past 32, one and 16 tiles), learned and manual
+    # episodes, ddr and gated on and off, S = 37 over two ring chunks; S =
+    # 1, 33 and 65 at Fig. 6's T and tiles; K1m and K1m faulted with both
+    # embeddings, a network and a table episode in one launch -------------
+    def coverage_vs_plain(c, ddr=False, gated=False, mlp=None, qfun=None):
+        """One launch on a ``coverage.coverage_case`` against
+        ``ref.episode_ref`` on the CPU: every output bitwise equal."""
+        b_ = c.qtable0.shape[0]
+        xf, xi = soc_ref.pack_inputs(c.xs)
+        consts = soc_ref.pack_consts(
+            c.static, c.learned, c.weights, b_, dev,
+            *(() if mlp is None else (qfun, mlp.lr)))
+        kw = dict(n_threads=c.xs.others.shape[-1],
+                  n_tiles=c.xs.tiles.shape[-1], n_actions=4,
+                  ddr_attribution=ddr, gated=gated, faulted=c.xs.faulted)
+        args, mkw = (xf, xi, consts, c.qtable0, c.extrema0), {}
+        cpu = lambda t: t.cpu()
+        if mlp is not None:
+            args += (mlp.wpack.contiguous(),)
+            kw.update(mlp_dims=socnn.mlp_dims(mlp.cfg),
+                      mlp_feats=mlp.cfg.features)
+            mkw = dict(wpack0=cpu(mlp.wpack), qfun=cpu(qfun),
+                       mlp_lr=cpu(mlp.lr), mlp_dims=kw["mlp_dims"],
+                       mlp_feats=kw["mlp_feats"])
+        out = soc_kernel.soc_step_episode(*args, **kw)
+        want = soc_ref.episode_ref(
+            c.static, cpu(c.learned),
+            rewards.RewardWeights(*map(cpu, c.weights)), cpu(c.qtable0),
+            cpu(c.extrema0),
+            soc_ref.StepInputs(*(None if v is None else cpu(v)
+                                 for v in c.xs)),
+            ddr_attribution=ddr, gated=gated, **mkw)
+        wy = torch.stack([v.to(torch.float32) for v in want[-1]], -1)
+        same = torch.equal(out[-1].cpu(), wy) and all(
+            torch.equal(a.cpu(), r) for a, r in zip(out[:-1], want[:-1]))
+        if not same:
+            fail(f"coverage T={kw['n_threads']} n_tiles={kw['n_tiles']} "
+                 f"S={xf.shape[1]} {ddr=} {gated=} faulted={c.xs.faulted} "
+                 f"mlp={kw.get('mlp_dims')}: the kernel is not bitwise "
+                 "equal to the plain version")
+
+    t_cov = time.perf_counter()
+    n_cov = 0
+    for t_, nt_ in ((t_, nt_) for t_ in COVER_T for nt_ in COVER_TILES):
+        for faulted, combos in ((False, ((False, False), (True, True))),
+                                (True, ((True, False),))):
+            c = coverage.coverage_case(t_, nt_, 37, B=3,
+                                       seed=t_ * 97 + nt_, faulted=faulted,
+                                       device=dev)
+            for ddr, gated in combos:
+                coverage_vs_plain(c, ddr, gated)
+                n_cov += 1
+    for s_ in (1, 33, 65):
+        for faulted in (False, True):
+            coverage_vs_plain(coverage.coverage_case(
+                n_thr, n_tiles, s_, B=3, seed=s_, faulted=faulted,
+                device=dev), True, True)
+            n_cov += 1
+    cov_keys = prng.PRNGKey(np.arange(3), device=dev)
+    for feats, faulted in ((f, x) for f in ("sense", "onehot")
+                           for x in (False, True)):
+        cov_mlp = socnn.init_mlp_qstate(cov_keys, socnn.MLPConfig(
+            features=feats))
+        for t_, nt_, gated in ((n_thr, n_tiles, False), (33, 4, True)):
+            coverage_vs_plain(
+                coverage.coverage_case(t_, nt_, 45, B=3, seed=t_ + nt_,
+                                       faulted=faulted, device=dev),
+                gated=gated, mlp=cov_mlp,
+                qfun=torch.tensor([True, False, True], device=dev))
+            n_cov += 1
+    print(f"soc_step_episode coverage: {n_cov} launches (K1, K1f, K1m, K1m "
+          f"faulted; T in {COVER_T} x n_tiles in {COVER_TILES}, S 1, 33, "
+          f"37, 45, 65) bitwise equal to the plain version on the CPU, "
+          f"{time.perf_counter() - t_cov:.1f} s")
 
     # ---- 3. the card equals the CPU plain path on small inputs ------------
     small = dict(iterations=2, seed=SEED, weights=WEIGHTS[:2], n_seeds=2,
@@ -751,6 +877,22 @@ def main() -> None:
         fa_bodies[path] = got
         print(f"{path}: K3 launches by body {got}")
 
+    # the episode kernel's arguments at each path's shapes, recorded as the
+    # paths launch it, for the times phase: the first launch of each
+    # (path, kernel, B, S)
+    episode_kernel = soc_kernel.soc_step_episode
+    recorded, rec_path = {}, [None]
+
+    def recording_episode(*a, **kw):
+        name = ("soc_step_episode"
+                + ("_mlp" if len(a) > 5 and a[5] is not None else "")
+                + ("_faulted" if kw.get("faulted") else ""))
+        recorded.setdefault((rec_path[0], name, *a[0].shape[:2]),
+                            (a, dict(kw)))
+        return episode_kernel(*a, **kw)
+
+    soc_kernel.soc_step_episode = recording_episode
+    rec_path[0] = "fig6"
     test_app = apps.make_application(soc, seed=TEST_SEED, n_phases=N_PHASES)
     torch.cuda.synchronize()
     reset_counts()
@@ -799,6 +941,7 @@ def main() -> None:
           f"{dict(zip(KERNELS, counts['fig6']))}")
 
     # ---- 5. Fig. 9 at full width ------------------------------------------
+    rec_path[0] = "fig9"
     torch.cuda.synchronize()
     reset_counts()
     t9 = time.perf_counter()
@@ -838,6 +981,7 @@ def main() -> None:
         json.dumps(r9, indent=1))
 
     # ---- 6. Fig. 11 at full width -----------------------------------------
+    rec_path[0] = "fig11"
     torch.cuda.synchronize()
     reset_counts()
     t11 = time.perf_counter()
@@ -932,6 +1076,9 @@ def main() -> None:
             if not torch.allclose(a.float(), r.float(), rtol=TOL, atol=TOL):
                 fail(f"{what}: carry {f} differs")
             err = max(err, (a.float() - r.float()).abs().max().item())
+        if err != 0.0:
+            fail(f"{what}: not bitwise equal to the plain version (max abs "
+                 f"err {err})")
         ex = ry[..., soc_ref.SERVE_YCOLS.index("executed")]
         deg = ry[..., soc_ref.SERVE_YCOLS.index("degraded")]
         print(f"{what} B=4 S={n_req}: integer columns equal, max abs err "
@@ -966,6 +1113,7 @@ def main() -> None:
     svf_err = max(svf_err, err)
 
     # ---- 8. Fig. 10 at full width -----------------------------------------
+    rec_path[0] = "fig10"
     torch.cuda.synchronize()
     reset_counts()
     t10 = time.perf_counter()
@@ -1002,6 +1150,7 @@ def main() -> None:
         json.dumps(r10, indent=1))
 
     # ---- 9. storm serving through ServeEnv at full width -------------------
+    rec_path[0] = "storm_serving"
     torch.cuda.synchronize()
     reset_counts()
     t_st = time.perf_counter()
@@ -1031,6 +1180,7 @@ def main() -> None:
           f"{dict(zip(KERNELS, counts['storm_serving']))}")
 
     # ---- 9b. Fig. 13 at full width -----------------------------------------
+    rec_path[0] = "fig13"
     torch.cuda.synchronize()
     reset_counts()
     t13 = time.perf_counter()
@@ -1058,6 +1208,7 @@ def main() -> None:
           f"launches {dict(zip(KERNELS, counts['fig13']))}")
     (ROOT / "chiprun_out" / "fig13_port.json").write_text(
         json.dumps(r13, indent=1))
+    soc_kernel.soc_step_episode = episode_kernel
 
     # ---- 9c. flash_attention (K3) vs plain: the serving path's prefill
     # and decode shapes, tests/test_kernels.py's feature cases in both
@@ -1765,11 +1916,30 @@ def main() -> None:
                               if "mlp_dims" in kw else 0))
         by = nbytes / H100_BYTES_PER_S * 1e3
         op = flops / H100_F32_FLOPS * 1e3
+        cyc, chain = chain_numbers(packed)
         print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
               f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
-              f"{flops} f32 ops -> {op:.6f} ms); serial chain of {ns} "
-              f"dependent steps, {ms / ns * 1e3:.2f} us/step")
-        return ms, max(by, op), by, op
+              f"{flops} f32 ops -> {op:.6f} ms), chain bound {chain:.4f} ms "
+              f"({ns} dependent steps of {cyc:.1f} cycles); "
+              f"{ms / ns * 1e3:.3f} us/step")
+        return ms, max(by, op), by, op, chain
+
+    def chain_numbers(packed):
+        """(cycles a step, ms) of the episode's dependent chain
+        (``kernel.chain_cycles``, counted from the source and priced at the
+        latencies measured on this card type) at ``packed``'s shapes, times
+        S over the SM clock read now; a launch with no ``qfun`` episode
+        runs the table's chain."""
+        args, kw = packed
+        mlp = {}
+        if "mlp_dims" in kw and bool((args[2][:, soc_ref.N_CONSTS] != 0)
+                                     .any()):
+            mlp = dict(mlp_dims=kw["mlp_dims"], mlp_feats=kw["mlp_feats"])
+        cyc = soc_kernel.chain_cycles(kw["n_threads"], kw["n_tiles"],
+                                      kw["n_actions"],
+                                      ddr=kw.get("ddr_attribution", False),
+                                      **mlp)
+        return cyc, cyc * args[0].shape[1] / (sm_clock_mhz() * 1e3)
 
     def serve_numbers(packed, shape):
         """The same for the serve kernel: it reads footprint, u_explore,
@@ -1794,7 +1964,7 @@ def main() -> None:
               f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
               f"{flops} f32 ops -> {op:.6f} ms); serial chain of {ns} "
               f"dependent requests, {ms / ns * 1e3:.2f} us/request")
-        return ms, max(by, op), by, op
+        return ms, max(by, op), by, op, None
 
     nums = [
         episode_numbers(packed_main, f"soc_step_episode B={b} S={s_len}"),
@@ -1814,6 +1984,76 @@ def main() -> None:
     for name, ms in zip(SOC_KERNELS, plain):
         print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
               f"library_ms null (no single PyTorch call computes the step)")
+
+    def episode_at(name, path, label, packed):
+        """ms a launch of the episode kernel on a path's recorded
+        arguments, beside the chain bound and, with ``--parent``, the
+        parent commit's body on the same arguments, timed in turns
+        (parent, this, this, parent) after checking that the two bodies'
+        outputs are bitwise equal."""
+        args, kw = packed
+        run = lambda: soc_kernel.soc_step_episode(*args, **kw)
+        row = dict(path=path, shape=label, B=args[0].shape[0],
+                   S=args[0].shape[1], T=kw["n_threads"],
+                   n_tiles=kw["n_tiles"], ddr=kw.get("ddr_attribution",
+                                                     False))
+        if parent_kernel is not None:
+            old_run = lambda: parent_kernel.soc_step_episode(*args, **kw)
+            new_out, old_out = run(), old_run()
+            if not all(torch.equal(a, r) for a, r in zip(new_out, old_out)):
+                fail(f"{name} {label}: this body and the parent's differ")
+            turns = [time_kernel(f) for f in (old_run, run, run, old_run)]
+            row.update(ms=(turns[1] + turns[2]) / 2,
+                       parent_ms=(turns[0] + turns[3]) / 2, turns=turns)
+        else:
+            row["ms"] = time_kernel(run)
+        row["chain_cycles"], row["chain_ms"] = chain_numbers(packed)
+        row["us_per_step"] = row["ms"] / row["S"] * 1e3
+        print(f"{name} {path} {label} on {card}: {row['ms']:.4f} ms/launch "
+              f"({row['us_per_step']:.3f} us/step), chain bound "
+              f"{row['chain_ms']:.4f} ms ({row['chain_cycles']:.1f} cycles "
+              f"a step)" + (f"; parent body {row['parent_ms']:.4f} ms "
+                            f"(turns parent/this/this/parent "
+                            + "/".join(f"{t:.4f}" for t in row["turns"])
+                            + f"), {row['parent_ms'] / row['ms']:.2f}x, "
+                            "outputs bitwise equal"
+                            if parent_kernel is not None else ""))
+        return row
+
+    def recorded_at(path, name, pick_b, steps=lambda s: s > 1):
+        """The recorded launch of ``path`` at the B that ``pick_b`` picks
+        (min or max) from the recorded Bs whose S ``steps`` admits, the
+        longest such S recorded there."""
+        keys = [k for k in recorded if k[:2] == (path, name) and steps(k[3])]
+        if not keys:
+            fail(f"{path} recorded no {name} launch: {sorted(recorded)}")
+        b_sel = pick_b(k[2] for k in keys)
+        s_max = max(k[3] for k in keys if k[2] == b_sel)
+        return f"B={b_sel} S={s_max}", recorded[(path, name, b_sel, s_max)]
+
+    by_shape = {n: [] for n in SOC_KERNELS}
+    k1, k1f, k1m, k1mf = (SOC_KERNELS[0], SOC_KERNELS[2], SOC_KERNELS[4],
+                          SOC_KERNELS[5])
+    by_shape[k1].append(episode_at(k1, "fig6", f"B={b} S={s_len}",
+                                   packed_main))
+    # Fig. 9: training, evaluation and the one-step profiling launches
+    for pick_b, steps in ((min, lambda s: s > 1), (max, lambda s: s > 1),
+                          (min, lambda s: s == 1)):
+        by_shape[k1].append(episode_at(
+            k1, "fig9", *recorded_at("fig9", k1, pick_b, steps)))
+    by_shape[k1].append(episode_at(k1, "fig13",
+                                   *recorded_at("fig13", k1, min)))
+    by_shape[k1f].append(episode_at(k1f, "fig6 storm 1.0",
+                                    f"B={b} S={s_len}", packed_f))
+    by_shape[k1f].append(episode_at(k1f, "fig10",
+                                    *recorded_at("fig10", k1f, max)))
+    by_shape[k1m].append(episode_at(
+        k1m, "fig6 (120 learning sense networks)", f"B={b} S={s_len}",
+        packed_m))
+    by_shape[k1m].append(episode_at(k1m, "fig13",
+                                    *recorded_at("fig13", k1m, max)))
+    by_shape[k1mf].append(episode_at(k1mf, "fig6 storm 1.0",
+                                     f"B={b} S={s_len}", packed_mf))
 
     def graph_ms(fn, reps=20):
         """Device ms per call of ``fn``: ``reps`` calls captured in a CUDA
@@ -2028,7 +2268,8 @@ def main() -> None:
          "ms": nums[j][0], "plain_ms": plain[j], "bound_ms": nums[j][1],
          "bound_by": "bytes" if nums[j][2] >= nums[j][3] else "operations",
          "library_ms": None, "main_path_s": on_paths(j),
-         "shape": shapes[j], "card": card}
+         "shape": shapes[j], "chain_ms": nums[j][4],
+         "by_shape": by_shape[name], "card": card}
         for j, name in enumerate(SOC_KERNELS)], "paths_s": paths_s}
     j = KERNELS.index("flash_attention")
     kernels["kernels"].append({

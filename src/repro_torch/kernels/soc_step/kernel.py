@@ -12,12 +12,17 @@ kernel for ``B`` arrival streams; ``faulted=True`` launches each kernel's
 fault-injected instantiation, which reads four more float columns per
 row, and ``wpack0`` the episode kernel's MLP instantiation, which keeps
 ``B`` packed Q-networks resident beside the Q-tables.  The source's notes
-say what bounds each and how it is laid out.
+say what bounds each and how it is laid out.  :func:`plan` gives the
+episode kernel's block shape, ring depth and shared memory from shapes
+alone; :func:`chain_cycles` counts the dependent chain of one step that
+bounds it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +35,152 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "soc_step.cu"
 NVCC_FLAGS = nvcc.SM90A + ("--fmad=false",)
 
 _lib = None
+
+# The source's limits and layout constants.
+MAX_T, MAX_TILES, MAX_WIDTH = 64, 16, 243
+N_MODES = 4              # actions: the four coherence modes
+MAX_RING = 32            # steps a ring chunk stages
+SMEM_LIMIT = 232448      # shared memory a block can use on an H100
+N_TBL_COLS, N_YCOLS, N_SUMS, N_MLP_SUMS = 6, 6, 4, 5
+WARP = 32
+
+
+class Plan(NamedTuple):
+    """The episode kernel's launch: ``threads`` a block (one warp per
+    episode), ``ring`` steps staged a chunk (two chunks in flight) and the
+    block's ``smem_bytes``."""
+
+    threads: int
+    ring: int
+    smem_bytes: int
+
+
+def _scratch_words(T: int, n_tiles: int, mlp: bool) -> int:
+    n_sums = n_tiles + N_SUMS + (N_MLP_SUMS if mlp else 0)
+    tp = -(-T // WARP) * WARP + 1  # slot rows: whole warps, plus one
+    return (n_sums * tp + 6 * n_tiles * tp + n_sums + 6 * n_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(T: int, n_tiles: int, n_feat: int, n_actions: int, n_states: int,
+         n_accs: int, S: int, *, faulted: bool = False,
+         mlp_dims: tuple | None = None) -> Plan:
+    """Block shape, ring depth and shared-memory bytes of the episode
+    kernel (``csrc/soc_step.cu::episode_words`` counts the same words).
+
+    One warp runs an episode: its lanes hold the slots (T <= 64, two a
+    lane past 32) and the chain of steps is serial, so more warps would
+    only wait.  A chunk of ``ring`` steps covers the rows' global-memory
+    latency many times over (a step takes thousands of cycles, a row
+    ~1,100 to arrive), so the ring is the largest of 32, S and what fits; a
+    chunk boundary costs one wait and one coalesced store of the y rows.
+    Raises ValueError where even a one-step ring does not fit (an MLP pack
+    too large for shared memory) or a shape is past the kernel's limits.
+    Cached: a path launches a few shapes many times (Fig. 9's 222
+    one-step launches), and the wrapper's host work is their cost."""
+    if not (1 <= T <= MAX_T and 1 <= n_tiles <= MAX_TILES
+            and n_actions == N_MODES):
+        raise ValueError(f"T={T}, n_tiles={n_tiles}, n_actions={n_actions} "
+                         f"outside the kernel's limits (T <= {MAX_T}, "
+                         f"n_tiles <= {MAX_TILES}, {N_MODES} actions)")
+    mlp = mlp_dims is not None
+    nf = 4 + n_tiles + T + n_feat + 3 * n_actions + (4 if faulted else 0)
+    n_consts = N_CONSTS + (2 if mlp else 0)
+    fixed = (n_states * n_actions + 4 * n_accs + T * (N_TBL_COLS + n_tiles)
+             + n_consts + _scratch_words(T, n_tiles, mlp))
+    if mlp:
+        dims = [int(d) for d in mlp_dims]
+        rows, cols = pack_shape(dims)
+        fixed += rows * cols + sum(dims) + 2 * MAX_WIDTH
+    ring = max(1, min(MAX_RING, S))
+    words = lambda r: fixed + 2 * r * (nf + 5) + r * N_YCOLS
+    while ring > 1 and 4 * words(ring) > SMEM_LIMIT:
+        ring //= 2
+    if 4 * words(ring) > SMEM_LIMIT:
+        raise ValueError(f"the episode needs {4 * words(ring)} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return Plan(threads=WARP, ring=ring, smem_bytes=4 * words(ring))
+
+
+# Latency in cycles of the operations on a step's chain, measured on an
+# NVIDIA H100 80GB HBM3 (700 W) by benchmarks/torch_soc_step_phases.py
+# --latency (4,096 dependent operations each): f32 add, multiply, the
+# step's branch-free division (qdiv; IEEE division's own is 44.6), xla_log,
+# tmin/tmax (NaN-propagating), a shared-memory load, __shfl_sync, a shared
+# store and load across __syncwarp.
+LATENCY = dict(add=4.10, mul=4.03, div=25.38, log=132.75, tmin=17.22,
+               smem=29.01, shfl=26.0, sync=33.0)
+
+
+def chain_ops(T: int, n_tiles: int, n_actions: int, *, ddr: bool = False,
+              mlp_dims=None, mlp_feats: str = "sense") -> dict:
+    """Operations, by kind, on the longest dependent chain of one step of
+    the episode kernel, counted from ``csrc/soc_step.cu``: from the reads
+    of what the step before wrote (a slot row, the Q-row, the extrema
+    column, with ``mlp_dims`` the weights of a ``qfun`` episode) to this
+    step's writes of them.
+
+    * per-slot terms: the slot read, the overlap's tile sum and division,
+      the demand product, the store and ``__syncwarp``;
+    * ordered sums: T - 1 adds, the store and ``__syncwarp``;
+    * then the longer of (a) the timing's longest path, the coherent-DMA
+      mode's (pressure, directory cost, controller bandwidth, hit
+      bandwidth, the hit bytes' division, the five-term sum, the
+      compute/communication overlap), and the reward's (the communication
+      share, its extremum, its ratio, the weighted sum), with ``ddr`` the
+      attribution between them (the four exec times shuffled, a division
+      and a product per slot, the store, T - 1 adds, the tile's share,
+      the store, n_tiles - 1 adds, the division by the line) and the
+      memory ratio's path instead; (b) the observation (the tile sum, its
+      division, the buckets), the Q-row read and the selection (A - 1
+      maxima, the tie threshold, A argmax compares), for a ``qfun``
+      episode with the features, the forward (per layer a product, nin
+      adds, the bias, the ReLU, ``__syncwarp``) and the network's Q-row
+      read between;
+    * the pick (one shuffle), the blend of the Q-row, the store and
+      ``__syncwarp``; with ``mlp_dims`` the TD update (Q(s, a), delta, per
+      layer the gradient sum and the weight update, each ending in
+      ``__syncwarp``)."""
+    nt, A = n_tiles, n_actions
+    ops = lambda **kw: {k: kw.get(k, 0) for k in LATENCY}
+    add = lambda *ds: {k: sum(d[k] for d in ds) for k in LATENCY}
+    cyc = lambda d: sum(d[k] * LATENCY[k] for k in LATENCY)
+    slots = ops(smem=1, add=nt - 1, tmin=1, div=1, mul=1, sync=1)
+    sums = ops(add=T - 1, sync=1)
+    timing = ops(add=8, mul=4, div=3, tmin=6)
+    if ddr:
+        attrib = ops(add=1 + (T - 1) + 1 + (nt - 1), shfl=1, div=2, mul=2,
+                     sync=2)
+        reward = ops(div=2, tmin=2, add=4, mul=1)
+        path_a = add(timing, attrib, reward)
+    else:
+        path_a = add(timing, ops(tmin=2, div=2, add=3, mul=1))
+    observe = ops(smem=2, add=nt - 1 + 2, div=1)
+    select = ops(smem=1, tmin=A - 1, add=2 + A)
+    path_b = add(observe, select)
+    td = ops()
+    if mlp_dims is not None:
+        dims = [int(d) for d in mlp_dims]
+        feats = (ops(add=1, log=1, div=1, mul=1, sync=1)
+                 if mlp_feats == "sense" else ops(smem=1, sync=1))
+        fwd = add(*(ops(smem=1, mul=1, add=nin + 1, tmin=1, sync=1)
+                    for nin in dims[:-1]))
+        path_b = add(observe, feats, fwd, ops(smem=1), select)
+        td = add(ops(smem=1, mul=2, add=dims[-1] + 1, sync=1),
+                 *(add(ops(smem=1, mul=2, add=nout, sync=1) if l > 0
+                       else ops(),
+                       ops(smem=1, mul=2, add=1, sync=1))
+                   for l, nout in enumerate(dims[1:])))
+    longer = path_a if cyc(path_a) >= cyc(path_b) else path_b
+    return add(slots, sums, longer, ops(shfl=1, mul=1, add=1, sync=1), td)
+
+
+def chain_cycles(T: int, n_tiles: int, n_actions: int, **kw) -> float:
+    """Cycles of one step's chain (:func:`chain_ops` priced at
+    :data:`LATENCY`); times S over the SM clock, the least time an
+    episode can take."""
+    ops = chain_ops(T, n_tiles, n_actions, **kw)
+    return sum(n * LATENCY[k] for k, n in ops.items())
 
 
 def build(verbose: bool = False) -> Path:
@@ -44,11 +195,14 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         fn = lib.soc_step_episode_launch
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
-                       + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.soc_step_serve_launch
         fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.soc_step_qdiv_probe
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -134,6 +288,8 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
             f"extrema0={tuple(extrema0.shape)} for n_threads={n_threads} "
             f"n_tiles={n_tiles} n_actions={n_actions}")
     _check_xi(xi, ((0, n_accs), (1, n_threads), (4, n_actions)))
+    pl = plan(n_threads, n_tiles, n_feat, n_actions, n_states, n_accs, s,
+              faulted=bool(faulted), mlp_dims=tuple(dims) if mlp else None)
     lib = _load()
     y = torch.empty((b, s, len(YCOLS)), dtype=torch.float32,
                     device=xf.device)
@@ -151,11 +307,59 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
             n_accs, int(ddr_attribution), int(gated), int(faulted),
             ("sense", "onehot").index(mlp_feats) if mlp else -1,
             len(dims) if mlp else 0, ctypes.cast(dims_arr, ctypes.c_void_p),
-            stream)
+            pl.ring, stream)
     if err != 0:
         raise RuntimeError(f"soc_step_episode launch failed: CUDA error "
                            f"{err}")
     return (qtable, wpack, y) if mlp else (qtable, y)
+
+
+def qdiv_probe(a, b):
+    """The episode step's branch-free division on CUDA float32 tensors:
+    ``(q, ok)``, where ``ok`` marks the quotients the kernel trusts (the
+    rest it recomputes with IEEE division); a test holds ``q[ok]`` against
+    ``a / b``."""
+    _check("a", a, torch.float32, 1)
+    _check("b", b, torch.float32, 1)
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError("a and b must match in shape and device")
+    lib = _load()
+    q = torch.empty_like(a)
+    ok = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.soc_step_qdiv_probe(
+            a.data_ptr(), b.data_ptr(), q.data_ptr(), ok.data_ptr(),
+            a.numel(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"soc_step_qdiv_probe failed: CUDA error {err}")
+    return q, ok.bool()
+
+
+def qdiv_probe_inputs(n: int, seed: int = 0):
+    """``n`` float32 pairs for :func:`qdiv_probe` (numpy, from a seed):
+    exponents across and past the trusted range [2^-60, 2^60) on both
+    sides, random mantissas and signs, zeros, the range's edges, powers of
+    two and quotients near exact; and the range flag each pair should
+    get."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    def draw(m):
+        e = rng.integers(-66, 67, m)
+        v = np.ldexp(rng.uniform(1.0, 2.0, m), e).astype(np.float32)
+        v[rng.random(m) < 0.1] = np.float32(1.0)
+        return np.where(rng.random(m) < 0.5, -v, v).astype(np.float32)
+    a, b = draw(n), draw(n)
+    a[rng.random(n) < 0.02] = 0.0
+    a[rng.random(n) < 0.01] = -0.0
+    k = min(n, 8)
+    a[:k] = np.float32([2.0 ** -60, 2.0 ** 60 * (1 - 2 ** -24), 3.0, 1.0,
+                        -0.0, 0.0, 2.0 ** 59, 7.0])[:k]
+    b[:k] = np.float32([2.0 ** 60 * (1 - 2 ** -24), 2.0 ** -60, 3.0, 3.0,
+                        5.0, -5.0, 2.0 ** -59, 2.0 ** 60])[:k]
+    lo, hi = np.float32(2.0 ** -60), np.float32(2.0 ** 60)
+    inr = lambda v: (np.abs(v) >= lo) & (np.abs(v) < hi)
+    ok = inr(b) & ((a == 0) | inr(a))
+    return a, b, ok
 
 
 def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,

@@ -30,7 +30,7 @@ from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
-from repro_torch.kernels.soc_step import ops, ref
+from repro_torch.kernels.soc_step import coverage, ops, ref
 from repro_torch.soc import faults, nn as socnn, traffic, vecenv
 from repro_torch.soc.apps import make_application, make_phase
 from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
@@ -248,6 +248,95 @@ def test_cuda_placeholder_mlp_is_the_table_kernel():
     assert torch.equal(tq, mq) and torch.equal(mw, ph.mlp.wpack)
     for a, c in zip(tys, mys):
         assert torch.equal(a, c)
+
+
+def _coverage_vs_ref(c, *, ddr=False, gated=False, mlp=None, qfun=None):
+    """One launch of the episode kernel on a ``coverage.coverage_case``
+    against ``ref.episode_ref`` on the CPU: every output bitwise equal."""
+    cpu = lambda t: t.cpu()
+    kw = dict(ddr_attribution=ddr, gated=gated)
+    if mlp is not None:
+        out = ops.fused_episode(c.static, c.learned, c.weights, c.qtable0,
+                                c.extrema0, c.xs, qfun=qfun, mlp=mlp, **kw)
+        kw.update(wpack0=cpu(mlp.wpack), qfun=cpu(qfun), mlp_lr=cpu(mlp.lr),
+                  mlp_dims=socnn.mlp_dims(mlp.cfg),
+                  mlp_feats=mlp.cfg.features)
+    else:
+        out = ops.fused_episode(c.static, c.learned, c.weights, c.qtable0,
+                                c.extrema0, c.xs, **kw)
+    torch.cuda.synchronize()
+    want = ref.episode_ref(
+        c.static, cpu(c.learned), rewards.RewardWeights(*map(cpu, c.weights)),
+        cpu(c.qtable0), cpu(c.extrema0),
+        ref.StepInputs(*(None if v is None else cpu(v) for v in c.xs)), **kw)
+    for a, r in zip(out[:-1], want[:-1]):
+        assert torch.equal(a.cpu(), r)
+    for name, a, r in zip(ref.YCOLS, out[-1], want[-1]):
+        assert torch.equal(a.cpu(), r), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", (1, 2, 4, 16))
+@pytest.mark.parametrize("T", (1, 7, 16, 31, 32, 33, 64))
+def test_cuda_episode_bitwise_over_the_grid(T, n_tiles):
+    """K1 and K1f bitwise at every slot and tile count the kernel takes:
+    one slot, a lane's two slots past 32, one and 16 tiles; learned and
+    manual episodes, ddr and gated on and off, healthy and faulted."""
+    _need_card()
+    for faulted, combos in ((False, ((False, False), (True, True))),
+                            (True, ((True, False), (False, True)))):
+        c = coverage.coverage_case(T, n_tiles, 37, B=3, seed=T * 97 + n_tiles,
+                                   faulted=faulted, device="cuda")
+        for ddr, gated in combos:
+            _coverage_vs_ref(c, ddr=ddr, gated=gated)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", (1, 2, 31, 33, 64, 65))
+def test_cuda_episode_bitwise_at_ring_edges(S):
+    """S = 1 and S around one and two ring chunks of 32 steps."""
+    _need_card()
+    for faulted in (False, True):
+        c = coverage.coverage_case(12, 2, S, B=3, seed=S, faulted=faulted,
+                                   device="cuda")
+        _coverage_vs_ref(c, ddr=True, gated=True)
+        _coverage_vs_ref(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faulted", (False, True))
+@pytest.mark.parametrize("feats,hidden", [("sense", (16, 16)),
+                                          ("onehot", (16, 16)),
+                                          ("onehot", ())])
+def test_cuda_mlp_episode_bitwise(feats, hidden, faulted):
+    """K1m and K1m faulted bitwise for both embeddings, a network episode
+    (qfun 1) beside a table episode through the same launch (qfun 0),
+    gated and not, at slot and tile counts past the paths'."""
+    _need_card()
+    keys = prng.PRNGKey(np.arange(3), device="cuda")
+    mlp = socnn.init_mlp_qstate(keys, socnn.MLPConfig(features=feats,
+                                                      hidden=hidden))
+    qfun = torch.tensor([True, False, True], device="cuda")
+    for T, n_tiles, gated in ((12, 2, False), (33, 4, True), (7, 16, False)):
+        c = coverage.coverage_case(T, n_tiles, 45, B=3, seed=T + n_tiles,
+                                   faulted=faulted, device="cuda")
+        _coverage_vs_ref(c, gated=gated, mlp=mlp, qfun=qfun)
+
+
+@pytest.mark.cuda
+def test_cuda_fast_division_is_ieee_where_trusted():
+    """The episode step's branch-free division equals IEEE division
+    bitwise wherever its range flag trusts it, and flags exactly the pairs
+    outside [2^-60, 2^60) (which the kernel recomputes with IEEE
+    division)."""
+    _need_card()
+    from repro_torch.kernels.soc_step import kernel
+    a, b, ok = kernel.qdiv_probe_inputs(1 << 20, seed=1)
+    q, qok = kernel.qdiv_probe(torch.from_numpy(a).cuda(),
+                               torch.from_numpy(b).cuda())
+    assert np.array_equal(qok.cpu().numpy(), ok)
+    want = (a / b).view(np.int32)
+    assert np.array_equal(q.cpu().numpy().view(np.int32)[ok], want[ok])
 
 
 @pytest.mark.cuda
