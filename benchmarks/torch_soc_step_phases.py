@@ -3,6 +3,8 @@ cycles, and what the operations on its dependent chain cost, on the card.
 
     PYTHONPATH=src:. python -m benchmarks.torch_soc_step_phases \
         [--tree DIR] [--mlp] [--latency] [--vs DIR2]
+    PYTHONPATH=src:. python -m benchmarks.torch_soc_step_phases \
+        --serve [--tree DIR ...]
 
 Builds ``DIR/src/repro_torch/kernels/soc_step/csrc/soc_step.cu`` (default:
 this checkout's) with ``-DSOC_STEP_PHASES``, which turns on the source's
@@ -26,7 +28,17 @@ the numbers that
 power limit and SM clock beside them.  ``--vs DIR2`` also times
 ``DIR2``'s and ``DIR``'s own kernels (no stamps) at the same shape, in
 turns (DIR2, DIR, DIR, DIR2), and says whether their outputs are bitwise
-equal.  Needs a CUDA card.
+equal.
+
+``--serve`` splits a request of the serve kernel (K2) instead: it runs
+Fig. 11's path once (``benchmarks/torch_fig11_serving.py``) with the
+serve wrapper recording its arguments, takes the 2x-load launch (B = 4
+policies, 1,024 requests), and runs each ``--tree``'s serve kernel on it
+with stamps on; a serve kernel without stamps of its own (the body
+before its redesign) gets them at the anchors of
+:data:`PARENT_SERVE_STAMPS`.  It prints the cycles a request of row
+staging, admission, the fused step (``step_warp``, by its own phases)
+and the bookkeeping with the trace stores.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -129,6 +141,24 @@ PARENT_PHASES = ("row load (global, after the previous step)",
                  "writes: Q, extrema, slot row (lane 0)",
                  "MLP TD update (warp)", "y store + __syncwarp",
                  "(unused)")
+# (anchor in the serve kernel before its redesign, stamp put after it):
+# row staging ends at the rows' __syncwarp, admission at lane 0's
+# hand-over, the bookkeeping at the request's last __syncwarp; the fused
+# step's own stamps (1-9) split the step
+PARENT_SERVE_STAMPS = [
+    ("    if (lane < 3) vrow[lane] = xv_b[(size_t)i * 3 + lane];\n"
+     "    __syncwarp();\n", "    PH(0);\n"),
+    ("      y_b[(size_t)i * N_SERVE_Y + 9] = depth0;\n    }\n"
+     "    __syncwarp();\n", "    PH(11);\n"),
+    ("      yr[12] = finish * ex_f;\n    }\n    __syncwarp();\n",
+     "    PH(10);\n"),
+    ("  const float* sp = c + N_CONSTS;\n", "  PH_INIT();\n"),
+    ("  for (int i = lane; i < nq; i += 32) q_out[(size_t)b * nq + i] = "
+     "q[i];\n", None),
+]
+SERVE_GROUPS = (("row staging", (0,)), ("admission", (11,)),
+                ("step_warp", tuple(range(1, 10))),
+                ("bookkeeping + trace stores", (10,)))
 # the phases of the redesigned body, in its PH() order
 NEW_PHASES = ("ring: wait for the staged rows",
               "per-slot terms (lane t)", "ordered sums (lane j)",
@@ -162,6 +192,114 @@ def stamped_source(tree: Path) -> tuple[Path, tuple]:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
     return out, PARENT_PHASES
+
+
+def stamped_serve_source(tree: Path) -> Path:
+    """``tree``'s source with the serve kernel's stamps on (inserted at
+    :data:`PARENT_SERVE_STAMPS` where its serve kernel has none)."""
+    source, _ = stamped_source(tree)
+    text = source.read_text()
+    if "PH(11)" in text:
+        return source
+    for anchor, stamp in PARENT_SERVE_STAMPS:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"anchor not found once in {source}: "
+                             f"{anchor!r}")
+        text = text.replace(anchor, anchor + stamp if stamp is not None
+                            else "  PH_FLUSH();\n" + anchor)
+    out = nvcc.BUILD_ROOT / "soc_step_serve_phases_src" / "soc_step.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
+def fig11_serve_launch(dev):
+    """The arguments of Fig. 11's serve launch at 2x load (B = 4
+    policies, 1,024 requests), recorded from one run of the path."""
+    from benchmarks import torch_fig11_serving as fig11
+    from repro_torch.kernels.soc_step import kernel as this_kernel
+    seen = []
+    inner = this_kernel.soc_step_serve
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return inner(*args, **kw)
+
+    this_kernel.soc_step_serve = record
+    try:
+        fig11.run_port(dev)
+    finally:
+        this_kernel.soc_step_serve = inner
+    # two calibration launches, then one a load of fig11.LOADS
+    return seen[2 + fig11.LOADS.index(2.0)]
+
+
+def serve_phases(trees, reps: int = 5) -> list:
+    """Cycles a request of each tree's serve kernel, by phase, at Fig.
+    11's 2x-load launch, and its unstamped time in turns (first tree,
+    second, second, first)."""
+    from repro_torch.kernels.soc_step import kernel as this_kernel
+    args, kw = fig11_serve_launch(torch.device("cuda"))
+    b, s = args[0].shape[:2]
+    out = []
+    for i, tree in enumerate(trees):
+        lib_path = nvcc.build(stamped_serve_source(tree),
+                              f"soc_step_serve_phases_{i}",
+                              this_kernel.NVCC_FLAGS + ("-DSOC_STEP_PHASES",))
+        mod = load_kernel_module(tree, lib_path)
+        lib = mod._load()
+        lib.soc_step_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_ulonglong * 12)()
+        mod.soc_step_serve(*args, **kw)
+        torch.cuda.synchronize()
+        lib.soc_step_phase_cycles(buf, 1)
+        mod.soc_step_serve(*args, **kw)
+        torch.cuda.synchronize()
+        if lib.soc_step_phase_cycles(buf, 1) != 0:
+            raise SystemExit("reading the phase counters failed")
+        per_req = [v / (b * s) for v in buf]
+        row = {"tree": str(tree), "B": b, "S": s, "card": card_line(),
+               "cycles_per_request": sum(per_req),
+               "groups": {g: sum(per_req[k] for k in ks)
+                          for g, ks in SERVE_GROUPS},
+               "step_phases": {NEW_PHASES[k]: per_req[k]
+                               for k in range(1, 10)}}
+        print(f"K2 phases, {tree} at B={b} S={s} (Fig. 11, 2x load) on "
+              f"{row['card']}:")
+        for g, c in row["groups"].items():
+            print(f"  {g:44s} {c:9.1f} cycles/request "
+                  f"({100 * c / row['cycles_per_request']:5.1f}%)")
+        for n, c in row["step_phases"].items():
+            print(f"    step: {n:38s} {c:9.1f}")
+        print(f"  {'total':44s} {row['cycles_per_request']:9.1f} "
+              "cycles/request")
+        out.append(row)
+    mods = []
+    for i, tree in enumerate(trees):
+        spec = importlib.util.spec_from_file_location(
+            f"soc_step_kernel_serve_plain_{i}", tree / REL_KERNEL)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mods.append(mod)
+    outs = [m.soc_step_serve(*args, **kw) for m in mods]
+    torch.cuda.synchronize()
+    flat = lambda o: [*o[0], o[1]]
+    same = all(all(torch.equal(x, y) for x, y in zip(flat(o), flat(outs[0])))
+               for o in outs)
+    times = {str(t): [] for t in trees}
+    for j in (0, 1, 1, 0) if len(mods) == 2 else (0, 0):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        for _ in range(reps):
+            mods[j].soc_step_serve(*args, **kw)
+        ev1.record()
+        torch.cuda.synchronize()
+        times[str(trees[j])].append(ev0.elapsed_time(ev1) / reps)
+    print(f"K2 at Fig. 11's 2x launch on {card_line()}, ms a launch in "
+          "turns: " + "; ".join(f"{t}: {v}" for t, v in times.items())
+          + f"; outputs bitwise equal: {same}")
+    out.append({"ms": times, "bitwise_equal": same})
+    return out
 
 
 def load_kernel_module(tree: Path, lib_path: Path):
@@ -323,7 +461,9 @@ def latency() -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--tree", action="append")
+    ap.add_argument("--serve", action="store_true",
+                    help="split a request of the serve kernel instead")
     ap.add_argument("--mlp", action="store_true")
     ap.add_argument("--latency", action="store_true")
     ap.add_argument("--vs", help="a second tree whose kernel is timed "
@@ -332,10 +472,15 @@ def main():
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    res = {"phases": phases(Path(a.tree).resolve(), a.mlp)}
+    trees = [Path(t).resolve() for t in (a.tree or [str(ROOT)])]
+    if a.serve:
+        res = {"serve": serve_phases(trees)}
+        if a.out:
+            Path(a.out).write_text(json.dumps(res, indent=1))
+        return
+    res = {"phases": phases(trees[0], a.mlp)}
     if a.vs:
-        res["compare"] = compare([Path(a.vs).resolve(),
-                                  Path(a.tree).resolve()], a.mlp)
+        res["compare"] = compare([Path(a.vs).resolve(), trees[0]], a.mlp)
     if a.latency:
         res["latency"] = latency()
     if a.out:

@@ -60,7 +60,11 @@ the CPU on the Qwen3 smoke serve; and drives a seventh path:
 Then it holds the RWKV-6 scan kernel (K5) against its plain step-by-step
 version at the rwkv6-3b prefill's shape, from a zero and a random state,
 at ``tests/test_kernels.py``'s shapes and on its two-halves state
-composition; checks the card against the CPU on the rwkv6 smoke serve
+composition; runs its coverage probe (``rwkv6_scan/coverage.py``: logw =
+0 and small integer r, k, v, u and state, so every sum is exact and the
+kernel must equal its plain version bitwise) at every head dim over one,
+two, three and 128 chunks from a zero and a random-integer state; checks
+the card against the CPU on the rwkv6 smoke serve
 (float32, the reference's zero-initialised ``u``, LoRA-b and ``ln_w`` set
 from a seed); and drives an eighth path:
 
@@ -111,13 +115,20 @@ agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
 version bitwise; the episode kernel is also held bitwise against the
 CPU plain version over a grid of slot and tile counts (``coverage.
-coverage_case``), at ring edges and with both MLP embeddings.  It times
-the episode kernel at each path's shapes, recorded as the paths launch
-it, beside its chain bound (``kernel.chain_cycles`` at the SM clock);
-with ``--parent DIR`` (a ``git archive`` of another commit) it builds
-that commit's ``soc_step.cu`` too and times its episode kernel on the
-same arguments in turns (parent, this, this, parent), after checking
-their outputs bitwise equal.
+coverage_case``), at ring edges and with both MLP embeddings, and the
+serve kernel, healthy and faulted, on an edge grid (``coverage.
+serve_edge_case``: a full queue under a priority reserve, retries,
+deadline misses, a watchdog that trips and releases) in one launch and
+in three chained ones.  It times the episode kernel at each path's
+shapes, recorded as the paths launch it, beside its chain bound
+(``kernel.chain_cycles`` at the SM clock), and the serve kernel beside
+its own (``kernel.serve_chain_cycles``); with ``--parent DIR`` (a ``git
+archive`` of another commit) it builds that commit's ``soc_step.cu`` and
+``rwkv6_scan.cu`` too and times its episode, serve and scan kernels on
+the same arguments in turns (parent, this, this, parent), after checking
+their outputs bitwise equal (the scan's within the tolerance), and runs
+Fig. 11 and storm serving again through that commit's SoC kernels, whose
+results must equal this run's (``chiprun_out/*_parent_kernels.json``).
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
@@ -149,6 +160,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+H100_F64_TC_FLOPS = 67e12     # float64 on the tensor cores (data sheet)
+H100_F64_FLOPS = 34e12        # float64 outside the tensor cores
 TOL = 2e-5                    # rtol = atol of every float comparison
 
 # benchmarks/fig6_reward_dse.py: the 15 weightings of the sweep
@@ -293,15 +306,15 @@ class _Killer:
         self._inner.wait()
 
 
-def load_parent_kernel(parent: Path):
-    """The soc_step wrapper module of another checkout (``--parent``), as
-    a module of its own: it builds that checkout's ``soc_step.cu`` into
-    this checkout's build directory, keyed by that source."""
+def load_parent_kernel(parent: Path, name: str = "soc_step"):
+    """The ``name`` kernel's wrapper module of another checkout
+    (``--parent``), as a module of its own: it builds that checkout's
+    source into this checkout's build directory, keyed by that source."""
     import importlib.util
-    path = parent / "src" / "repro_torch" / "kernels" / "soc_step" / "kernel.py"
+    path = parent / "src" / "repro_torch" / "kernels" / name / "kernel.py"
     if not path.exists():
         fail(f"--parent {parent}: no {path.relative_to(parent)}")
-    spec = importlib.util.spec_from_file_location("parent_soc_step_kernel",
+    spec = importlib.util.spec_from_file_location(f"parent_{name}_kernel",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -344,6 +357,7 @@ def main() -> None:
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.rwkv6_scan import coverage as rw_cov
         from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
         from repro_torch.kernels.rwkv6_scan import ops as rw_ops
         from repro_torch.kernels.rwkv6_scan import ref as rw_ref
@@ -392,11 +406,13 @@ def main() -> None:
 
     t0 = time.perf_counter()
     sources = (soc_kernel, fa_kernel, rw_kernel, gmm_kernel, rg_kernel)
-    parent_kernel = None
+    parent_kernel = parent_rw = None
     if parent is not None:
-        # the parent commit's episode kernel, timed in turns with this one
+        # the parent commit's SoC step and RWKV-6 scan kernels, timed in
+        # turns with this checkout's
         parent_kernel = load_parent_kernel(parent)
-        sources += (parent_kernel,)
+        parent_rw = load_parent_kernel(parent, "rwkv6_scan")
+        sources += (parent_kernel, parent_rw)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = [pool.submit(timed_build, m) for m in sources]
         for f in builds:
@@ -1111,6 +1127,43 @@ def main() -> None:
     svf_err, _, _ = serve_vs_plain(0.2, storm11)
     err, svf_plain_ms, svf_packed = serve_vs_plain(2.0, storm11)
     svf_err = max(svf_err, err)
+    # the edge grid (coverage.serve_edge_case): a full queue under a
+    # priority reserve, retries, deadline misses, a watchdog that trips
+    # and releases; one launch and three chained ones, bitwise
+    for faulted_ in (False, True):
+        for seed_ in (3, 4):
+            c = coverage.serve_edge_case(seed=seed_, faulted=faulted_,
+                                         device=dev)
+            rc, ry = soc_ref.serve_episode_ref(
+                c.static, c.learned, c.weights, c.sp, c.carry0, c.xs,
+                c.t_arr, c.deadline, c.priority)
+            n_ = c.t_arr.shape[1]
+            for cuts in ((0, n_), (0, n_ // 3, 2 * n_ // 3, n_)):
+                carry_, ys_ = c.carry0, []
+                for lo, hi in zip(cuts[:-1], cuts[1:]):
+                    sl = slice(lo, hi)
+                    carry_, y_ = soc_ops.fused_serve_episode(
+                        c.static, c.learned, c.weights, c.sp, carry_,
+                        soc_ref.StepInputs(*(None if v is None else v[:, sl]
+                                             for v in c.xs)),
+                        c.t_arr[:, sl], c.deadline[:, sl],
+                        c.priority[:, sl])
+                    ys_.append(y_)
+                if not (torch.equal(torch.cat(ys_, 1), ry)
+                        and all(torch.equal(a, r)
+                                for a, r in zip(carry_, rc))):
+                    fail(f"soc_step_serve{'_faulted' if faulted_ else ''} "
+                         f"edge grid (seed {seed_}, {len(cuts) - 1} "
+                         "launches): not bitwise equal to the plain version")
+            col = {nm: i for i, nm in enumerate(soc_ref.SERVE_YCOLS)}
+            hist = torch.bincount(ry[1, :, col["retries"]].long(),
+                                  minlength=5).tolist()
+            print(f"soc_step_serve{'_faulted' if faulted_ else ''} edge grid "
+                  f"seed {seed_} ({'; '.join(coverage.SERVE_EDGES)}): "
+                  f"bitwise equal in one launch and three chained; served "
+                  f"{ry[..., col['executed']].sum(1).int().tolist()} of "
+                  f"{n_}, stream 1 retries {hist}, watchdog steps "
+                  f"{ry[3, :, col['degraded']].sum().int().item()}")
 
     # ---- 8. Fig. 10 at full width -----------------------------------------
     rec_path[0] = "fig10"
@@ -1178,6 +1231,42 @@ def main() -> None:
               f"mean exec {float(st_res.exec_time[i][ex[i]].mean()):.6g}")
     print(f"storm serving path on {card}: {storm_s:.3f} s wall, launches "
           f"{dict(zip(KERNELS, counts['storm_serving']))}")
+    storm_json = {f: getattr(st_res, f).tolist() for f in st_res._fields}
+    storm_json["qtable"] = st_qs.qtable.tolist()
+    (ROOT / "chiprun_out" / "storm_serving_port.json").write_text(
+        json.dumps(storm_json))
+    if parent_kernel is not None:
+        # Fig. 11 and storm serving again through the parent commit's SoC
+        # kernels: a redesign must not move a result
+        from benchmarks.torch_same_results import differences
+        this_soc = soc_ops._kernel
+        soc_ops._kernel = parent_kernel
+        try:
+            r11p = fig11.run_port(dev)
+            _, pst_qs, pst_res = vec.ServeEnv(
+                env1, queue_cap=fig11.QUEUE_CAP,
+                n_requests=n_req).serve_specs(
+                app1, specs1, fig11._traffic(
+                    traffic, cap["capacity_per_mcycle"] * 1e-6,
+                    fig11.QUEUE_CAP * svc, 0.25 * svc), cfg=cfg1,
+                faults=storm11)
+        finally:
+            soc_ops._kernel = this_soc
+        storm_p = {f: getattr(pst_res, f).tolist() for f in pst_res._fields}
+        storm_p["qtable"] = pst_qs.qtable.tolist()
+        for what, a, b_, name in (
+                ("Fig. 11", r11, r11p, "fig11"),
+                ("storm serving", storm_json, storm_p, "storm_serving")):
+            (ROOT / "chiprun_out" / f"{name}_parent_kernels.json").write_text(
+                json.dumps(b_))
+            diff = differences(json.loads(json.dumps(a)),
+                               json.loads(json.dumps(b_)))
+            if diff:
+                fail(f"{what} through the parent's SoC kernels differs: "
+                     f"{diff[:3]}")
+            print(f"{what} through the parent's SoC kernels: every result "
+                  "equal (benchmarks/torch_same_results.py, _engine left "
+                  "out)")
 
     # ---- 9b. Fig. 13 at full width -----------------------------------------
     rec_path[0] = "fig13"
@@ -1449,6 +1538,23 @@ def main() -> None:
     scan_vs_plain(f"{RWKV_COMPOSE}: two halves with the state carried vs "
                   "the whole", second, (whole[0][:, :, half:], whole[1]))
     del rkvw, whole, second
+    # the coverage probe: logw = 0 and small integer r, k, v, u and s0, so
+    # every sum is exact and the kernel must equal the plain version
+    # bitwise, at every head dim, over one to 128 chunks
+    rw_probes = 0
+    for kd_, t_, state_ in rw_cov.probe_cases():
+        args = rw_cov.probe_inputs(2, 3, t_, kd_, state=state_, device=dev)
+        got = rw_kernel.rwkv6_scan(*args)
+        want = rw_ref.wkv_ref(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            fail(f"rwkv6_scan coverage probe K={kd_} T={t_} "
+                 f"{'random' if state_ else 'zero'} state: not bitwise "
+                 f"equal to the plain version (max abs err {err})")
+        rw_probes += 1
+    print(f"rwkv6_scan coverage probe: {rw_probes} cases (K in "
+          f"{rw_cov.HEAD_DIMS}, T in {rw_cov.PROBE_T}, zero and "
+          "random-integer states) bitwise equal to the plain version")
 
     # ---- 9g. the rwkv6 smoke serve: card == CPU plain path (float32) ------
     rcfg_s = smoke_config("rwkv6-3b")
@@ -1941,15 +2047,41 @@ def main() -> None:
                                       **mlp)
         return cyc, cyc * args[0].shape[1] / (sm_clock_mhz() * 1e3)
 
+    serve_rows = {}
+
     def serve_numbers(packed, shape):
         """The same for the serve kernel: it reads footprint, u_explore,
         tiles, profile, avail, the gumbel and (faulted) the fault columns
         of xf (it makes eps, alpha and the n_accs-wide others block
         itself), acc_id and pre_mode of xi; per request four admission
-        attempts over a queue_cap ring, the watchdog and the fused step."""
+        attempts over a queue_cap ring, the watchdog and the fused step.
+        Its chain bound is ``kernel.serve_chain_cycles`` a request, times
+        S over the SM clock; with ``--parent`` the parent commit's body
+        runs on the same arguments in turns (parent, this, this, parent)
+        after a check that the two bodies' outputs are bitwise equal."""
         (xf, xi, xv, consts, carry), kw = packed
-        ms = time_kernel(lambda: soc_kernel.soc_step_serve(
-            xf, xi, xv, consts, carry, **kw))
+        run = lambda: soc_kernel.soc_step_serve(xf, xi, xv, consts, carry,
+                                                **kw)
+        row = {"shape": shape}
+        if parent_kernel is not None:
+            old_run = lambda: parent_kernel.soc_step_serve(
+                xf, xi, xv, consts, carry, **kw)
+            (nc, ny), (oc, oy) = run(), old_run()
+            if not (torch.equal(ny, oy)
+                    and all(torch.equal(a, r) for a, r in zip(nc, oc))):
+                fail(f"{shape}: this serve body and the parent's differ")
+            turns = [time_kernel(f) for f in (old_run, run, run, old_run)]
+            ms = (turns[1] + turns[2]) / 2
+            row.update(parent_ms=(turns[0] + turns[3]) / 2, turns=turns)
+        else:
+            ms = time_kernel(run)
+        row["ms"] = ms
+        cyc = soc_kernel.serve_chain_cycles(
+            s1.n_accs, s1.n_mem_tiles, kw["n_actions"],
+            ddr=kw.get("ddr_attribution", False))
+        chain = cyc * xf.shape[1] / (sm_clock_mhz() * 1e3)
+        row.update(chain_cycles=cyc, chain_ms=chain)
+        serve_rows[shape] = row
         nb, ns, nf = xf.shape
         carry_bytes = sum(4 * t.numel() for t in carry)
         nbytes = (4 * (nb * ns * ((nf - 2 - s1.n_accs) + 2 + xv.shape[-1]
@@ -1962,9 +2094,15 @@ def main() -> None:
         op = flops / H100_F32_FLOPS * 1e3
         print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
               f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
-              f"{flops} f32 ops -> {op:.6f} ms); serial chain of {ns} "
-              f"dependent requests, {ms / ns * 1e3:.2f} us/request")
-        return ms, max(by, op), by, op, None
+              f"{flops} f32 ops -> {op:.6f} ms), chain bound {chain:.4f} ms "
+              f"({ns} dependent requests of {cyc:.1f} cycles); "
+              f"{ms / ns * 1e3:.3f} us/request"
+              + (f"; parent body {row['parent_ms']:.4f} ms (turns parent/"
+                 "this/this/parent " + "/".join(f"{x:.4f}"
+                                               for x in row["turns"])
+                 + f"), {row['parent_ms'] / ms:.2f}x, outputs bitwise equal"
+                 if parent_kernel is not None else ""))
+        return ms, max(by, op), by, op, chain
 
     nums = [
         episode_numbers(packed_main, f"soc_step_episode B={b} S={s_len}"),
@@ -2148,15 +2286,34 @@ def main() -> None:
     fa_f32_dec = fp32_decode_numbers()
 
     def scan_numbers(shape, r, k, v, lw, u, s0):
-        """(ms, plain ms, bound ms, bytes ms, ops ms) of K5 on the inputs
-        the path gives it (a zero initial state passed in): r, k, v, logw,
-        u and s0 read once, y and the final state written once; per chunk
-        of 16 steps and head, the cumsum, the exponentials and their
-        products (8 operations per element of the K-wide rows), the 120
-        strictly causal entries of A and their products with v, the bonus,
-        q_t S and the state update, in float32."""
+        """(ms, plain ms, bound ms, bytes ms, ops ms, FP64 vector floor
+        ms, parent row) of K5 on the inputs the path gives it (a zero
+        initial state passed in): r, k, v, logw, u and s0 read once, y
+        and the final state written once; per chunk of 16 steps and head,
+        the cumsum, the exponentials and their products (8 operations per
+        element of the K-wide rows), the 120 strictly causal entries of A
+        and their products with v, the bonus, q_t S and the state update,
+        in float64: at the FP64 tensor-core peak for the bound, at the
+        vector FP64 peak for the floor beside it.  With ``--parent`` the
+        parent commit's body runs on the same inputs in turns (parent,
+        this, this, parent) after a check that the two agree within the
+        tolerance."""
         b, h, t, kd = shape
-        ms = time_kernel(lambda: rw_kernel.rwkv6_scan(r, k, v, lw, u, s0))
+        run = lambda: rw_kernel.rwkv6_scan(r, k, v, lw, u, s0)
+        prow = None
+        if parent_rw is not None:
+            old_run = lambda: parent_rw.rwkv6_scan(r, k, v, lw, u, s0)
+            diff = max((a - o).abs().max().item()
+                       for a, o in zip(run(), old_run()))
+            if not diff <= TOL:
+                fail(f"rwkv6_scan {shape}: this body and the parent's "
+                     f"differ by {diff}")
+            turns = [time_kernel(f) for f in (old_run, run, run, old_run)]
+            ms = (turns[1] + turns[2]) / 2
+            prow = dict(parent_ms=(turns[0] + turns[3]) / 2, turns=turns,
+                        max_abs_diff=diff)
+        else:
+            ms = time_kernel(run)
         pl_ms = plain_ms(lambda: rw_ref.wkv_ref(r, k, v, lw, u, s0))
         c = rw_kernel.CHUNK
         pairs = c * (c - 1) // 2
@@ -2166,13 +2323,21 @@ def main() -> None:
         flops = b * h * (t // c) * per_chunk
         nbytes = 4 * (5 * b * h * t * kd + h * kd + 2 * b * h * kd * kd)
         by = nbytes / H100_BYTES_PER_S * 1e3
-        op = flops / H100_F32_FLOPS * 1e3
+        op = flops / H100_F64_TC_FLOPS * 1e3
+        floor = flops / H100_F64_FLOPS * 1e3
         print(f"rwkv6_scan {shape} float32 on {card}: kernel {ms:.4f} "
               f"ms/launch ({nbytes / ms / 1e6:.1f} GB/s), plain "
               f"{pl_ms:.3f} ms; bound {max(by, op):.6f} ms ({nbytes} bytes "
-              f"-> {by:.6f} ms; {flops} f32 ops -> {op:.6f} ms); library_ms "
-              f"null (no single PyTorch call computes the recurrence)")
-        return ms, pl_ms, max(by, op), by, op
+              f"-> {by:.6f} ms; {flops} f64 ops -> {op:.6f} ms on the FP64 "
+              f"tensor cores, {floor:.6f} ms at the vector FP64 rate); "
+              f"library_ms null (no single PyTorch call computes the "
+              f"recurrence)" + (
+                  f"; parent body {prow['parent_ms']:.4f} ms (turns parent/"
+                  "this/this/parent " + "/".join(f"{x:.4f}"
+                                                for x in prow["turns"])
+                  + f"), {prow['parent_ms'] / ms:.2f}x, outputs within "
+                  f"{prow['max_abs_diff']:.3e}" if prow else ""))
+        return ms, pl_ms, max(by, op), by, op, floor, prow
 
     rw_num = scan_numbers(RWKV_SCAN, *rw_in)
 
@@ -2269,7 +2434,8 @@ def main() -> None:
          "bound_by": "bytes" if nums[j][2] >= nums[j][3] else "operations",
          "library_ms": None, "main_path_s": on_paths(j),
          "shape": shapes[j], "chain_ms": nums[j][4],
-         "by_shape": by_shape[name], "card": card}
+         "by_shape": by_shape[name] or [serve_rows[f"{name} {shapes[j]}"]],
+         "card": card}
         for j, name in enumerate(SOC_KERNELS)], "paths_s": paths_s}
     j = KERNELS.index("flash_attention")
     kernels["kernels"].append({
@@ -2327,6 +2493,8 @@ def main() -> None:
         "ms": rw_num[0], "plain_ms": rw_num[1], "bound_ms": rw_num[2],
         "bound_by": "bytes" if rw_num[3] >= rw_num[4] else "operations",
         "library_ms": None, "main_path_s": on_paths(j),
+        "fp64_floor_ms": rw_num[5], "parent": rw_num[6],
+        "probe_cases_bitwise": rw_probes,
         "shape": f"(B, H, T, K) {RWKV_SCAN}", "card": card})
     j = KERNELS.index("moe_gmm")
     bound_by = lambda n: "bytes" if n[4] >= n[5] else "operations"

@@ -5,7 +5,8 @@ shared library with a plain C entry point, on first use (never at import),
 into ``build/repro_torch/rwkv6_scan-<hash>/`` at the root of the checkout
 (:mod:`repro_torch.kernels.nvcc`).  A missing ``nvcc`` raises: there is no
 fallback.  The source's notes say what bounds the kernel and how it is
-laid out.
+laid out: one block of ``2 K`` threads a (batch, head), the state in the
+FP64 tensor cores' accumulator tiles.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 NVCC_FLAGS = nvcc.SM90A
 CHUNK = 16
 HEAD_DIMS = (16, 32, 64)
+BLOCKS_PER_HEAD = 1
 
 _lib = None
 

@@ -12,6 +12,13 @@ alpha with presampled noise, Q-tables with exact ties, per-episode reward
 weights and learned flags, and optional fault rows.  The kernel and
 :func:`~repro_torch.kernels.soc_step.ref.episode_ref` must agree on them
 bitwise, like on the paths' inputs.
+
+:func:`serve_edge_case` does the same for the serve kernel: four arrival
+streams, each driving one edge of its admission and watchdog (a full
+queue under a priority reserve, every retry failing, deadline misses, an
+overload that trips the watchdog and releases it), which the kernel and
+:func:`~repro_torch.kernels.soc_step.ref.serve_episode_ref` must agree
+on bitwise.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import rewards
-from repro_torch.kernels.soc_step.ref import StepInputs
+from repro_torch.kernels.soc_step.ref import (ServeCarry, ServeParams,
+                                              StepInputs, init_serve_carry)
 from repro_torch.soc.config import SOC_MOTIV_PAR
 from repro_torch.soc.memsys import SoCStatic
 from repro_torch.soc.vecenv import VecEnv
@@ -100,3 +108,78 @@ def coverage_case(T: int, n_tiles: int, S: int, B: int = 4, *,
                                                        device=device),
                 weights=weights, qtable0=torch.as_tensor(q, device=device),
                 extrema0=extrema0, xs=xs)
+
+
+class ServeCase(NamedTuple):
+    static: SoCStatic
+    learned: torch.Tensor     # (B,) bool
+    weights: rewards.RewardWeights
+    sp: ServeParams           # (B,) leaves
+    carry0: ServeCarry
+    xs: StepInputs            # (B, S, ...), others n_accs wide
+    t_arr: torch.Tensor       # (B, S)
+    deadline: torch.Tensor    # (B, S)
+    priority: torch.Tensor    # (B, S)
+
+
+# the four streams of serve_edge_case
+SERVE_EDGES = ("full queue under a priority reserve", "every retry failing",
+               "deadline misses", "watchdog trip and release")
+
+
+def serve_edge_case(S: int = 96, *, queue_cap: int = 2, seed: int = 0,
+                    faulted: bool = False, device=None) -> ServeCase:
+    """Four streams of ``S`` requests on ``SOC_MOTIV_PAR`` (12
+    accelerators, 2 tiles), one edge each (:data:`SERVE_EDGES`), rows from
+    :func:`coverage_case`:
+
+    0. a burst (a request every half cycle) into rings of ``queue_cap``
+       slots, no backoff, low-priority requests under a reserve of 0.5:
+       the queue fills and the reserve halves what a request may use;
+    1. requests 3e5 cycles apart (service takes 1e6 to 1e8) with a 4e6
+       backoff and no deadline: some are admitted at once, some after one,
+       two or three retries, some shed after all four tries;
+    2. requests 3e6 cycles apart whose every third deadline lies 1e6
+       before the arrival, the others 2e7 after it: the missed ones and
+       those that would wait past their deadline are shed;
+    3. a burst, then a calm stretch (1e9 cycles apart), then another
+       burst, with the watchdog at 0.2 and a fast pressure EMA (0.25):
+       shedding trips it (forcing NON_COH and rewinding the decay
+       counter of the learning agent), calm releases it, the second burst
+       trips it again."""
+    b = len(SERVE_EDGES)
+    rng = np.random.default_rng(seed + 1)
+    f32 = np.float32
+    base = coverage_case(12, 2, S, b, seed=seed, faulted=faulted,
+                         device=device)
+    i = np.arange(S, dtype=f32)
+    burst = 100.0 + 0.5 * i
+    calm = np.where(i < S // 3, burst,
+                    np.where(i < 2 * S // 3, 1e9 * (i - S // 3 + 1),
+                             1e9 * (S // 3 + 1) + 0.5 * i))
+    t_arr = np.stack([burst, 3e5 * i, 3e6 * i, calm]).astype(f32)
+    never = np.full(S, 3e38, f32)
+    deadline = np.stack([never, never,
+                         t_arr[2] + np.where(i % 3 == 0, -1e6, 2e7),
+                         never]).astype(f32)
+    priority = np.stack([np.where(i % 2 == 0, 0.25, 1.0),
+                         np.ones(S), rng.choice([0.25, 1.0], S),
+                         np.ones(S)]).astype(f32)
+    num = lambda v: torch.as_tensor(np.asarray(v, f32), device=device)
+    sp = ServeParams(
+        eps0=num([0.5] * b), alpha0=num([0.2] * b),
+        decay_steps=num([float(S)] * b), reopen_frac=num([0.5] * b),
+        frozen=num([0.0] * b), backoff=num([0.0, 4e6, 0.0, 0.0]),
+        overload_frac=num([0.35, 0.35, 0.35, 0.2]),
+        pressure_beta=num([0.05, 0.05, 0.05, 0.25]),
+        prio_reserve=num([0.5, 0.0, 0.25, 0.0]))
+    xs = base.xs._replace(
+        others=torch.zeros((b, S, 12), dtype=torch.bool, device=device))
+    carry0 = init_serve_carry(base.qtable0, base.extrema0, 12, 2, queue_cap,
+                              torch.zeros(b, dtype=torch.int32,
+                                          device=device))
+    learned = torch.ones(b, dtype=torch.bool, device=device)
+    return ServeCase(static=base.static, learned=learned,
+                     weights=base.weights, sp=sp, carry0=carry0, xs=xs,
+                     t_arr=num(t_arr), deadline=num(deadline),
+                     priority=num(priority))

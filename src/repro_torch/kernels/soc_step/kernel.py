@@ -14,8 +14,9 @@ row, and ``wpack0`` the episode kernel's MLP instantiation, which keeps
 ``B`` packed Q-networks resident beside the Q-tables.  The source's notes
 say what bounds each and how it is laid out.  :func:`plan` gives the
 episode kernel's block shape, ring depth and shared memory from shapes
-alone; :func:`chain_cycles` counts the dependent chain of one step that
-bounds it.
+alone, :func:`serve_plan` the serve kernel's; :func:`chain_cycles`
+counts the dependent chain of one step that bounds the episode kernel,
+:func:`serve_chain_cycles` that of one request of the serve kernel.
 """
 from __future__ import annotations
 
@@ -102,6 +103,42 @@ def plan(T: int, n_tiles: int, n_feat: int, n_actions: int, n_states: int,
     return Plan(threads=WARP, ring=ring, smem_bytes=4 * words(ring))
 
 
+N_SERVE_V = 3            # a request row: t_arr, deadline, priority
+
+
+@functools.lru_cache(maxsize=None)
+def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
+               n_accs: int, queue_cap: int, S: int, *,
+               faulted: bool = False) -> Plan:
+    """Block shape, ring depth and shared-memory bytes of the serve kernel
+    (``csrc/soc_step.cu::serve_words`` counts the same words): one warp a
+    stream, a two-chunk ring of ``ring`` requests' xf, xi and xv rows
+    (the largest of 32, S and what fits), the carry's tables and rings
+    and the step's scratch for ``n_accs`` slots.  Raises ValueError past
+    the kernel's limits."""
+    if not (1 <= n_accs <= MAX_T and 1 <= n_tiles <= MAX_TILES
+            and n_actions == N_MODES and queue_cap >= 1):
+        raise ValueError(f"n_accs={n_accs}, n_tiles={n_tiles}, n_actions="
+                         f"{n_actions}, queue_cap={queue_cap} outside the "
+                         f"kernel's limits (n_accs <= {MAX_T}, n_tiles <= "
+                         f"{MAX_TILES}, {N_MODES} actions)")
+    nf = 4 + n_tiles + n_accs + n_feat + 3 * n_actions + (4 if faulted
+                                                          else 0)
+    fixed = (n_states * n_actions + 4 * n_accs
+             + n_accs * (N_TBL_COLS + n_tiles) + n_accs + n_accs * queue_cap
+             + N_SERVE_CONSTS + n_accs + N_YCOLS + n_accs
+             + _scratch_words(n_accs, n_tiles, False))
+    ring = max(1, min(MAX_RING, S))
+    words = lambda r: (fixed + 2 * r * (nf + 5 + N_SERVE_V)
+                       + r * len(SERVE_YCOLS))
+    while ring > 1 and 4 * words(ring) > SMEM_LIMIT:
+        ring //= 2
+    if 4 * words(ring) > SMEM_LIMIT:
+        raise ValueError(f"the stream needs {4 * words(ring)} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return Plan(threads=WARP, ring=ring, smem_bytes=4 * words(ring))
+
+
 # Latency in cycles of the operations on a step's chain, measured on an
 # NVIDIA H100 80GB HBM3 (700 W) by benchmarks/torch_soc_step_phases.py
 # --latency (4,096 dependent operations each): f32 add, multiply, the
@@ -183,6 +220,32 @@ def chain_cycles(T: int, n_tiles: int, n_actions: int, **kw) -> float:
     return sum(n * LATENCY[k] for k, n in ops.items())
 
 
+def serve_chain_ops(n_accs: int, n_tiles: int, n_actions: int, *,
+                    ddr: bool = False) -> dict:
+    """Operations, by kind, on the longest dependent chain of one request
+    of the serve kernel, counted from ``csrc/soc_step.cu``: what the
+    request before wrote (the finish-time ring and busy times, beside the
+    step's tables) is read by the admission (the ring slot's shared load,
+    its compare, the ballot (priced as a shuffle) and its count, the
+    count's compare, the start time's ``tmax``, the first admissible
+    retry's select), the ``oth`` flags (the busy times' load, the compare,
+    the store and ``__syncwarp``), then the gated step over ``n_accs``
+    slots (:func:`chain_ops`), the finish time's add and the ring write's
+    store and ``__syncwarp``."""
+    ops = chain_ops(n_accs, n_tiles, n_actions, ddr=ddr)
+    extra = dict(smem=2, add=5, shfl=1, tmin=1, sync=2)
+    return {k: ops[k] + extra.get(k, 0) for k in ops}
+
+
+def serve_chain_cycles(n_accs: int, n_tiles: int, n_actions: int,
+                       **kw) -> float:
+    """Cycles of one request's chain (:func:`serve_chain_ops` priced at
+    :data:`LATENCY`); times S over the SM clock, the least time a stream
+    can take."""
+    ops = serve_chain_ops(n_accs, n_tiles, n_actions, **kw)
+    return sum(n * LATENCY[k] for k, n in ops.items())
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernel (if this source has not been built yet) and
     return the shared library's path."""
@@ -198,7 +261,7 @@ def _load():
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.soc_step_serve_launch
-        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.soc_step_qdiv_probe
@@ -415,6 +478,8 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
             f"{[tuple(t.shape) for t in c]} for n_tiles={n_tiles} "
             f"n_actions={n_actions}")
     _check_xi(xi, ((0, n_accs), (4, n_actions)))
+    pl = serve_plan(n_tiles, n_feat, n_actions, n_states, n_accs, queue_cap,
+                    s, faulted=bool(faulted))
     lib = _load()
     y = torch.empty((b, s, len(SERVE_YCOLS)), dtype=torch.float32,
                     device=xf.device)
@@ -432,7 +497,8 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
             out.tbl.data_ptr(), out.busy.data_ptr(), out.fin.data_ptr(),
             out.head.data_ptr(), misc.data_ptr(), out.step.data_ptr(),
             b, s, nf, N_SERVE_CONSTS, n_tiles, n_accs, n_feat, n_actions,
-            n_states, queue_cap, int(ddr_attribution), int(faulted), stream)
+            n_states, queue_cap, int(ddr_attribution), int(faulted),
+            pl.ring, stream)
     if err != 0:
         raise RuntimeError(f"soc_step_serve launch failed: CUDA error {err}")
     return out._replace(pressure=misc[:, 0].contiguous(),

@@ -28,6 +28,8 @@ from repro_torch.kernels.moe_gmm import ref as gmm_probe
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.kernels.rwkv6_scan import coverage as rw_cov
+from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
 from repro_torch.kernels.soc_step import coverage, ops, ref
@@ -451,6 +453,40 @@ def test_cuda_faulted_serve_kernel_matches_ref(rate):
     _check_serve(rate, intensity=0.7)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("faulted", [False, True])
+def test_cuda_serve_kernel_bitwise_on_the_edge_grid(faulted):
+    """K2 / K2f on ``coverage.serve_edge_case`` (a full queue under a
+    priority reserve, retries, deadline misses, a watchdog that trips and
+    releases), in one launch and in two chained ones, bitwise equal to
+    ``ref.serve_episode_ref`` on the CPU."""
+    _need_card()
+    c = coverage.serve_edge_case(seed=3, faulted=faulted, device="cuda")
+    cpu = lambda t: t.cpu()
+    rc, ry = ref.serve_episode_ref(
+        c.static, cpu(c.learned), rewards.RewardWeights(
+            *map(cpu, c.weights)), ref.ServeParams(*map(cpu, c.sp)),
+        ref.ServeCarry(*map(cpu, c.carry0)),
+        ref.StepInputs(*(None if v is None else cpu(v) for v in c.xs)),
+        cpu(c.t_arr), cpu(c.deadline), cpu(c.priority))
+    h = c.t_arr.shape[1] // 3
+    runs = []
+    for cuts in ((0, None), (0, h, None)):
+        carry, ys = c.carry0, []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            sl = slice(lo, hi)
+            carry, y = ops.fused_serve_episode(
+                c.static, c.learned, c.weights, c.sp, carry, _slice(c.xs, sl),
+                c.t_arr[:, sl], c.deadline[:, sl], c.priority[:, sl])
+            ys.append(y)
+        runs.append((carry, torch.cat(ys, 1)))
+    for carry, y in runs:
+        assert torch.equal(y.cpu(), ry)
+        for name in ref.ServeCarry._fields:
+            assert torch.equal(getattr(carry, name).cpu(),
+                               getattr(rc, name)), name
+
+
 # ------------------------------------------------------- flash attention
 FA_SHAPES = [
     # (B, H, Hkv, Sq, Skv, hd): tests/test_kernels.py's shapes, decode
@@ -642,6 +678,42 @@ def test_cuda_rwkv6_scan_matches_plain(shape, state):
     for got, want in ((y, y_want), (s_fin, s_want)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t,state", rw_cov.probe_cases())
+def test_cuda_rwkv6_scan_coverage_probe(k, t, state):
+    """K5's coverage probe (logw = 0, small integer r, k, v, u and s0:
+    every sum exact) bitwise equal to ``ref.wkv_ref`` at every head dim,
+    at one, two, three and 128 chunks, from a zero and a random-integer
+    state."""
+    _need_card()
+    args = rw_cov.probe_inputs(2, 3, t, k, state=state, device="cuda")
+    y, s_fin = rw_ops.rwkv6_scan(*args)
+    y_want, s_want = wkv_ref(*args)
+    assert torch.equal(y, y_want) and torch.equal(s_fin, s_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 64])
+def test_cuda_rwkv6_scan_unaligned_rows(k):
+    """Rows that do not start on 16 bytes (a view one float into its
+    storage) take the kernel's 4-byte copies: the same result as the
+    aligned copy of the same inputs, bitwise."""
+    _need_card()
+    b, h, t = 2, 3, 48
+    rng = np.random.default_rng(1)
+    n = b * h * t * k
+    def shifted():
+        flat = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32))
+        return flat.to("cuda")[1:].view(b, h, t, k)
+    r, kk, v = shifted(), shifted(), shifted()
+    logw = torch.clamp(-torch.exp(0.5 * shifted()), min=-4.0)
+    u = torch.from_numpy(rng.normal(size=(h, k)).astype(np.float32)).cuda()
+    assert r.data_ptr() % 16 != 0
+    got = rw_kernel.rwkv6_scan(r, kk, v, logw, u)
+    want = rw_kernel.rwkv6_scan(*(x.clone() for x in (r, kk, v, logw)), u)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
 
 
 # ------------------------------------------------------ grouped matmul
