@@ -17,9 +17,14 @@ runs the healthy kernel, the storms its faulted instantiation.  It prints
 per intensity the agent's, manual's and the fixed policies' mean
 normalized (time, off-chip), the agent's gain over the fixed mean and the
 storm's slowdown of the NON_COH baseline, with launches and wall times,
-and writes them to ``--out``.  The reference's DES cross-check
-(``_des_crosscheck``) needs the port's DES (ROADMAP A8): the report says
-so and carries no ``des_agree``.
+and writes them to ``--out``.  It then cross-checks the port's
+event-driven simulator against its batched environment under the same
+storms (timed apart from the run above), as ``fig10_faults.py
+--fidelity``'s ``_des_crosscheck`` does:
+SoC1 single-thread chain apps (the regime where the batched lockstep
+model is exact), the four fixed modes and manual at every intensity,
+each phase's time on both paths; the report holds the relative gap per
+(intensity, policy, phase), the largest, and ``agree`` (below 1e-3).
 
 ``--compare`` loads such a JSON instead of running the port;
 ``--reference`` runs the reference's ``fig10_faults._run`` on the CPU
@@ -41,6 +46,7 @@ import torch
 from benchmarks.torch_no_fma import use_reference_without_fma
 
 SOC_NAME = "SoC1"
+TILE_SEED = 7
 INTENSITIES = [("healthy", None), ("mild", 0.25),
                ("moderate", 0.5), ("severe", 1.0)]
 ITERS, N_PHASES = 10, 8
@@ -131,8 +137,6 @@ def run_port(device=None, iters: int = ITERS,
     sync()
     t_end = time.perf_counter()
     per = 2 * iters + 1 + 1   # train + eval per iteration, baseline, suite
-    results["_des_crosscheck"] = {
-        "status": "not run: the port's DES fidelity path is ROADMAP A8"}
     results["_engine"] = {
         "path": "repro_torch", "soc": SOC_NAME,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -144,6 +148,67 @@ def run_port(device=None, iters: int = ITERS,
         "wall_s": t_end - t0, "intensity_s": phases_s,
     }
     return results
+
+
+def des_crosscheck(device=None) -> dict:
+    """The port's event-driven simulator against its batched environment
+    under the same fault storms, per phase (``fig10_faults.py``'s
+    ``_des_crosscheck`` with ``--fidelity``): one batched episode per
+    (intensity, policy), so 5 healthy and 15 faulted launches.  A path of
+    its own, apart from :func:`run_port`'s window: its wall time and
+    launches are in the result."""
+    from repro_torch import random as prng, resolve_device
+    from repro_torch.core.modes import CoherenceMode
+    from repro_torch.core.policies import FixedHomogeneous, ManualPolicy
+    from repro_torch.kernels.soc_step import ops as soc_ops
+    from repro_torch.soc import faults, vecenv
+    from repro_torch.soc.apps import make_phase
+    from repro_torch.soc.config import SOCS
+    from repro_torch.soc.des import Application, SoCSimulator
+
+    device = resolve_device(device)
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    sync()
+    soc_ops.reset_launches()
+    t0 = time.perf_counter()
+    soc = SOCS[SOC_NAME]
+    sim = SoCSimulator(soc, seed=1, flavor="mixed", device=device)
+    env = vecenv.VecEnv.from_simulator(sim)
+    rng = np.random.default_rng(100)
+    phases = [make_phase(rng, soc, name=f"p{j}", n_threads=1,
+                         size_classes=[c], chain_len=3, loops=2)
+              for j, c in enumerate(("S", "M", "L"))]
+    app = Application(name=f"{soc.name}-fault-xcheck", phases=phases)
+    compiled = vecenv.compile_app(app, soc, seed=TILE_SEED)
+    suite = [("fixed", m) for m in CoherenceMode] + [("manual", None)]
+    per_phase: dict = {}
+    max_rel = 0.0
+    for label, intensity in INTENSITIES:
+        fs = (None if intensity is None else
+              faults.storm(compiled.n_steps, intensity, prng.PRNGKey(42),
+                           device=sim.device))
+        for kind, mode in suite:
+            pol = (FixedHomogeneous(mode) if kind == "fixed"
+                   else ManualPolicy())
+            des = sim.run(app, pol, seed=TILE_SEED, train=False, faults=fs)
+            _, res = env.episode(compiled, policy=kind, fixed_modes=mode,
+                                 faults=fs)
+            dt = np.array([p.wall_time for p in des.phases])
+            rel = (np.abs(res.phase_time.cpu().numpy().astype(np.float64)
+                          - dt) / np.maximum(dt, 1e-30))
+            per_phase.setdefault(label, {})[pol.name] = rel.tolist()
+            max_rel = max(max_rel, float(rel.max()))
+    sync()
+    return {"max_rel_err": max_rel, "agree": bool(max_rel < 1e-3),
+            "storms": len(INTENSITIES), "families": len(suite),
+            "per_phase": per_phase, "des_invocations": sim.invocations,
+            "wall_s": time.perf_counter() - t0,
+            "episode_launches": soc_ops.launches,
+            "fault_episode_launches": soc_ops.fault_launches,
+            "expected_episode_launches": len(suite),
+            "expected_fault_episode_launches": len(suite) * (
+                len(INTENSITIES) - 1)}
 
 
 def run_reference() -> dict:
@@ -207,17 +272,19 @@ def main():
             port = json.load(f)
     else:
         port = run_port(args.device)
+        port["_des_crosscheck"] = des_crosscheck(args.device)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(port, f, indent=1)
     print_results("port", port)
-    e = port["_engine"]
+    e, x = port["_engine"], port["_des_crosscheck"]
     print(f"port engine: {e['device']} wall {e['wall_s']:.3f} s; episode "
           f"launches {e['episode_launches']} (expected "
           f"{e['expected_episode_launches']}), faulted episode launches "
           f"{e['fault_episode_launches']} (expected "
-          f"{e['expected_fault_episode_launches']}); DES cross-check: "
-          f"{port['_des_crosscheck']['status']}")
+          f"{e['expected_fault_episode_launches']}); DES cross-check "
+          f"{x['wall_s']:.3f} s: largest per-phase gap "
+          f"{x['max_rel_err']:.3g}, agree {x['agree']}")
     if args.reference or args.compare:
         if args.no_fma:
             use_reference_without_fma()

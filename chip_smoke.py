@@ -110,6 +110,32 @@ a tenth path:
     through K3 (12 ``tc_prefill`` and 12 x 32 ``split_decode`` launches),
     decode's recurrence through the model's step function.
 
+Then it runs the event-driven simulator (``repro_torch.soc.des``), which
+launches none of the kernels: on the card against ``device="cpu"`` on
+the two single-thread chain apps of ``tests/test_vecenv_equivalence.py``
+(the four fixed modes, manual, random, a Q agent trained for two
+iterations, a frozen MLP agent and manual under ``storm(18, 1.0)``:
+integer traces equal, floats within the tolerance); its timing model's
+CUDA graphs, healthy and faulted, bitwise against their eager ops; the
+reference's fidelity contract against the batched environment on the
+card (modes and states equal, phase times within 1e-4, NON_COH off-chip
+counts on two threads, ``compare_policies``' backends within 1e-3); and
+three more paths, each with the counts set to 0 before it and all of
+them 0 after:
+
+  * Fig. 2 (``benchmarks/torch_fig2_isolation.py``): 12 accelerators x 3
+    sizes x 5 one-invocation runs;
+  * Fig. 3 (``benchmarks/torch_fig3_parallel.py``): 4 modes x {1, 4, 8,
+    12} threads x 6 loops, 600 invocations (also on the CPU, for the
+    rate);
+  * Fig. 5 ``--fidelity`` (``benchmarks/torch_fig5_phases.py``):
+    ``train_cohmeleon`` for 10 iterations of a 529-invocation app, then
+    the simulator-profiled suite on the 156-invocation Fig. 5 app.
+
+After Fig. 10's path, a path of its own (counts set to 0 before it and
+read after) cross-checks the simulator against the batched environment
+under each storm, per phase: 5 healthy and 15 faulted episode launches.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -351,6 +377,9 @@ def main() -> None:
         from benchmarks import torch_fig10_faults as fig10
         from benchmarks import torch_fig11_serving as fig11
         from benchmarks import torch_fig13_generalize as fig13
+        from benchmarks import torch_fig2_isolation as fig2
+        from benchmarks import torch_fig3_parallel as fig3
+        from benchmarks import torch_fig5_phases as fig5
         from repro_torch import random as prng
         from repro_torch.configs import get_arch, smoke_config
         from repro_torch.kernels import nvcc
@@ -383,6 +412,8 @@ def main() -> None:
         from repro_torch.soc import dse, nn as socnn
         from repro_torch.soc.config import SOC_MOTIV_PAR, SOCS
         from repro_torch.soc.stacked import StackedVecEnv
+        from repro_torch.soc import des
+        from repro_torch.soc.config import SOC_MOTIV_ISO
     except ImportError as e:
         fail(f"the repro_torch package is not in this checkout ({e})")
 
@@ -938,7 +969,12 @@ def main() -> None:
         fail("non-finite evaluation metrics")
     for name in cmp.policies:
         r = cmp.raw[name]
-        if not all(bool(torch.isfinite(v.float()).all()) for v in r):
+        vals = [v for p in r.phases for v in (
+            p.wall_time, p.offchip_accesses, *(x for rec in p.invocations
+                                               for x in (rec.exec_time,
+                                                         rec.offchip_true,
+                                                         rec.reward)))]
+        if not np.isfinite(vals).all():
             fail(f"non-finite episode result for {name}")
     steps = int(res.qstates.step[0])
     if steps != compiled.n_steps * ITERS:
@@ -1197,8 +1233,31 @@ def main() -> None:
     print(f"fig10 path on {card}: {fig10_s:.3f} s wall ("
           + ", ".join(f"{k} {v:.3f} s"
                       for k, v in e10["intensity_s"].items())
-          + f"), launches {dict(zip(KERNELS, counts['fig10']))}; DES "
-          f"cross-check: {r10['_des_crosscheck']['status']}")
+          + f"), launches {dict(zip(KERNELS, counts['fig10']))}")
+
+    # ---- 8b. Fig. 10's DES cross-check, a path of its own ------------------
+    rec_path[0] = "fig10_des_xcheck"
+    torch.cuda.synchronize()
+    reset_counts()
+    t10x = time.perf_counter()
+    x10 = fig10.des_crosscheck(dev)
+    torch.cuda.synchronize()
+    fig10x_s = time.perf_counter() - t10x
+    counts["fig10_des_xcheck"] = read()
+    want10x = (x10["expected_episode_launches"], 0,
+               x10["expected_fault_episode_launches"], 0, 0, 0, 0, 0, 0, 0)
+    if counts["fig10_des_xcheck"] != want10x:
+        fail(f"Fig. 10's DES cross-check launched "
+             f"{dict(zip(KERNELS, counts['fig10_des_xcheck']))}, expected "
+             f"{dict(zip(KERNELS, want10x))}")
+    print(f"fig10 DES cross-check on {card}: {fig10x_s:.3f} s wall, "
+          f"{x10['des_invocations']} DES invocations, launches "
+          f"{dict(zip(KERNELS, counts['fig10_des_xcheck']))}; largest "
+          f"per-phase gap {x10['max_rel_err']:.3g}, agree {x10['agree']}")
+    if not x10["agree"]:
+        fail("Fig. 10: the event-driven simulator and the batched "
+             "environment disagree under the storms")
+    r10["_des_crosscheck"] = x10
     (ROOT / "chiprun_out" / "fig10_port.json").write_text(
         json.dumps(r10, indent=1))
 
@@ -1983,6 +2042,241 @@ def main() -> None:
     del c_out
     torch.cuda.empty_cache()
 
+    # ---- 9p. the event-driven simulator (DES): card == CPU, the fidelity
+    # contract against the batched environment, Fig. 2, 3 and 5 --fidelity
+    # (in a function, so its names leave the later phases' alone)
+    def des_phase():
+        rec_path[0] = "des"
+        des_int = ("acc_id", "mode", "state_idx")
+        des_float = ("start", "end", "exec_time", "offchip_true",
+                     "offchip_attr", "reward")
+
+        def chain_app(soc_, seed, n_threads=1):
+            rng = np.random.default_rng(seed)
+            phases = [apps.make_phase(rng, soc_, name=f"p{i}",
+                                      n_threads=n_threads, size_classes=[c],
+                                      chain_len=3, loops=2)
+                      for i, c in enumerate(("S", "M", "L"))]
+            return des.Application(name=f"{soc_.name}-chain{n_threads}",
+                                   phases=phases)
+
+        def mlp_agent(device):
+            """A frozen sense network, its weights perturbed from a seed so its
+            Q-rows are not all ties (made on the CPU, copied to ``device``)."""
+            m = socnn.init_mlp_qstate(prng.PRNGKey(3))
+            w = m.wpack + 0.3 * prng.normal(prng.PRNGKey(4), tuple(
+                m.wpack.shape[1:]))
+            m = socnn.freeze(m._replace(wpack=w))
+            return socnn.MLPQPolicy(socnn.MLPQState(
+                *(v.to(device) for v in m[:4]), cfg=m.cfg))
+
+        def des_runs(device):
+            """The families on the two chain apps: (records by run, walls,
+            invocations)."""
+            out, t_d, n_d = {}, 0.0, 0
+            for soc_ in (SOC_MOTIV_ISO, SOCS["SoC1"]):
+                sim = des.SoCSimulator(soc_, device=device)
+                app = chain_app(soc_, 3)
+                t_a = time.perf_counter()
+                agent, _ = orch.train_cohmeleon(sim, iterations=2, seed=0,
+                                                n_phases=2)
+                runs = [(p.name, p) for p in pol.all_fixed_policies()] + [
+                    ("manual", pol.ManualPolicy()),
+                    ("random", pol.RandomPolicy()),
+                    ("cohmeleon", agent), ("mlp", mlp_agent(device))]
+                for name, p in runs:
+                    out[f"{soc_.name}/{name}"] = sim.run(app, p, seed=7,
+                                                         train=False)
+                out[f"{soc_.name}/storm-manual"] = sim.run(
+                    app, pol.ManualPolicy(), seed=7, train=False,
+                    faults=faults.storm(18, 1.0, prng.PRNGKey(42),
+                                        device=device))
+                out[f"{soc_.name}/qtable"] = agent.qs.qtable.cpu()
+                t_d += time.perf_counter() - t_a
+                n_d += sim.invocations
+            return out, t_d, n_d
+
+        torch.cuda.synchronize()
+        reset_counts()
+        g_des, g_t, g_n = des_runs(dev)
+        c_des, c_t, c_n = des_runs("cpu")
+        if any(read()):
+            fail(f"the DES runs launched {dict(zip(KERNELS, read()))}")
+        rec_f = lambda run: np.asarray(
+            [[getattr(r, f) for f in des_float] for r in run])
+        phase_f = lambda run: np.asarray(
+            [[p.wall_time, p.offchip_accesses] for p in run.phases])
+        n_bitwise = n_float = 0
+        for key, g in g_des.items():
+            c = c_des[key]
+            if key.endswith("/qtable"):
+                if not torch.allclose(g, c, rtol=TOL, atol=TOL):
+                    fail(f"DES {key}: card and CPU differ")
+                n_float += g.numel()
+                n_bitwise += int((g == c).sum())
+                continue
+            gr = [r for p in g.phases for r in p.invocations]
+            cr = [r for p in c.phases for r in p.invocations]
+            if [[getattr(r, f) for f in des_int] for r in gr] != [
+                    [getattr(r, f) for f in des_int] for r in cr]:
+                fail(f"DES {key}: card and CPU integer traces differ")
+            for gv, cv in ((rec_f(gr), rec_f(cr)), (phase_f(g), phase_f(c))):
+                if not np.allclose(gv, cv, rtol=TOL, atol=TOL):
+                    fail(f"DES {key}: card and CPU floats differ beyond "
+                         f"{TOL}")
+                n_float += gv.size
+                n_bitwise += int((gv == cv).sum())
+        modes_seen = {r.mode for k, g in g_des.items() if not k.endswith(
+            "qtable") for p in g.phases for r in p.invocations}
+        print(f"DES card == CPU on two chain apps (SoC-motiv-iso, SoC1): four "
+              f"fixed, manual, random, a Q agent trained 2 iterations, a "
+              f"frozen MLP agent, manual under storm(18, 1.0): integer "
+              f"traces equal, {n_bitwise}/{n_float} floats bitwise, the rest within {TOL}; "
+              f"modes seen {sorted(modes_seen)}; card {g_n} invocations in "
+              f"{g_t:.3f} s ({g_n / g_t:.1f}/s), CPU {c_n} in {c_t:.3f} s "
+              f"({c_n / c_t:.1f}/s)")
+
+        # the timing model's CUDA graphs against its eager ops on the card:
+        # random 32-slot concurrent sets (k active), healthy and faulted
+        g_rng = np.random.default_rng(21)
+        n_graph = 0
+        for soc_ in (SOC_MOTIV_PAR, SOCS["SoC1"]):
+            sim = des.SoCSimulator(soc_, device=dev)
+            nt = soc_.n_mem_tiles
+            for _ in range(64):
+                k = int(g_rng.integers(0, des.MAX_SLOTS + 1))
+                slots = np.zeros((des.MAX_SLOTS, 3 + nt), np.float32)
+                slots[:, 0] = -1.0
+                slots[:k, 0] = g_rng.integers(0, 4, k)
+                slots[:k, 1] = g_rng.integers(0, soc_.n_accs, k)
+                slots[:k, 2] = np.exp(g_rng.uniform(11, 23, k) * np.log(2.0))
+                slots[:k, 3:] = g_rng.random((k, nt)) < 0.6
+                packed = np.concatenate([
+                    np.asarray([g_rng.integers(0, 4), g_rng.integers(
+                        0, soc_.n_accs), 2.0 ** g_rng.uniform(11, 23),
+                        g_rng.random()], np.float32),
+                    (g_rng.random(nt) < 0.6).astype(np.float32),
+                    slots.reshape(-1)])
+                fr = faults.StepFault(*(torch.tensor(
+                    [v], dtype=torch.float32, device=dev) for v in (
+                        1 + 4 * g_rng.random(), 1 / (1 + 3 * g_rng.random()),
+                        4 * g_rng.random(), 5000.0 * g_rng.integers(0, 4))))
+                for f in (None, fr):
+                    got = sim.perf_fn(packed, f)
+                    want = sim.perf_fn.eager(torch.from_numpy(packed).to(dev),
+                                             f).cpu().numpy()
+                    if not np.array_equal(got, want):
+                        fail(f"DES timing model {soc_.name}: the CUDA graph "
+                             f"{got} differs from its eager ops {want}")
+                    n_graph += 1
+        print(f"DES timing model: the CUDA graphs (healthy, faulted) bitwise "
+              f"equal to their eager ops on {n_graph} concurrent sets")
+
+        # the fidelity contract (tests/test_vecenv_equivalence.py) on the card
+        reset_counts()
+        t_fv = time.perf_counter()
+        worst_t = worst_cmp = 0.0
+        for soc_ in (SOC_MOTIV_ISO, SOCS["SoC1"]):
+            sim = des.SoCSimulator(soc_, device=dev)
+            env_d = vec.VecEnv.from_simulator(sim)
+            app = chain_app(soc_, 3)
+            comp = vec.compile_app(app, soc_, seed=7)
+            for m in CoherenceMode:
+                d = sim.run(app, pol.FixedHomogeneous(m), seed=7, train=False)
+                _, r = env_d.episode(comp, policy="fixed", fixed_modes=int(m))
+                dt = np.array([p.wall_time for p in d.phases])
+                do = np.array([p.offchip_accesses for p in d.phases])
+                rt = r.phase_time.cpu().numpy()
+                if not (np.allclose(rt, dt, rtol=1e-4, atol=0) and np.allclose(
+                        r.phase_offchip.cpu().numpy(), do, rtol=1e-4,
+                        atol=1e-3)):
+                    fail(f"DES vs vecenv {soc_.name} {m.name}: phase metrics")
+                worst_t = max(worst_t, float(np.max(np.abs(rt - dt) / dt)))
+                if m == CoherenceMode.COH_DMA and (
+                        [x.state_idx for p in d.phases for x in p.invocations]
+                        != r.state_idx.tolist()):
+                    fail(f"DES vs vecenv {soc_.name}: sensed states differ")
+            d = sim.run(app, pol.ManualPolicy(), seed=7, train=False)
+            _, r = env_d.episode(comp, policy="manual")
+            if [x.mode for p in d.phases for x in p.invocations] != \
+                    r.mode.tolist():
+                fail(f"DES vs vecenv {soc_.name}: manual modes differ")
+            suite_d = pol.all_fixed_policies() + [pol.ManualPolicy()]
+            cd = orch.compare_policies(sim, app, suite_d, seed=7,
+                                       backend="des")
+            cv = orch.compare_policies(sim, app, suite_d, seed=7,
+                                       backend="vecenv")
+            for name in cd.policies:
+                for a, b in zip(cd.geomean(name), cv.geomean(name)):
+                    worst_cmp = max(worst_cmp, abs(b - a) / max(a, 1e-9))
+                    if abs(b - a) > 1e-3 * max(a, 1e-9) + 1e-6:
+                        fail(f"compare_policies backends differ on {name}")
+        sim = des.SoCSimulator(SOC_MOTIV_PAR, device=dev)
+        env_d = vec.VecEnv.from_simulator(sim)
+        app = chain_app(SOC_MOTIV_PAR, 5, n_threads=2)
+        comp = vec.compile_app(app, SOC_MOTIV_PAR, seed=7)
+        d = sim.run(app, pol.FixedHomogeneous(CoherenceMode.NON_COH_DMA),
+                    seed=7, train=False)
+        _, r = env_d.episode(comp, policy="fixed", fixed_modes=0)
+        if not np.allclose(r.phase_offchip.cpu().numpy(),
+                           [p.offchip_accesses for p in d.phases], rtol=1e-4):
+            fail("DES vs vecenv: NON_COH off-chip counts differ on two "
+                 "threads")
+        torch.cuda.synchronize()
+        counts["des_vs_vecenv"] = read()
+        des_vs_vec_s = time.perf_counter() - t_fv
+        print(f"DES vs vecenv on {card}: modes and states equal on the chain "
+              f"apps, largest phase-time gap {worst_t:.3g} (bound 1e-4), "
+              f"compare_policies backends within {worst_cmp:.3g} (bound "
+              f"1e-3), "
+              f"NON_COH off-chip equal on two threads; {des_vs_vec_s:.3f} s, "
+              f"launches {dict(zip(KERNELS, counts['des_vs_vecenv']))}")
+
+        # Fig. 2, Fig. 3 and Fig. 5 --fidelity at full width, each a path
+        def des_numbers(x):
+            if isinstance(x, dict):
+                x = list(x.values())
+            if isinstance(x, (list, tuple)):
+                return [v for item in x for v in des_numbers(item)]
+            return ([float(x)] if isinstance(x, (int, float))
+                    and not isinstance(x, bool) else [])
+
+        des_paths = {}
+        for key, run in (("fig2_des", lambda: fig2.run_port(dev)),
+                         ("fig3_des", lambda: fig3.run_port(dev)),
+                         ("fig5_des",
+                          lambda: fig5.run_port(dev, fidelity=True))):
+            torch.cuda.synchronize()
+            reset_counts()
+            t_p = time.perf_counter()
+            rep = run()
+            torch.cuda.synchronize()
+            des_paths[key] = time.perf_counter() - t_p
+            counts[key] = read()
+            if any(counts[key]):
+                fail(f"{key} launched {dict(zip(KERNELS, counts[key]))}; the "
+                     f"DES path launches none")
+            e = rep["_engine"]
+            if not all(math.isfinite(v) for v in des_numbers(
+                    {k: v for k, v in rep.items() if k != "_engine"})):
+                fail(f"{key}: non-finite results")
+            print(f"{key} on {card}: {des_paths[key]:.3f} s wall, "
+                  f"{e['invocations']} invocations, "
+                  f"{e['invocations_per_s']:.1f} a second; headline "
+                  f"{json.dumps(rep['_headline'])}")
+            out_json = ROOT / "chiprun_out" / f"{key.split('_')[0]}_port.json"
+            out_json.write_text(json.dumps(rep, indent=1))
+        t_c = time.perf_counter()
+        r3c = fig3.run_port("cpu")
+        print(f"fig3_des on the CPU of the same machine: "
+              f"{time.perf_counter() - t_c:.3f} s wall, "
+              f"{r3c['_engine']['invocations_per_s']:.1f} invocations a "
+              f"second; "
+              f"headline {json.dumps(r3c['_headline'])}")
+        return des_paths, des_vs_vec_s
+
+    des_paths, des_vs_vec_s = des_phase()
+
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
         for _ in range(3):
@@ -2410,9 +2704,11 @@ def main() -> None:
     gmm_dec = gmm_numbers("decode gate/up", GMM_DECODE, gmm_sizes[1])
     gmm_dec_down = gmm_numbers("decode down", gmm_down_dec, gmm_sizes[1])
     paths_s = {"fig6": fig6_s, "fig9": fig9_s, "fig11": fig11_s,
-               "fig10": fig10_s, "storm_serving": storm_s, "fig13": fig13_s,
+               "fig10": fig10_s, "fig10_des_xcheck": fig10x_s,
+               "storm_serving": storm_s, "fig13": fig13_s,
                "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s,
-               "granite_serve": granite_s, "recurrentgemma_serve": rgemma_s}
+               "granite_serve": granite_s, "recurrentgemma_serve": rgemma_s,
+               "des_vs_vecenv": des_vs_vec_s, **des_paths}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 

@@ -1,19 +1,24 @@
-"""Experiment drivers on the batched environment (paper §5, §6).
+"""Runtime orchestration glue + experiment drivers (paper §4.1, §5, §6).
 
-  * :func:`train_cohmeleon_batched` — Cohmeleon online training, every
-    (reward weighting x seed) agent in one batched call per iteration,
-    per the paper's Experimental Setup;
-  * :class:`BatchedTrainResult` — frozen-greedy evaluation of the trained
-    agents against the Fixed NON_COH baseline;
-  * :func:`compare_policies` — a whole policy suite plus the NON_COH
-    baseline replayed as ONE batched episode call, normalized per phase;
-  * :func:`profile_fixed_heterogeneous` / :func:`standard_policy_suite` —
-    the design-time per-accelerator baseline and the paper's comparison
-    set.
+``sense -> decide -> actuate -> evaluate`` runs inside the simulators'
+invocation paths (:mod:`repro_torch.soc.des` is the fidelity path,
+:mod:`repro_torch.soc.vecenv` the scale path); this module holds the
+experiment-level drivers of the benchmarks and tests:
 
-The discrete-event backend of the reference waits for the simulator's
-port; these drivers take a :class:`~repro_torch.soc.vecenv.VecEnv` (or an
-SoC configuration plus profile seed).
+  * the profiling-based Fixed-Heterogeneous assignment (design-time
+    baseline), through either backend;
+  * Cohmeleon online training — serial on the event-driven simulator
+    (:func:`train_cohmeleon`) and batched over (reward weights x seeds)
+    (:func:`train_cohmeleon_batched`), per the paper's Experimental
+    Setup;
+  * the policy comparison harness: per-phase metrics normalized to Fixed
+    non-coherent DMA (the paper's normalization), routable through either
+    backend, and the per-size-class mode breakdown (Fig. 7).
+
+A :class:`~repro_torch.soc.des.SoCSimulator` as first argument defaults
+to the event-driven backend (``backend="des"``); a
+:class:`~repro_torch.soc.vecenv.VecEnv` or an SoC configuration runs the
+batched one.
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ from repro_torch.soc import vecenv as vec
 from repro_torch.soc.apps import make_application
 from repro_torch.soc.config import (SoCConfig, WORKLOAD_LARGE,
                                     WORKLOAD_MEDIUM, WORKLOAD_SMALL)
-from repro_torch.soc.des import Application, Invocation, Phase, Thread
+from repro_torch.soc.des import (Application, Invocation, InvocationRecord,
+                                 Phase, PhaseResult, RunResult, SoCSimulator,
+                                 Thread)
 
 
 def _isolated_app(acc_id: int, footprint: float) -> Application:
@@ -43,38 +50,99 @@ def _isolated_app(acc_id: int, footprint: float) -> Application:
                       threads=[Thread(chain=[Invocation(acc_id, footprint)])])])
 
 
+def _vecenv_for(sim: SoCSimulator, env: vec.VecEnv | None = None
+                ) -> vec.VecEnv:
+    """The simulator's memoized scale-path twin (``env`` if given)."""
+    if env is not None:
+        return env
+    env = getattr(sim, "_vecenv", None)
+    if env is None:
+        env = vec.VecEnv.from_simulator(sim)
+        sim._vecenv = env
+    return env
+
+
+def _backend(target, backend: str | None) -> str:
+    """``backend`` checked against the first argument: a simulator
+    defaults to ``"des"``; a VecEnv or an SoC configuration has only the
+    batched backend."""
+    if isinstance(target, SoCSimulator):
+        backend = backend or "des"
+    elif backend in (None, "vecenv"):
+        backend = "vecenv"
+    else:
+        raise ValueError(f"backend {backend!r} needs a SoCSimulator, not "
+                         f"{type(target).__name__}")
+    if backend not in ("des", "vecenv"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
+
+
+def run_isolated(sim: SoCSimulator, acc_id: int, mode: CoherenceMode,
+                 footprint: float, seed: int = 0) -> RunResult:
+    """One accelerator alone, one invocation (paper Fig. 2 cell)."""
+    return sim.run(_isolated_app(acc_id, footprint), FixedHomogeneous(mode),
+                   seed=seed, train=False)
+
+
+def _isolated_times_vecenv(env: vec.VecEnv, acc_id: int, footprints,
+                           seed: int) -> np.ndarray:
+    """``(len(footprints), N_MODES)`` total times of one accelerator alone,
+    the four modes of a footprint in ONE batched episode call (fixed
+    policies are deterministic, so this equals one call per mode)."""
+    times = np.zeros((len(footprints), N_MODES))
+    for i, fp in enumerate(footprints):
+        compiled = vec.compile_app(_isolated_app(acc_id, fp), env.soc,
+                                   seed=seed)
+        sched = env._sched(compiled)
+        specs = vec.stack_specs([vec.fixed_policy_spec(
+            env.params, sched, int(m)) for m in CoherenceMode])
+        res = env.episodes(compiled, specs)
+        times[i] = res.phase_time.sum(-1).cpu().numpy()
+    return times
+
+
 def profile_fixed_heterogeneous(
-    env: vec.VecEnv,
+    sim: SoCSimulator | vec.VecEnv,
     footprints: Sequence[float] = (WORKLOAD_SMALL, WORKLOAD_MEDIUM,
                                    WORKLOAD_LARGE),
     seed: int = 0,
+    backend: str | None = None,
+    env: vec.VecEnv | None = None,
 ) -> FixedHeterogeneous:
     """Design-time per-accelerator profiling (paper §4.3 Decide): each
     accelerator alone, over the workload footprints, in every mode; the
     mode with the best mean time normalized to NON_COH wins.
 
-    The four modes of one (accelerator, footprint) probe run as ONE
-    batched episode call (fixed policies are deterministic, so this equals
-    the reference's one call per mode).  This is the reference's
-    ``backend="vecenv"``; the discrete-event backend waits for ROADMAP
-    A8."""
+    ``backend="des"`` (a simulator's default) runs each probe through the
+    event-driven simulator; ``"vecenv"`` times the same one-invocation
+    applications through the batched environment (the simulator's twin,
+    ``env``, or ``sim`` itself when it is a VecEnv) — identical results,
+    single-thread apps being exact across paths."""
+    backend = _backend(sim, backend)
+    if backend == "vecenv":
+        env = sim if isinstance(sim, vec.VecEnv) else _vecenv_for(sim, env)
+        times_of = lambda acc_id: _isolated_times_vecenv(env, acc_id,
+                                                         footprints, seed)
+        profiles, masks = env.profiles, env.masks.cpu().numpy()
+    else:
+        def times_of(acc_id):
+            return np.asarray([[run_isolated(sim, acc_id, mode, fp,
+                                             seed=seed).total_time
+                                if mode == CoherenceMode.NON_COH_DMA
+                                or sim.masks[acc_id][mode] else np.nan
+                                for mode in CoherenceMode]
+                               for fp in footprints])
+        profiles, masks = sim.profiles, sim.masks
+
     assignment = {}
-    for acc_id, prof in enumerate(env.profiles):
+    for acc_id, prof in enumerate(profiles):
         if prof.name in assignment:
             continue
-        times = np.zeros((len(footprints), N_MODES))
-        for i, fp in enumerate(footprints):
-            compiled = vec.compile_app(_isolated_app(acc_id, fp), env.soc,
-                                       seed=seed)
-            sched = env._sched(compiled)
-            specs = vec.stack_specs([vec.fixed_policy_spec(
-                env.params, sched, int(m)) for m in CoherenceMode])
-            res = env.episodes(compiled, specs)
-            times[i] = res.phase_time.sum(-1).cpu().numpy()
-        masks = env.masks[acc_id].cpu().numpy()
+        times = times_of(acc_id)
         scores = np.zeros(N_MODES)
         for mode in CoherenceMode:
-            if not masks[mode]:
+            if not masks[acc_id][mode]:
                 scores[mode] = np.inf
                 continue
             scores[mode] = float(np.mean([
@@ -84,17 +152,78 @@ def profile_fixed_heterogeneous(
     return FixedHeterogeneous(assignment)
 
 
-def standard_policy_suite(env: vec.VecEnv,
-                          include_profiled: bool = True) -> list[Policy]:
+def standard_policy_suite(sim: SoCSimulator | vec.VecEnv,
+                          include_profiled: bool = True,
+                          backend: str | None = None) -> list[Policy]:
     """The paper's comparison set: the 4 fixed-homogeneous policies, the
     profiled heterogeneous one, random and manual (Cohmeleon is trained
-    separately)."""
+    separately); ``backend`` selects the profiling sweep's path."""
     suite: list[Policy] = [FixedHomogeneous(m) for m in CoherenceMode]
     if include_profiled:
-        suite.append(profile_fixed_heterogeneous(env))
+        suite.append(profile_fixed_heterogeneous(sim, backend=backend))
     suite.append(RandomPolicy())
     suite.append(ManualPolicy())
     return suite
+
+
+@dataclasses.dataclass
+class TrainHistory:
+    iteration: list[int]
+    exec_time: list[float]
+    offchip: list[float]
+
+
+def train_cohmeleon(
+    sim: SoCSimulator,
+    iterations: int = 10,
+    seed: int = 0,
+    weights: RewardWeights | None = None,
+    eval_each_iteration: bool = False,
+    n_phases: int = 8,
+) -> tuple[QPolicy, TrainHistory]:
+    """Online training per the paper's Experimental Setup, on the
+    event-driven simulator: train on a randomly configured application
+    instance (run seed ``seed + it`` in iteration ``it``) with epsilon and
+    alpha decaying linearly to zero over the iterations; optionally
+    evaluate a frozen copy after every iteration on a *different* instance
+    against the NON_COH baseline (the Fig. 8 protocol).  The agent lives
+    on the simulator's device."""
+    train_app = make_application(sim.soc, seed=seed, n_phases=n_phases)
+    test_app = make_application(sim.soc, seed=seed + 1000, n_phases=n_phases)
+    invocations_per_iter = sum(
+        len(th.chain) * th.loops for ph in train_app.phases
+        for th in ph.threads)
+    cfg = qlearn.QConfig(decay_steps=max(invocations_per_iter * iterations, 1))
+    policy = QPolicy(cfg, seed=seed, device=sim.device)
+
+    hist = TrainHistory(iteration=[], exec_time=[], offchip=[])
+    base = None
+    for it in range(iterations):
+        sim.run(train_app, policy, seed=seed + it, train=True,
+                weights=weights)
+        if eval_each_iteration:
+            if base is None:
+                base = sim.run(test_app, FixedHomogeneous(
+                    CoherenceMode.NON_COH_DMA), seed=77, train=False)
+            frozen = QPolicy(cfg, seed=123, device=sim.device)
+            frozen.qs = qlearn.freeze(policy.qs)
+            res = sim.run(test_app, frozen, seed=77, train=False)
+            hist.iteration.append(it + 1)
+            hist.exec_time.append(_geomean_ratio(res, base, "time"))
+            hist.offchip.append(_geomean_ratio(res, base, "mem"))
+    policy.freeze()
+    return policy, hist
+
+
+def _geomean_ratio(res: RunResult, base: RunResult, what: str) -> float:
+    vals = []
+    for p, b in zip(res.phases, base.phases):
+        if what == "time":
+            vals.append(p.wall_time / max(b.wall_time, 1e-30))
+        else:
+            vals.append((p.offchip_accesses + 1.0)
+                        / max(b.offchip_accesses + 1.0, 1e-30))
+    return float(np.exp(np.mean(np.log(np.maximum(vals, 1e-12)))))
 
 
 @dataclasses.dataclass
@@ -118,8 +247,9 @@ class BatchedTrainResult:
         return len(self.weights) * self.n_seeds
 
     def qpolicy(self, i: int) -> QPolicy:
-        """Agent ``i`` as a frozen QPolicy."""
-        pol = QPolicy(self.cfg, device=self.env.device)
+        """Agent ``i`` as a frozen QPolicy (key seed ``i``; it drops into
+        the event-driven simulator too)."""
+        pol = QPolicy(self.cfg, seed=i, device=self.env.device)
         pol.qs = qlearn.freeze(qlearn.index_qstate(self.qstates, i))
         return pol
 
@@ -142,7 +272,7 @@ class BatchedTrainResult:
 
 
 def train_cohmeleon_batched(
-    soc: SoCConfig,
+    soc: SoCConfig | SoCSimulator,
     iterations: int = 10,
     seed: int = 0,
     weights: Sequence | None = None,
@@ -155,7 +285,11 @@ def train_cohmeleon_batched(
     """Train one agent per (reward weighting x seed) on a randomly
     configured instance with per-iteration tile seeds, to be evaluated
     frozen on a different instance — the reference protocol, with every
-    agent of an iteration in one kernel launch."""
+    agent of an iteration in one kernel launch.  ``soc`` may be a
+    simulator, whose twin VecEnv (:func:`_vecenv_for`) then runs."""
+    if isinstance(soc, SoCSimulator):
+        env = _vecenv_for(soc, env)
+        soc = soc.soc
     env = env or vec.VecEnv(soc, device=device)
     train_app = make_application(soc, seed=seed, n_phases=n_phases)
     test_app = make_application(soc, seed=seed + 1000, n_phases=n_phases)
@@ -185,13 +319,13 @@ def train_cohmeleon_batched(
 @dataclasses.dataclass
 class Comparison:
     """Per-policy, per-phase metrics normalized to fixed non-coherent DMA;
-    ``raw`` holds each policy's :class:`~repro_torch.soc.vecenv.
-    EpisodeResult`, the baseline's included."""
+    ``raw`` holds each policy's :class:`~repro_torch.soc.des.RunResult`,
+    the baseline's included."""
 
     policies: list[str]
     norm_time: dict[str, list[float]]
     norm_mem: dict[str, list[float]]
-    raw: dict[str, vec.EpisodeResult]
+    raw: dict[str, RunResult]
 
     def geomean(self, policy: str) -> tuple[float, float]:
         t = np.exp(np.mean(np.log(np.maximum(self.norm_time[policy], 1e-12))))
@@ -199,35 +333,124 @@ class Comparison:
         return float(t), float(m)
 
 
-def compare_policies(env: vec.VecEnv | SoCConfig, app: Application,
-                     policies: Sequence[Policy], seed: int = 0,
-                     profile_seed: int = 0, device=None) -> Comparison:
+def episode_to_runresult(env: vec.VecEnv, compiled: vec.CompiledApp,
+                         res: vec.EpisodeResult, policy_name: str
+                         ) -> RunResult:
+    """Lift one batched episode's traces into the simulator's RunResult
+    shape, so every downstream consumer (``mode_breakdown``, the
+    reports) reads both backends alike.  Each thread's invocations run
+    back to back from its phase's start; the attributed off-chip count is
+    the true one; the decide overhead is 0 (decisions happen inside the
+    episode step)."""
+    sched = compiled.schedule
+    acc_id = sched.acc_id.numpy()
+    footprint = sched.footprint.numpy()
+    thread = sched.thread.numpy()
+    phase_id = sched.phase_id.numpy()
+    host = lambda v, dt=None: (v.cpu().numpy() if dt is None
+                               else v.cpu().numpy().astype(dt))
+    mode, state_idx = host(res.mode), host(res.state_idx)
+    exec_c = host(res.exec_time, np.float64)
+    off = host(res.offchip, np.float64)
+    rew = host(res.reward, np.float64)
+    phase_time = host(res.phase_time, np.float64)
+    phase_off = host(res.phase_offchip, np.float64)
+
+    cursor = np.zeros((compiled.n_phases, compiled.n_threads))
+    phases: list[PhaseResult] = [
+        PhaseResult(name=compiled.phase_names[p], wall_time=phase_time[p],
+                    offchip_accesses=phase_off[p], invocations=[])
+        for p in range(compiled.n_phases)
+    ]
+    for i in range(len(acc_id)):
+        p, t = int(phase_id[i]), int(thread[i])
+        start = cursor[p, t]
+        end = start + exec_c[i] * env.cycle_time
+        cursor[p, t] = end
+        phases[p].invocations.append(InvocationRecord(
+            acc_id=int(acc_id[i]),
+            acc_name=env.profiles[int(acc_id[i])].name,
+            footprint=float(footprint[i]), mode=int(mode[i]),
+            state_idx=int(state_idx[i]), start=start, end=end,
+            exec_time=float(exec_c[i]), offchip_true=float(off[i]),
+            offchip_attr=float(off[i]), reward=float(rew[i])))
+    return RunResult(policy=policy_name, phases=phases,
+                     decide_overhead_s=0.0)
+
+
+def compare_policies(sim: SoCSimulator | vec.VecEnv | SoCConfig,
+                     app: Application, policies: Sequence[Policy],
+                     seed: int = 0, backend: str | None = None,
+                     env: vec.VecEnv | None = None, profile_seed: int = 0,
+                     device=None) -> Comparison:
     """Run each policy on ``app`` and normalize per phase to NON_COH fixed.
 
-    Every policy lowers (``Policy.lower``) into a PolicySpec; the specs —
-    heterogeneous families included — are stacked behind the NON_COH
-    baseline and replayed as ONE batched episode call (keys
-    ``PRNGKey(arange(N) + seed)``), as the reference's vecenv backend
-    does.  ``env`` may be an SoCConfig, built into a VecEnv with
-    ``profile_seed`` on ``device``."""
-    if isinstance(env, SoCConfig):
-        env = vec.VecEnv(env, seed=profile_seed, device=device)
+    ``backend="des"`` (a simulator's default) replays each policy through
+    the event-driven simulator, one run each.  ``backend="vecenv"``
+    lowers every policy (``Policy.lower``) into a PolicySpec, stacks the
+    specs — heterogeneous families included — behind the NON_COH baseline
+    and replays them as ONE batched episode call (keys ``PRNGKey(arange(N)
+    + seed)``); it runs on the simulator's twin VecEnv (or ``env``), on
+    ``sim`` itself when it is a VecEnv, or on a VecEnv built from an
+    SoCConfig with ``profile_seed`` on ``device``.  Same Comparison shape
+    either way."""
+    backend = _backend(sim, backend)
     base_policy = FixedHomogeneous(CoherenceMode.NON_COH_DMA)
     all_pols = [base_policy] + list(policies)
-    compiled = vec.compile_app(app, env.soc, seed=seed)
-    specs = vec.stack_specs([pol.lower(env, compiled) for pol in all_pols])
-    keys = prng.PRNGKey(np.arange(len(all_pols)) + seed)
-    res = env.episodes(compiled, specs, keys=keys)
-    pt = res.phase_time.cpu().numpy().astype(np.float64)
-    po = res.phase_offchip.cpu().numpy().astype(np.float64)
+    if backend == "des":
+        runs = [sim.run(app, pol, seed=seed, train=False)
+                for pol in all_pols]
+    else:
+        if isinstance(sim, SoCConfig):
+            env = vec.VecEnv(sim, seed=profile_seed, device=device)
+        elif isinstance(sim, vec.VecEnv):
+            env = sim
+        else:
+            env = _vecenv_for(sim, env)
+        compiled = vec.compile_app(app, env.soc, seed=seed)
+        specs = vec.stack_specs([pol.lower(env, compiled)
+                                 for pol in all_pols])
+        keys = prng.PRNGKey(np.arange(len(all_pols)) + seed)
+        res = env.episodes(compiled, specs, keys=keys)
+        runs = [episode_to_runresult(env, compiled, res.index(i), pol.name)
+                for i, pol in enumerate(all_pols)]
 
+    base = runs[0]
     out = Comparison(policies=[], norm_time={}, norm_mem={}, raw={})
-    out.raw[base_policy.name] = res.index(0)
-    for i, pol in enumerate(all_pols[1:], start=1):
+    out.raw[base_policy.name] = base
+    for pol, res in zip(policies, runs[1:]):
+        nt, nm = [], []
+        for p, b in zip(res.phases, base.phases):
+            nt.append(p.wall_time / max(b.wall_time, 1e-30))
+            nm.append((p.offchip_accesses + 1.0)
+                      / max(b.offchip_accesses + 1.0, 1e-30))
         out.policies.append(pol.name)
-        out.norm_time[pol.name] = [
-            p / max(b, 1e-30) for p, b in zip(pt[i], pt[0])]
-        out.norm_mem[pol.name] = [
-            (p + 1.0) / max(b + 1.0, 1e-30) for p, b in zip(po[i], po[0])]
-        out.raw[pol.name] = res.index(i)
+        out.norm_time[pol.name] = nt
+        out.norm_mem[pol.name] = nm
+        out.raw[pol.name] = res
     return out
+
+
+def mode_breakdown(res: RunResult, soc) -> dict[str, np.ndarray]:
+    """Fraction of invocations per mode, total and per size class
+    (Fig. 7)."""
+    def size_class(fp: float) -> str:
+        if fp <= soc.l2_bytes:
+            return "S"
+        if fp <= soc.llc_slice_bytes:
+            return "M"
+        if fp <= soc.llc_total_bytes:
+            return "L"
+        return "XL"
+
+    buckets: dict[str, np.ndarray] = {
+        k: np.zeros(N_MODES) for k in ("total", "S", "M", "L", "XL")}
+    for ph in res.phases:
+        for r in ph.invocations:
+            buckets["total"][r.mode] += 1
+            buckets[size_class(r.footprint)][r.mode] += 1
+    for k, v in buckets.items():
+        s = v.sum()
+        if s > 0:
+            buckets[k] = v / s
+    return buckets

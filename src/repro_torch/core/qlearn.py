@@ -10,6 +10,9 @@
     invocations; the fused episode precomputes them per step
     (:func:`decay_arrays`) and rebuilds visit counts from the trace
     (:func:`replay_visits`).
+  * the discrete-event simulator's agent decides and learns one
+    invocation at a time (:func:`schedule`, :func:`select`,
+    :func:`update`), drawing its select randomness from a key per call.
 
 A :class:`QState` here carries a leading agent axis ``B`` on every leaf
 (``qtable (B, S, A)``, ``step (B,)``); :func:`qstate_from_numpy` /
@@ -128,6 +131,70 @@ def sample_select_noise(key: torch.Tensor, shape_prefix: tuple,
         u_explore=prng.uniform(ks[..., 0, :], tuple(shape_prefix)),
         g_pick=prng.gumbel(ks[..., 1, :], (*shape_prefix, n_actions)),
         g_tie=prng.gumbel(ks[..., 2, :], (*shape_prefix, n_actions)))
+
+
+def _recip_f32(d) -> float:
+    """``1 / d`` rounded to float32, as XLA folds a division by the
+    compile-time constant ``d`` into a product with its reciprocal."""
+    return float(np.float32(1.0) / np.float32(d))
+
+
+def schedule(cfg: QConfig, step):
+    """Linearly decayed ``(epsilon, alpha)`` at ``step (B,)``, as the
+    reference's per-decision agent computes them: its jitted ``select``
+    and ``update`` hold ``cfg.decay_steps`` as a compile-time constant, so
+    ``step / decay_steps`` runs as ``step * float32(1 / decay_steps)``
+    (the batched episode, which passes ``cfg`` as an argument, divides:
+    :func:`decay_arrays`)."""
+    frac = torch.clamp(1.0 - step.to(torch.float32)
+                       * _recip_f32(cfg.decay_steps), 0.0, 1.0)
+    return frac * float(np.float32(cfg.epsilon0)), frac * float(
+        np.float32(cfg.alpha0))
+
+
+def select(qs: QState, cfg: QConfig, state_idx, key, action_mask=None):
+    """epsilon-greedy actions ``(B,)`` of ``B`` agents in states
+    ``state_idx (B,)`` from keys ``key (B, 2)``: each key splits three
+    ways (explore, pick, tie), and ``categorical(k, logits)`` is
+    ``argmax(logits + gumbel(k))`` as in ``jax.random``.  Ties within
+    1e-9 of the masked row's max break at random; a non-finite row falls
+    back to NON_COH."""
+    if action_mask is None:
+        action_mask = torch.ones((cfg.n_actions,), dtype=torch.bool,
+                                 device=qs.qtable.device)
+    eps, _ = schedule(cfg, qs.step)
+    eps = torch.where(qs.frozen, 0.0, eps)
+    # the three draws in one hash: a draw of shape () is counter 0 of its
+    # key, a draw of shape (A,) counters 0..A-1
+    bits = prng.random_bits(prng.split(key, 3), (cfg.n_actions,))
+    g = prng.gumbel_from_bits(bits[..., 1:, :])
+    noise = SelectNoise(u_explore=prng.uniform_from_bits(bits[..., 0, 0]),
+                        g_pick=g[..., 0, :], g_tie=g[..., 1, :])
+    row = qs.qtable[torch.arange(qs.qtable.shape[0],
+                                 device=qs.qtable.device), state_idx.long()]
+    return row_select_presampled(row, eps, noise, action_mask)
+
+
+def update(qs: QState, cfg: QConfig, state_idx, action, reward) -> QState:
+    """The paper update of ``B`` agents at ``(state_idx, action)`` with
+    ``reward`` (each ``(B,)``): the decayed alpha blends the reward into
+    the row (:func:`row_update`; a non-finite reward leaves it intact);
+    a frozen agent's table, visits and step stay as they are."""
+    _, alpha = schedule(cfg, qs.step)
+    alpha = torch.where(qs.frozen, 0.0, alpha)
+    b = torch.arange(qs.qtable.shape[0], device=qs.qtable.device)
+    s_idx = state_idx.long()
+    new_row = row_update(qs.qtable[b, s_idx], alpha, action,
+                         reward.to(torch.float32))
+    inc = (~qs.frozen).to(torch.int32)
+    hot = (torch.arange(qs.visits.shape[-1], device=qs.visits.device)
+           == action[..., None]).to(torch.int32)
+    qtable = qs.qtable.clone()
+    visits = qs.visits.clone()
+    qtable[b, s_idx] = new_row
+    visits[b, s_idx] = qs.visits[b, s_idx] + hot * inc[:, None]
+    return QState(qtable=qtable, visits=visits, step=qs.step + inc,
+                  frozen=qs.frozen)
 
 
 def _argmax_first(x: torch.Tensor) -> torch.Tensor:

@@ -15,13 +15,18 @@ values, so |S| = 3^5 = 243:
                           {<=L2, <=LLC slice, >LLC slice}
 
 :func:`observe` works on tensors with any leading batch dimensions and
-returns the encoded int32 state index.
+returns the encoded int32 state index; :func:`observe_host` senses one
+invocation from host lists, as the discrete-event simulator holds them.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
+import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 from repro_torch.core.modes import CoherenceMode
 from repro_torch.ordered import seqsum
@@ -127,3 +132,30 @@ def observe(*, active_modes, active_footprints, needed_tiles, target_tiles,
         _bucket_footprint(target_footprint.to(f32), geom),
     ], dim=-1)
     return encode_attrs(attrs)
+
+
+def observe_host(*, active_modes: Sequence[int],
+                 active_footprints: Sequence[float],
+                 needed_tiles: Sequence[Sequence[bool]],
+                 target_tiles: Sequence[bool], target_footprint: float,
+                 geom: CacheGeometry, device=None) -> int:
+    """:func:`observe` of one invocation from host lists (the discrete-event
+    simulator's in-flight set), run on ``device`` (``None``: the card);
+    an empty set senses as one inactive slot.  Footprints round to
+    float32 first."""
+    dev = resolve_device(device)
+    n_tiles = len(target_tiles)
+    if len(active_modes) == 0:
+        modes = np.full((1,), -1, np.int32)
+        fps = np.zeros((1,), np.float32)
+        tiles = np.zeros((1, n_tiles), bool)
+    else:
+        modes = np.asarray(active_modes, np.int32)
+        fps = np.asarray(active_footprints, np.float32)
+        tiles = np.asarray(needed_tiles, bool).reshape(len(active_modes),
+                                                       n_tiles)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return int(observe(
+        active_modes=t(modes), active_footprints=t(fps),
+        needed_tiles=t(tiles), target_tiles=t(np.asarray(target_tiles, bool)),
+        target_footprint=t(np.float32(target_footprint)), geom=geom))

@@ -5,7 +5,8 @@ devices can round a float32 sum differently.  The episode step's float
 sums go through :func:`seqsum` instead — ``((x0 + x1) + x2) + ...`` —
 which is the order the CUDA kernel uses, so the kernel and its plain
 version round every partial sum alike.  :func:`xla_sum` is the order of
-the reference's ``jnp.sum`` over a minor axis on the CPU.
+the reference's ``jnp.sum`` over a minor axis on the CPU, and
+:func:`lane_sum` the order of a row reduction XLA's CPU build vectorizes.
 :func:`true_div` divides by a number with one rounding on the card too.
 """
 from __future__ import annotations
@@ -38,6 +39,26 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     pad = -n % _XLA_WINDOW
     x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
     return xla_sum(seqsum(x.reshape(*x.shape[:-1], -1, _XLA_WINDOW), -1))
+
+
+def lane_sum(x: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Sum over the last axis as a vectorized CPU loop adds it: element
+    ``i`` goes into running partial ``i % lanes`` in order, then the
+    partials are halved pairwise (``p[j] + p[j + h]``, ``h = lanes / 2,
+    lanes / 4, ...``) until one is left.  ``lanes`` is a power of two
+    dividing the row length; ``lanes = 1`` is :func:`seqsum`."""
+    if lanes == 1:
+        return seqsum(x, -1)
+    n = x.shape[-1]
+    if n % lanes:
+        raise ValueError(f"row of {n} is not a multiple of {lanes} lanes")
+    acc = x[..., :lanes]
+    for i in range(lanes, n, lanes):
+        acc = acc + x[..., i:i + lanes]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc[..., 0]
 
 
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:

@@ -97,23 +97,35 @@ def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     return b1 ^ b2
 
 
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """:func:`uniform` of the draw whose :func:`random_bits` are
+    ``bits``."""
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
 def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits become the
     mantissa of a float in [1, 2), shifted and scaled."""
-    bits = random_bits(key, tuple(shape))
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return uniform_from_bits(random_bits(key, tuple(shape)), minval, maxval)
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """:func:`gumbel` of the draw whose :func:`random_bits` are
+    ``bits``."""
+    u = uniform_from_bits(bits, minval=_F32_TINY, maxval=1.0)
+    return -xla_math.log(-xla_math.log(u))
 
 
 def gumbel(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     """``jax.random.gumbel`` in float32, mode ``"low"``: both logs as XLA
     computes them on the CPU (:func:`repro_torch.xla_math.log`)."""
-    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
-    return -xla_math.log(-xla_math.log(u))
+    return gumbel_from_bits(random_bits(key, tuple(shape)))
 
 
 def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.modes import CoherenceMode
 from repro_torch.core.rewards import Measurement
-from repro_torch.ordered import seqsum
+from repro_torch.ordered import lane_sum, seqsum
 from repro_torch.soc.accelerators import IRREGULAR, PF
 from repro_torch.soc.config import SoCConfig
 
@@ -150,10 +150,39 @@ def dma_demand(mode, profile, footprint, s: SoCStatic, *,
             _where(active, llc, torch.zeros_like(llc)))
 
 
+# The reference's event-driven simulator jits the self-contained model
+# over its 32 slots, and XLA's CPU build vectorizes two of the slot
+# reductions, healthy or faulted: the DDR load over 16 lanes (two 8-wide
+# accumulators), the LLC load over 8, while the cached footprint and the
+# user count stay in order.
+_DES_DRAM_LANES, _DES_LLC_LANES = 16, 8
+
+
+def invocation_perf(mode, profile, footprint, my_tiles, other_modes,
+                    other_profiles, other_footprints, other_tiles, warm_frac,
+                    s: SoCStatic, fault=None):
+    """The self-contained signature of :func:`invocation_perf_cached`, the
+    event-driven simulator's: the concurrent slots' demand is computed
+    here from their profile rows ``other_profiles (B, T, F)``
+    (:func:`dma_demand` over the slots; an inactive slot's demand is
+    masked), and the slot reductions run in the order the reference's
+    compiled simulator adds them (``T`` a multiple of 16).  ``fault``
+    perturbs only this invocation; the slots' demand stays the healthy
+    estimate."""
+    st = SoCStatic(*(v[..., None] if torch.is_tensor(v) else v for v in s))
+    od_dram, od_llc = dma_demand(other_modes, other_profiles,
+                                 other_footprints, st)
+    return invocation_perf_cached(
+        mode, profile, footprint, my_tiles, other_modes, od_dram, od_llc,
+        other_footprints, other_tiles, warm_frac, s, fault=fault,
+        dram_lanes=_DES_DRAM_LANES, llc_lanes=_DES_LLC_LANES)
+
+
 def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
                            other_dram_demand, other_llc_demand,
                            other_footprints, other_tiles, warm_frac,
-                           s: SoCStatic, fault=None):
+                           s: SoCStatic, fault=None, dram_lanes: int = 1,
+                           llc_lanes: int = 1):
     """Timing + monitor metrics of a batch of invocations.
 
     Shapes: ``mode (B,)`` int, ``profile (B, F)``, ``footprint (B,)``,
@@ -169,7 +198,10 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
     ``ddr_scale`` wherever the timing reads it, the compute cost per byte
     by ``exec_scale``, adds ``llc_extra`` to the concurrent LLC load and
     ``retry_cycles`` to the driver overhead.  The reward and the sensed
-    state see the unscaled constants."""
+    state see the unscaled constants.  The DDR and LLC loads sum the slots
+    in ``dram_lanes`` and ``llc_lanes`` running partials
+    (:func:`~repro_torch.ordered.lane_sum`; 1, the default, is left to
+    right); the other slot sums run left to right."""
     f32 = torch.float32
     fault_scale = None
     if fault is not None:
@@ -205,10 +237,10 @@ def invocation_perf_cached(mode, profile, footprint, my_tiles, other_modes,
     dram_cap = s.dram_bw * n_my_tiles
     llc_cap = s.llc_bw * n_my_tiles
 
-    dram_load = seqsum(_where(other_active, other_dram_demand * overlap,
-                              torch.zeros_like(overlap)), -1)
-    llc_load = seqsum(_where(other_active, other_llc_demand * overlap,
-                             torch.zeros_like(overlap)), -1)
+    dram_load = lane_sum(_where(other_active, other_dram_demand * overlap,
+                                torch.zeros_like(overlap)), dram_lanes)
+    llc_load = lane_sum(_where(other_active, other_llc_demand * overlap,
+                               torch.zeros_like(overlap)), llc_lanes)
     if fault is not None:
         llc_load = llc_load + fault.llc_extra
     dram_slow = torch.clamp((dram_load + my_dram) / dram_cap, min=1.0)

@@ -310,9 +310,14 @@ def expand_mlp(mlp: MLPQState, n: int) -> MLPQState:
 
 
 class MLPQPolicy(Policy):
-    """The function-approximation agent behind the Policy interface;
-    ``lower`` emits its ``qfun`` spec (greedy once the network is
-    frozen).  The discrete-event ``decide`` is not ported yet."""
+    """The function-approximation agent behind the Policy interface.
+
+    ``decide`` (the discrete-event simulator's hook) builds the feature
+    vector the batched step feeds :func:`step_features` — the concurrent
+    set in ``n_accs`` slots, zero DDR demand — and takes the greedy
+    argmax of the network's Q-row over the available modes, NON_COH on a
+    non-finite row; it runs where the network lives.  ``lower`` emits the
+    ``qfun`` spec (greedy once the network is frozen)."""
 
     name = "cohmeleon-mlp"
 
@@ -320,6 +325,48 @@ class MLPQPolicy(Policy):
                  cfg: MLPConfig = MLPConfig(), seed: int = 0, device=None):
         self.mlp = (mlp if mlp is not None else init_mlp_qstate(
             prng.PRNGKey(seed, device=device), cfg))
+        self._static = (None, None, None)   # (SoC, device, its constants)
+
+    def decide(self, ctx) -> int:
+        from repro_torch.soc.memsys import SoCStatic, static_tensors
+        dev = self.mlp.wpack.device
+        if self._static[0] is not ctx.soc or self._static[1] != dev:
+            self._static = (ctx.soc, dev, static_tensors(
+                SoCStatic.from_config(ctx.soc), 1, dev))
+        s = self._static[2]
+        n_accs = ctx.soc.n_accs
+        omodes = np.full((1, n_accs), -1, np.int32)
+        ofps = np.zeros((1, n_accs), np.float32)
+        afps = (ctx.active_footprints if ctx.active_footprints is not None
+                else [0.0] * len(ctx.active_modes))
+        for i, (m, fp) in enumerate(zip(ctx.active_modes, afps)):
+            if i >= n_accs:
+                break
+            omodes[0, i] = m
+            ofps[0, i] = fp
+        tiles = (np.asarray(ctx.target_tiles, bool)
+                 if ctx.target_tiles is not None
+                 else np.zeros((ctx.soc.n_mem_tiles,), bool))
+        profile = (np.asarray(ctx.profile, np.float32)
+                   if ctx.profile is not None
+                   else np.zeros((len(PF._fields),), np.float32))
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+        omodes_t = t(omodes)
+        feats = step_features(
+            self.mlp.cfg.features, s,
+            t(np.asarray([ctx.state_idx], np.int32)),
+            footprint=t(np.asarray([ctx.footprint], np.float32)),
+            tiles=t(tiles[None]), omask=omodes_t >= 0, omodes=omodes_t,
+            ofps=t(ofps), odram=torch.zeros((1, n_accs), device=dev),
+            warm_t=t(np.asarray([ctx.warm], np.float32)),
+            profile=t(profile[None]),
+            slack=t(np.float32(ctx.slack)), reuse=t(np.float32(ctx.reuse)))
+        row = forward_packed(self.mlp.wpack, feats,
+                             mlp_dims(self.mlp.cfg))[0].cpu().numpy()
+        if not np.all(np.isfinite(row)):
+            return 0  # NON_COH fallback, as the batched selection does
+        return int(np.argmax(np.where(np.asarray(ctx.available, bool), row,
+                                      -np.inf)))
 
     def lower(self, env, compiled):
         from repro_torch.soc import vecenv as vec

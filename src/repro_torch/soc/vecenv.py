@@ -614,6 +614,16 @@ class VecEnv:
         self.params = LaneParams(pmat=self.pmat, masks=self.masks,
                                  static=self.static)
 
+    @classmethod
+    def from_simulator(cls, sim, cycle_time: float = 1e-8,
+                       ddr_attribution: bool = False,
+                       debug_finite: bool = False) -> "VecEnv":
+        """The scale-path twin of a :class:`~repro_torch.soc.des.
+        SoCSimulator`: its SoC, profiles and device."""
+        return cls(sim.soc, profiles=sim.profiles, cycle_time=cycle_time,
+                   ddr_attribution=ddr_attribution,
+                   debug_finite=debug_finite, device=sim.device)
+
     def _sched(self, compiled: CompiledApp) -> Schedule:
         return compiled.schedule.to(self.device)
 
@@ -758,6 +768,21 @@ class VecEnv:
         hist = ((torch.stack(hist_t, -1), torch.stack(hist_m, -1))
                 if eval_app is not None else None)
         return qs, hist
+
+    def train(self, train_apps: Sequence[CompiledApp], cfg: qlearn.QConfig,
+              weights: rewards.RewardWeights | None = None, key=None,
+              eval_app: CompiledApp | None = None, faults=None):
+        """Train one agent over the per-iteration schedules (each compiled
+        with its own tile seed): :meth:`train_batched` with a batch of
+        one, from ``key`` (default ``PRNGKey(0)``).  Returns the QState (a
+        batch of one) and, with ``eval_app``, the ``(norm_time,
+        norm_mem)`` histories of shape ``(iterations,)``."""
+        weights = weights or rewards.PAPER_DEFAULT_WEIGHTS
+        key = key if key is not None else prng.PRNGKey(0)
+        qs, hist = self.train_batched(
+            train_apps, cfg, rewards.stack_weights([weights]),
+            key.reshape(1, 2), eval_app=eval_app, faults=faults)
+        return qs, (None if hist is None else (hist[0][0], hist[1][0]))
 
     def train_batched_checkpointed(self, train_apps: Sequence[CompiledApp],
                                    cfg: qlearn.QConfig,

@@ -94,6 +94,7 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "from repro_torch.configs import smoke_config\n"
         "from repro_torch.launch import serve\n"
         "f10.run_port('cpu', iters=1, n_phases=2)\n"
+        "assert f10.des_crosscheck('cpu')['agree']\n"
         "f13.run_port('cpu', n_train=1, n_heldout=1, n_phases=1, "
         "iterations=1, batch=1)\n"
         "out = serve.serve(smoke_config('qwen3-8b'), 2, 8, 2, "

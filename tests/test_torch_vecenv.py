@@ -67,6 +67,23 @@ def test_evaluation_matches(trained):
                                **TOL)
 
 
+def _episode(run):
+    """A ``compare_policies`` run (a RunResult) as the batched episode's
+    float32 traces and phase metrics it was lifted from (exact: every
+    value came from a float32 tensor)."""
+    recs = [r for p in run.phases for r in p.invocations]
+    f32 = lambda vals: torch.tensor(vals, dtype=torch.float32)
+    i32 = lambda vals: torch.tensor(vals, dtype=torch.int32)
+    return tvec.EpisodeResult(
+        phase_time=f32([p.wall_time for p in run.phases]),
+        phase_offchip=f32([p.offchip_accesses for p in run.phases]),
+        mode=i32([r.mode for r in recs]),
+        state_idx=i32([r.state_idx for r in recs]),
+        exec_time=f32([r.exec_time for r in recs]),
+        offchip=f32([r.offchip_true for r in recs]),
+        reward=f32([r.reward for r in recs]))
+
+
 def test_policy_suite_one_call_matches(trained):
     jres, tres = trained
     japp = japps.make_application(jcfg.SOC_MOTIV_PAR, seed=900, n_phases=2)
@@ -87,7 +104,7 @@ def test_policy_suite_one_call_matches(trained):
     assert cmp.policies == [p.name for p in jsuite[1:]]
     names = ["fixed-non-coh-dma"] + cmp.policies
     for i, name in enumerate(names):
-        got = cmp.raw[name]
+        got = _episode(cmp.raw[name])
         for field in ("mode", "state_idx"):
             np.testing.assert_array_equal(
                 getattr(got, field).numpy(),
@@ -102,8 +119,8 @@ def test_policy_suite_one_call_matches(trained):
     for i, name in enumerate(cmp.policies, start=1):
         np.testing.assert_allclose(cmp.norm_time[name], pt[i] / pt[0],
                                    **TOL)
-        nt, nm = tvec.normalized_metrics(cmp.raw[name],
-                                         cmp.raw["fixed-non-coh-dma"])
+        nt, nm = tvec.normalized_metrics(
+            _episode(cmp.raw[name]), _episode(cmp.raw["fixed-non-coh-dma"]))
         jt, jm = jvec.normalized_metrics(
             jax.tree_util.tree_map(lambda x: x[i], jout),
             jax.tree_util.tree_map(lambda x: x[0], jout))
