@@ -2,8 +2,8 @@
 JAX reference.
 
     PYTHONPATH=src python -m benchmarks.torch_fig11_serving \
-        [--device cuda|cpu] [--out port.json] [--compare port.json] \
-        [--reference] [--no-fma]
+        [--fidelity] [--device cuda|cpu] [--out port.json] \
+        [--compare port.json] [--reference] [--no-fma]
 
 The port's run mirrors ``benchmarks/fig11_serving.py``'s ``_run`` at full
 width: SoC1, one agent trained for 10 iterations of an 8-phase app (one
@@ -21,6 +21,17 @@ fraction, with launches and wall times, and writes them to ``--out``.
 compiles it for an ISA without fused multiply-add (ROADMAP C1).  The
 reference's jit-cache check (``_retrace``) has no counterpart here: the
 port compiles nothing per call.  The port side imports no JAX.
+
+After the figure, timed apart from it, the DES cross-check
+(:func:`des_crosscheck`, the reference's ``_des_crosscheck``): the
+batched serving path against the event-driven simulator's serving
+mirror (``SoCSimulator.serve``) on the same arrival tables, SoC1 with
+``queue_cap`` 4 and 512 requests a stream at a 1x rate calibrated from a
+NON_COH probe, fixed families only; ``--fidelity`` runs loads 0.5, 1 and
+1.5 x the four modes (6,144 requests), else 1x NON_COH.  Admission
+decisions must be equal and latencies within ``1e-3 * latency + 8
+ulp(float32 t_end)``.  With ``--reference`` the reference's cross-check
+runs too.
 """
 from __future__ import annotations
 
@@ -197,6 +208,123 @@ def run_port(device=None, n_requests: int = N_REQUESTS,
     return results
 
 
+def des_crosscheck(device=None, fidelity: bool = False,
+                   n: int = 512) -> dict:
+    """The batched serving path against the event-driven serving mirror
+    on single-tenant Poisson streams; both consume the same presampled
+    arrival table, so admission must match exactly and latencies to the
+    float32 clock's tolerance.  Fixed families only: their choice is
+    context-free, so a disagreement is a serving-model divergence.
+    Returns the verdict with the launches and walls of each side."""
+    from repro_torch import resolve_device
+    from repro_torch.core import qlearn
+    from repro_torch.core.modes import CoherenceMode
+    from repro_torch.core.policies import FixedHomogeneous
+    from repro_torch.kernels.soc_step import ops as soc_ops
+    from repro_torch.soc import traffic, vecenv
+    from repro_torch.soc.apps import make_application
+    from repro_torch.soc.config import SOCS
+    from repro_torch.soc.des import SoCSimulator
+
+    dev = resolve_device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    soc_ops.reset_launches()
+    t0 = time.perf_counter()
+    soc = SOCS[SOC_NAME]
+    sim = SoCSimulator(soc, seed=1, flavor="mixed", device=dev)
+    env = vecenv.VecEnv.from_simulator(sim)
+    eval_app = vecenv.compile_app(
+        make_application(soc, seed=50, n_phases=4), soc, seed=4)
+    queue_cap = 4
+    serve_env = vecenv.ServeEnv(env, queue_cap=queue_cap, n_requests=n)
+    cfg = qlearn.QConfig()
+
+    # a 1x rate from a near-idle probe, so the streams fill queues
+    probe = env.lower(eval_app, "fixed",
+                      fixed_modes=CoherenceMode.NON_COH_DMA)
+    _, _, pres = serve_env.serve(eval_app, probe,
+                                 traffic.poisson(1e-9, seed=3), cfg=cfg)
+    ex = pres.executed.cpu().numpy()
+    mean_exec = float(pres.exec_time.cpu().numpy()[ex].mean())
+    rate_1x = soc.n_accs / mean_exec
+
+    mults = [0.5, 1.0, 1.5] if fidelity else [1.0]
+    modes = (list(CoherenceMode) if fidelity
+             else [CoherenceMode.NON_COH_DMA])
+    n_rows = eval_app.schedule.acc_id.shape[0]
+    max_rel, mismatches, checked = 0.0, 0, 0
+    t_vec = t_des = 0.0
+    des_requests = 0
+    for mult in mults:
+        tp = traffic.poisson(
+            mult * rate_1x, deadline=3.0 * queue_cap * mean_exec,
+            backoff=0.5 * mean_exec, seed=11)
+        arr = traffic.sample_arrivals(tp, n, n_rows)
+        for mode in modes:
+            t1 = time.perf_counter()
+            spec = env.lower(eval_app, "fixed", fixed_modes=mode)
+            _, _, res = serve_env.serve(eval_app, spec, tp, cfg=cfg)
+            v_ex = res.executed.cpu().numpy()
+            v_lat_all = res.latency.cpu().numpy()
+            t_end = float(res.t_arr.cpu().numpy()[-1])
+            t2 = time.perf_counter()
+            des = sim.serve(eval_app.schedule, FixedHomogeneous(mode),
+                            arr, queue_cap=queue_cap,
+                            backoff=float(tp.backoff))
+            sync()
+            t3 = time.perf_counter()
+            t_vec += t2 - t1
+            t_des += t3 - t2
+            des_requests += n
+            d_ex = np.array([r["executed"] for r in des])
+            mismatches += int((v_ex != d_ex).sum())
+            both = v_ex & d_ex
+            v_lat = v_lat_all[both]
+            d_lat = np.array([r["latency"] for r in des])[both]
+            # the batched clock is float32 and the simulator's float64: a
+            # latency is a difference of two stamps of the clock's size,
+            # so the bound owes float32 ULPs at the stream's end
+            ulp = float(np.spacing(np.float32(t_end)))
+            err = np.abs(v_lat - d_lat)
+            max_rel = max(max_rel, float(np.max(
+                err / (1e-3 * np.maximum(d_lat, 1e-30) + 8.0 * ulp),
+                initial=0.0)))
+            checked += n
+    sync()
+    wall = time.perf_counter() - t0
+    return {"max_err_vs_tolerance": max_rel,
+            "admission_mismatches": mismatches,
+            "requests_checked": checked,
+            "agree": bool(mismatches == 0 and max_rel <= 1.0),
+            "loads": len(mults), "families": len(modes),
+            "_engine": {
+                "device": (torch.cuda.get_device_name(dev)
+                           if dev.type == "cuda" else "cpu"),
+                "serve_launches": soc_ops.serve_launches,
+                "episode_launches": soc_ops.launches,
+                "expected_serve_launches": 1 + len(mults) * len(modes),
+                "wall_s": wall, "vec_s": t_vec, "des_s": t_des,
+                "des_requests": des_requests,
+                "des_requests_per_s": des_requests / t_des,
+                "des_invocations": sim.invocations}}
+
+
+def print_crosscheck(tag: str, x: dict) -> None:
+    print(f"{tag} DES cross-check: {x['loads']} loads x {x['families']} "
+          f"modes, {x['requests_checked']} requests, admission mismatches "
+          f"{x['admission_mismatches']}, max error / tolerance "
+          f"{x['max_err_vs_tolerance']:.6g}, agree {x['agree']}")
+    e = x.get("_engine")
+    if e:
+        print(f"{tag} DES cross-check engine: {e['device']} wall "
+              f"{e['wall_s']:.3f} s (batched {e['vec_s']:.3f}, DES "
+              f"{e['des_s']:.3f}: {e['des_requests_per_s']:.1f} requests "
+              f"a second); serve launches {e['serve_launches']} (expected "
+              f"{e['expected_serve_launches']}), episode launches "
+              f"{e['episode_launches']}")
+
+
 def run_reference() -> dict:
     """The reference's full-width ``_run`` (no report)."""
     from benchmarks.fig11_serving import _run
@@ -247,6 +375,9 @@ def compare(port: dict, ref: dict) -> float:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--fidelity", action="store_true",
+                    help="cross-check the four fixed modes against the "
+                         "event-driven serving mirror at three loads")
     ap.add_argument("--device", default=None)
     ap.add_argument("--out")
     ap.add_argument("--compare")
@@ -258,10 +389,14 @@ def main():
             port = json.load(f)
     else:
         port = run_port(args.device)
+        port["_des_crosscheck"] = des_crosscheck(args.device,
+                                                 args.fidelity)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(port, f, indent=1)
     print_results("port", port)
+    if "_des_crosscheck" in port:
+        print_crosscheck("port", port["_des_crosscheck"])
     e = port["_engine"]
     print(f"port engine: {e['device']} wall {e['wall_s']:.3f} s (train "
           f"{e['train_s']:.3f}, calibrate {e['calibrate_s']:.3f}, sweep "
@@ -275,6 +410,11 @@ def main():
         ref = run_reference()
         print_results("reference", ref)
         compare(port, ref)
+        if "_des_crosscheck" in port:
+            from benchmarks.fig11_serving import _des_crosscheck
+            x = port["_des_crosscheck"]
+            print_crosscheck("reference", _des_crosscheck(
+                False, x["loads"] > 1))
 
 
 if __name__ == "__main__":

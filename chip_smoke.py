@@ -136,6 +136,32 @@ After Fig. 10's path, a path of its own (counts set to 0 before it and
 read after) cross-checks the simulator against the batched environment
 under each storm, per phase: 5 healthy and 15 faulted episode launches.
 
+Then the rest of the SoC layer: the simulator's serving mirror
+(``SoCSimulator.serve``) on the card against ``device="cpu"`` on one
+arrival table per chain app (64 requests at 1.5x capacity into queues
+of 4: the four fixed modes, manual, a Q agent learning as it serves and
+NON_COH under ``storm(64, 0.7)``; integer fields equal, floats within
+the tolerance); ``soc.shard``'s stacked trainer and episodes split in
+two chunks on the one card (``devices=[cuda:0, cuda:0]``, ``force``):
+bitwise one call, with twice the episode-kernel launches; a small Fig.
+12 sweep (6 SoCs) on the card against the CPU, bitwise; the unfused
+plain step (``VecEnv(fused_step=False)``) against K1 on a 3-thread
+chain app (q, fixed, manual), bitwise and launching nothing; and two
+more paths, each with the counts set to 0 before it and read after:
+
+  * Fig. 12 (``benchmarks/torch_fig12_dse.py``): 256 DSE-sampled SoCs in
+    4 length buckets, one agent trained per SoC for 3 iterations of a
+    3-phase app and the 7-family suite evaluated: 16 episode-kernel
+    launches (4 buckets x (3 + 1)), asserted; the largest bucket's
+    training (B 108, S 144) and evaluation (B 756, S 368) launches are
+    held bitwise against ``ref.episode_ref`` on their own inputs (the
+    path's outputs and a second launch's);
+  * Fig. 11's DES cross-check (``--fidelity``, ``benchmarks/
+    torch_fig11_serving.py``): the batched serving path against the
+    serving mirror at 3 loads x the 4 fixed modes, 6,144 requests: 0
+    admission mismatches, latencies within the reference's bound; 13
+    serve-kernel launches (the probe and 12 streams), asserted.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -2045,20 +2071,22 @@ def main() -> None:
     # ---- 9p. the event-driven simulator (DES): card == CPU, the fidelity
     # contract against the batched environment, Fig. 2, 3 and 5 --fidelity
     # (in a function, so its names leave the later phases' alone)
+    def chain_app(soc_, seed, n_threads=1):
+        """tests/test_vecenv_equivalence.py's app: 3 phases of
+        ``n_threads`` serial 3-invocation chains looped twice."""
+        rng = np.random.default_rng(seed)
+        phases = [apps.make_phase(rng, soc_, name=f"p{i}",
+                                  n_threads=n_threads, size_classes=[c],
+                                  chain_len=3, loops=2)
+                  for i, c in enumerate(("S", "M", "L"))]
+        return des.Application(name=f"{soc_.name}-chain{n_threads}",
+                               phases=phases)
+
     def des_phase():
         rec_path[0] = "des"
         des_int = ("acc_id", "mode", "state_idx")
         des_float = ("start", "end", "exec_time", "offchip_true",
                      "offchip_attr", "reward")
-
-        def chain_app(soc_, seed, n_threads=1):
-            rng = np.random.default_rng(seed)
-            phases = [apps.make_phase(rng, soc_, name=f"p{i}",
-                                      n_threads=n_threads, size_classes=[c],
-                                      chain_len=3, loops=2)
-                      for i, c in enumerate(("S", "M", "L"))]
-            return des.Application(name=f"{soc_.name}-chain{n_threads}",
-                                   phases=phases)
 
         def mlp_agent(device):
             """A frozen sense network, its weights perturbed from a seed so its
@@ -2277,6 +2305,255 @@ def main() -> None:
 
     des_paths, des_vs_vec_s = des_phase()
 
+    # ---- 9q. the DES serving mirror card == CPU, a forced one-card shard
+    # split, a small Fig. 12 sweep card == CPU, the unfused step against
+    # K1; then Fig. 12 and Fig. 11's DES cross-check at full width
+    def soc_layer_phase():
+        rec_path[0] = "soc_layer"
+        from benchmarks import torch_fig12_dse as fig12
+        from repro_torch.soc import shard
+
+        # DES serve: the same arrival table on the card and the CPU
+        n_req = 64
+        serve_int = ("executed", "retries", "depth", "degraded", "mode",
+                     "state_idx", "acc_id", "tenant")
+        serve_float = ("start", "finish", "exec_time", "latency", "reward")
+        reset_counts()
+        n_float = n_bitwise = 0
+        t_s = time.perf_counter()
+        for soc_ in (SOC_MOTIV_ISO, SOCS["SoC1"]):
+            comp = vec.compile_app(chain_app(soc_, 0), soc_, seed=7)
+            probe = des.SoCSimulator(soc_, device="cpu").serve(
+                comp.schedule, pol.FixedHomogeneous(0), traffic.
+                sample_arrivals(traffic.poisson(1e-9, seed=3), 32,
+                                comp.n_steps), queue_cap=4)
+            me = float(np.mean([r["exec_time"] for r in probe]))
+            tspec = traffic.poisson(1.5 * soc_.n_accs / me,
+                                    deadline=12 * me, backoff=0.5 * me,
+                                    seed=11)
+            arr = traffic.sample_arrivals(tspec, n_req, comp.n_steps)
+
+            def serve_runs(device):
+                sim = des.SoCSimulator(soc_, device=device)
+                runs = [(f"fixed{m}", pol.FixedHomogeneous(m), False, None)
+                        for m in range(4)]
+                runs += [("manual", pol.ManualPolicy(), False, None),
+                         ("q", pol.QPolicy(qlearn.QConfig(decay_steps=n_req),
+                                           seed=5, device=device), True,
+                          None),
+                         ("storm-nc", pol.FixedHomogeneous(0), False,
+                          faults.storm(n_req, 0.7, prng.PRNGKey(42),
+                                       device=device))]
+                return {name: sim.serve(comp.schedule, p, arr, queue_cap=4,
+                                        backoff=0.5 * me, train=train,
+                                        faults=f, seed=7)
+                        for name, p, train, f in runs}
+
+            g_runs, c_runs = serve_runs(dev), serve_runs("cpu")
+            for name, g in g_runs.items():
+                c = c_runs[name]
+                if [[r[f] for f in serve_int] for r in g] != [
+                        [r[f] for f in serve_int] for r in c]:
+                    fail(f"DES serve {soc_.name} {name}: card and CPU "
+                         f"integer fields differ")
+                gv = np.asarray([[r[f] for f in serve_float] for r in g])
+                cv = np.asarray([[r[f] for f in serve_float] for r in c])
+                if not np.allclose(gv, cv, rtol=TOL, atol=TOL):
+                    fail(f"DES serve {soc_.name} {name}: card and CPU "
+                         f"floats differ beyond {TOL}")
+                n_float += gv.size
+                n_bitwise += int((gv == cv).sum())
+        if any(read()):
+            fail(f"the DES serve launched {dict(zip(KERNELS, read()))}")
+        print(f"DES serve card == CPU on two chain apps (SoC-motiv-iso, "
+              f"SoC1; {n_req} requests at 1.5x, queue_cap 4): four fixed, "
+              f"manual, a Q agent learning, NON_COH under storm(64, 0.7): "
+              f"integer fields equal, {n_bitwise}/{n_float} floats bitwise, "
+              f"the rest within {TOL}; {time.perf_counter() - t_s:.3f} s")
+
+        # a forced split of the stacked trainer and episodes in two chunks
+        # on the one card: bitwise one call, twice the launches
+        socs2 = [SOCS["SoC1"], SOCS["SoC2"]]
+        st_env = StackedVecEnv(socs2, seed=1, device=dev)
+        apps2 = [apps.make_application(s, seed=7, n_phases=2) for s in socs2]
+        st_iters = [st_env.compile(apps2, seed=it) for it in range(2)]
+        st_cfg = qlearn.QConfig(decay_steps=torch.tensor(
+            [2 * s for s in st_iters[0].n_steps], dtype=torch.int32))
+        st_keys = prng.PRNGKey(np.arange(4), device=dev).reshape(2, 2, 2)
+        st_w = rewards.stack_weights(WEIGHTS[:2])
+        suite6 = ([pol.FixedHomogeneous(m) for m in CoherenceMode]
+                  + [pol.RandomPolicy(), pol.ManualPolicy()])
+        specs6 = st_env.lower(st_iters[0], suite6)
+        shard_launches = {}
+        for tag, kw in (("plain", None),
+                        ("split", dict(devices=[dev, dev], force=True))):
+            torch.cuda.synchronize()
+            reset_counts()
+            if kw is None:
+                q_s, _ = st_env.train_batched(st_iters, st_cfg, st_w,
+                                              st_keys)
+                e_s = st_env.episodes(st_iters[0], specs6)
+            else:
+                q_s, _ = shard.sharded_train_batched_stacked(
+                    st_env, st_iters, st_cfg, st_w, st_keys, **kw)
+                e_s = shard.sharded_episodes(st_env, st_iters[0], specs6,
+                                             **kw)
+            torch.cuda.synchronize()
+            shard_launches[tag] = (read()[0], (q_s, e_s))
+        (n_plain, (q_p, e_p)), (n_split, (q_x, e_x)) = (
+            shard_launches["plain"], shard_launches["split"])
+        if not all(torch.equal(a, b) for a, b in zip((*q_p, *e_p),
+                                                    (*q_x, *e_x))):
+            fail("forced shard split: results differ from one call")
+        if n_split != 2 * n_plain:
+            fail(f"forced shard split launched K1 {n_split} times, "
+                 f"expected 2 x {n_plain}")
+        print(f"soc.shard forced split over [cuda:0, cuda:0] "
+              f"(sharded_train_batched_stacked, 2 lanes x 2 agents, 2 "
+              f"iterations; sharded_episodes, 6 policies): bitwise one "
+              f"call, K1 launches {n_split} vs {n_plain}")
+
+        # a small Fig. 12 sweep, the card against the CPU, bitwise
+        small12 = dict(iters=2, n_phases=2, max_buckets=3, min_gain=0.0)
+        sw_g = dse.run_sweep(dse.sample_socs(11, 6), device=dev, **small12)
+        sw_c = dse.run_sweep(dse.sample_socs(11, 6), device="cpu",
+                             **small12)
+        if sw_g["groups"] != sw_c["groups"] or not (
+                np.array_equal(sw_g["norm_time"], sw_c["norm_time"])
+                and np.array_equal(sw_g["norm_mem"], sw_c["norm_mem"])):
+            fail("small Fig. 12 sweep: card and CPU differ")
+        print(f"small Fig. 12 sweep (6 SoCs, 2 iterations, 2 phases, "
+              f"buckets {[len(g) for g in sw_g['groups']]}): card == CPU "
+              f"bitwise ({sw_g['norm_time'].size} x 2 metrics)")
+
+        # the unfused plain step on the card against K1, bitwise
+        app3 = vec.compile_app(chain_app(SOC_MOTIV_PAR, 6, n_threads=3),
+                               SOC_MOTIV_PAR, seed=7)
+        env_f = vec.VecEnv(SOC_MOTIV_PAR, seed=0, device=dev)
+        env_u = vec.VecEnv(SOC_MOTIV_PAR, seed=0, fused_step=False,
+                           device=dev)
+        for p in ("q", "fixed", "manual"):
+            reset_counts()
+            a = env_f.episode(app3, policy=p, key=prng.PRNGKey(3))
+            n_fused = read()[0]
+            b = env_u.episode(app3, policy=p, key=prng.PRNGKey(3))
+            if read()[0] != n_fused or n_fused != 1:
+                fail(f"unfused {p}: launched K1 ({read()[0]} after "
+                     f"{n_fused})")
+            if not all(torch.equal(x, y) for x, y in zip((*a[0], *a[1]),
+                                                        (*b[0], *b[1]))):
+                fail(f"unfused step on the card: {p} differs from K1")
+        print("unfused plain step on the card == K1 bitwise (3-thread chain "
+              "app on SoC-motiv-par; q, fixed, manual), no launch")
+
+        # Fig. 12 at full width; each (B, S) launch's first inputs and
+        # outputs are kept to hold against the plain version after it
+        new_paths = {}
+        rec_path[0] = "fig12"
+        soc_kernel.soc_step_episode = recording_episode
+        fused_episode = soc_ops.fused_episode
+        seen12 = {}
+
+        def keeping_episode(*a, **kw):
+            out = fused_episode(*a, **kw)
+            seen12.setdefault(tuple(a[3].shape[:1]) + tuple(
+                a[5].acc_id.shape[1:2]), (a, kw, out))
+            return out
+
+        soc_ops.fused_episode = keeping_episode
+        torch.cuda.synchronize()
+        reset_counts()
+        t12 = time.perf_counter()
+        try:
+            r12 = fig12.run_port(dev)
+            torch.cuda.synchronize()
+        finally:
+            soc_ops.fused_episode = fused_episode
+        new_paths["fig12"] = time.perf_counter() - t12
+        soc_kernel.soc_step_episode = episode_kernel
+        counts["fig12"] = read()
+        # the largest bucket's training (108 lanes) and evaluation (108 x 7
+        # episodes) launches of the path against ref.episode_ref on their
+        # own inputs: the path's outputs, and a second launch's, bitwise
+        for pick_b in (lambda bs: max(x for x in bs if x < 200), max):
+            b12 = pick_b(k[0] for k in seen12)
+            s12 = max(k[1] for k in seen12 if k[0] == b12)
+            a, kw, out = seen12[(b12, s12)]
+            if kw.get("mlp") is not None:
+                fail("Fig. 12 launched an MLP episode")
+            again = fused_episode(*a, **kw)
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            ev0.record()
+            want = soc_ref.episode_ref(
+                *a, ddr_attribution=kw.get("ddr_attribution", False),
+                gated=kw.get("gated", False))
+            ev1.record()
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], *r[-1]]
+            for label, got in (("path", out), ("second launch", again)):
+                if not all(x.shape == y.shape and torch.equal(
+                        x.double(), y.double()) for x, y in zip(
+                            flat(got), flat(want))):
+                    fail(f"Fig. 12 B={b12} S={s12}: the {label}'s K1 "
+                         "outputs are not bitwise the plain version's")
+            print(f"fig12 K1 launch B={b12} S={s12} (gated, "
+                  f"{len(flat(want))} outputs): the path's and a second "
+                  f"launch's outputs bitwise equal to ref.episode_ref on "
+                  f"the same inputs; plain version "
+                  f"{ev0.elapsed_time(ev1):.1f} ms on the card")
+        del seen12
+        e12 = r12["_engine"]
+        want12 = (e12["expected_episode_launches"],) + (0,) * 9
+        if counts["fig12"] != want12 or want12[0] != 16:
+            fail(f"Fig. 12 launched {dict(zip(KERNELS, counts['fig12']))}, "
+                 f"expected 16 of {KERNELS[0]} only")
+        if not all(math.isfinite(v) for row in r12["per_soc"]
+                   for v in (*row["cohmeleon"], *row["manual"],
+                             *row["fixed_mean"], *row["best_fixed"])):
+            fail("Fig. 12: non-finite per-SoC metrics")
+        print(f"fig12 headline: {json.dumps(r12['_headline'])}")
+        print(f"fig12 path on {card}: {new_paths['fig12']:.3f} s wall "
+              f"({e12['n_socs']} SoCs in buckets {e12['bucket_sizes']}; "
+              f"compile {e12['compile_s']:.3f} s, train "
+              f"{e12['train_s']:.3f} s, lower {e12['lower_s']:.3f} s, "
+              f"evaluate {e12['eval_s']:.3f} s; "
+              f"{r12['waste']['real_invocations']} real invocations, "
+              f"{r12['waste']['padded_volume_bucketed']} padded steps), "
+              f"launches {dict(zip(KERNELS, counts['fig12']))}")
+        (ROOT / "chiprun_out" / "fig12_port.json").write_text(
+            json.dumps(r12, indent=1))
+
+        # Fig. 11's DES cross-check at full width (--fidelity)
+        rec_path[0] = "fig11_des_xcheck"
+        torch.cuda.synchronize()
+        reset_counts()
+        t_x = time.perf_counter()
+        x11 = fig11.des_crosscheck(dev, fidelity=True)
+        torch.cuda.synchronize()
+        new_paths["fig11_des_xcheck"] = time.perf_counter() - t_x
+        counts["fig11_des_xcheck"] = read()
+        ex = x11["_engine"]
+        want_x = (0, ex["expected_serve_launches"]) + (0,) * 8
+        if counts["fig11_des_xcheck"] != want_x or want_x[1] != 13:
+            fail(f"Fig. 11's DES cross-check launched "
+                 f"{dict(zip(KERNELS, counts['fig11_des_xcheck']))}, "
+                 f"expected 13 of {KERNELS[1]} only")
+        if not (x11["agree"] and x11["admission_mismatches"] == 0
+                and x11["max_err_vs_tolerance"] <= 1.0
+                and x11["requests_checked"] == 6144):
+            fail(f"Fig. 11's DES cross-check disagrees: {x11}")
+        fig11.print_crosscheck("fig11_des_xcheck", x11)
+        print(f"fig11_des_xcheck path on {card}: "
+              f"{new_paths['fig11_des_xcheck']:.3f} s wall, launches "
+              f"{dict(zip(KERNELS, counts['fig11_des_xcheck']))}")
+        (ROOT / "chiprun_out" / "fig11_des_xcheck_port.json").write_text(
+            json.dumps(x11, indent=1))
+        return new_paths
+
+    soc_layer_paths = soc_layer_phase()
+
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
         for _ in range(3):
@@ -2475,6 +2752,11 @@ def main() -> None:
             k1, "fig9", *recorded_at("fig9", k1, pick_b, steps)))
     by_shape[k1].append(episode_at(k1, "fig13",
                                    *recorded_at("fig13", k1, min)))
+    # Fig. 12: the largest bucket's training (108 lanes) and evaluation
+    # (108 x 7 episodes) launches
+    for pick_b in (lambda bs: max(x for x in bs if x < 200), max):
+        by_shape[k1].append(episode_at(k1, "fig12",
+                                       *recorded_at("fig12", k1, pick_b)))
     by_shape[k1f].append(episode_at(k1f, "fig6 storm 1.0",
                                     f"B={b} S={s_len}", packed_f))
     by_shape[k1f].append(episode_at(k1f, "fig10",
@@ -2708,7 +2990,8 @@ def main() -> None:
                "storm_serving": storm_s, "fig13": fig13_s,
                "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s,
                "granite_serve": granite_s, "recurrentgemma_serve": rgemma_s,
-               "des_vs_vecenv": des_vs_vec_s, **des_paths}
+               "des_vs_vecenv": des_vs_vec_s, **des_paths,
+               **soc_layer_paths}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
                                            for p, t in paths_s.items()))
 

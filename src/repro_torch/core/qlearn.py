@@ -164,15 +164,22 @@ def select(qs: QState, cfg: QConfig, state_idx, key, action_mask=None):
                                  device=qs.qtable.device)
     eps, _ = schedule(cfg, qs.step)
     eps = torch.where(qs.frozen, 0.0, eps)
-    # the three draws in one hash: a draw of shape () is counter 0 of its
-    # key, a draw of shape (A,) counters 0..A-1
-    bits = prng.random_bits(prng.split(key, 3), (cfg.n_actions,))
-    g = prng.gumbel_from_bits(bits[..., 1:, :])
-    noise = SelectNoise(u_explore=prng.uniform_from_bits(bits[..., 0, 0]),
-                        g_pick=g[..., 0, :], g_tie=g[..., 1, :])
     row = qs.qtable[torch.arange(qs.qtable.shape[0],
                                  device=qs.qtable.device), state_idx.long()]
-    return row_select_presampled(row, eps, noise, action_mask)
+    return row_select_presampled(row, eps, key_noise(key, cfg.n_actions),
+                                 action_mask)
+
+
+def key_noise(key, n_actions: int = N_MODES) -> SelectNoise:
+    """The select randomness one key ``(..., 2)`` gives ``select``: the
+    key splits three ways (explore, pick, tie) and ``categorical(k,
+    logits)`` is ``argmax(logits + gumbel(k))`` as in ``jax.random``.  The
+    three draws run in one hash: a draw of shape () is counter 0 of its
+    key, a draw of shape (A,) counters 0..A-1."""
+    bits = prng.random_bits(prng.split(key, 3), (n_actions,))
+    g = prng.gumbel_from_bits(bits[..., 1:, :])
+    return SelectNoise(u_explore=prng.uniform_from_bits(bits[..., 0, 0]),
+                       g_pick=g[..., 0, :], g_tie=g[..., 1, :])
 
 
 def update(qs: QState, cfg: QConfig, state_idx, action, reward) -> QState:

@@ -423,6 +423,175 @@ class SoCSimulator:
             decide_overhead_s=(float(np.mean(decide_times))
                                if decide_times else 0.0))
 
+    # ------------------------------------------------------------- serving
+    def serve(self, sched, policy: Policy, arrivals, *,
+              queue_cap: int = 8, backoff: float = 0.0,
+              prio_reserve: float = 0.0, overload_frac: float = 0.0,
+              pressure_beta: float = 0.05, max_retries: int = 3,
+              train: bool = False,
+              weights: rewards.RewardWeights | None = None,
+              faults: fault_mod.FaultSpec | None = None,
+              seed: int = 0) -> list:
+        """Host mirror of the batched serving loop (``vecenv.ServeEnv``).
+
+        Consumes a compiled :class:`~repro_torch.soc.vecenv.Schedule` and
+        a presampled :class:`~repro_torch.soc.traffic.Arrivals` table —
+        the table the batched path scans, so both see the same offered
+        traffic — and replays it request by request through this
+        simulator's timing model: bounded per-accelerator admission rings
+        of ``queue_cap`` finish times, deadline shedding after
+        ``max_retries`` exponentially backed-off attempts,
+        priority-weighted effective capacity, and the shed-pressure
+        overload latch forcing NON_COH.
+
+        Fault rows index by offered-request position (executed or shed),
+        as the batched path's ``sample_fault_arrays`` over the request
+        stream does.  Requests run in arrival order with the
+        per-accelerator slot table carrying each device's last admitted
+        invocation: the batched path's concurrency approximation, so the
+        two compare like with like.  The serving state (rings, slot
+        table, latch) is host numpy float64; times are cycles.
+
+        Returns a list of per-request record dicts (arrival, admission
+        outcome, start/finish, exec cycles, reward)."""
+        host = lambda t: t.cpu().numpy() if torch.is_tensor(t) else \
+            np.asarray(t)
+        s_acc, s_fp, s_tiles = (host(sched.acc_id), host(sched.footprint),
+                                host(sched.tiles))
+        a_t, a_row, a_dl, a_pr, a_ten = (
+            host(arrivals.t_arr), host(arrivals.row),
+            host(arrivals.deadline), host(arrivals.priority),
+            host(arrivals.tenant))
+        n_accs = self.soc.n_accs
+        n_tiles = self.soc.n_mem_tiles
+        n = int(a_t.shape[0])
+        dev = self.device
+        w = weights or rewards.PAPER_DEFAULT_WEIGHTS
+        reward_state = rewards.init_reward_state(n_accs, (1,), device=dev)
+        rng = np.random.default_rng(seed)
+
+        fault_u = None
+        if faults is not None:
+            faults = faults.to(dev)
+            fault_u = fault_mod.sample_fault_uniforms(faults, n)
+
+        # Per-accelerator serving state (the ServeCarry, host-side).
+        busy = np.zeros(n_accs)
+        fin = np.zeros((n_accs, queue_cap))
+        head = np.zeros(n_accs, np.int64)
+        slot_mode = np.full(n_accs, -1, np.int64)
+        slot_fp = np.zeros(n_accs)
+        slot_tiles = np.zeros((n_accs, n_tiles), bool)
+        pressure, tripped = 0.0, False
+
+        records: list[dict] = []
+        for i in range(n):
+            row = int(a_row[i])
+            acc = int(s_acc[row])
+            t_a = float(a_t[i])
+            dl = float(a_dl[i])
+            pr = float(a_pr[i])
+            footprint = float(s_fp[row])
+            tiles = np.asarray(s_tiles[row], bool)
+
+            # ---- admission: bounded retry-with-backoff ----------------
+            cap_eff = queue_cap - prio_reserve * queue_cap * (1.0 - pr)
+            executed, attempt, start = False, max_retries + 1, 0.0
+            for r in range(max_retries + 1):
+                t_r = t_a + backoff * (2.0 ** r - 1.0)
+                depth_r = float((fin[acc] > t_r).sum())
+                s_r = max(t_r, busy[acc])
+                if depth_r < cap_eff and s_r <= dl:
+                    executed, attempt, start = True, r, s_r
+                    break
+            degraded = tripped
+            rec = {"t_arr": t_a, "acc_id": acc, "tenant": int(a_ten[i]),
+                   "executed": executed, "retries": attempt,
+                   "depth": float((fin[acc] > t_a).sum()),
+                   "degraded": bool(degraded and executed),
+                   "mode": -1, "state_idx": -1, "start": 0.0,
+                   "finish": 0.0, "exec_time": 0.0, "latency": 0.0,
+                   "reward": 0.0}
+
+            if executed:
+                # ---- sense against each device's last admitted work ---
+                omask = busy > start
+                omask[acc] = False
+                omask &= slot_mode >= 0
+                idx = np.nonzero(omask)[0]
+                o_modes = [int(slot_mode[j]) for j in idx]
+                o_fps = [float(slot_fp[j]) for j in idx]
+                state_idx = cstate.observe_host(
+                    active_modes=o_modes, active_footprints=o_fps,
+                    needed_tiles=[slot_tiles[j] for j in idx],
+                    target_tiles=tiles, target_footprint=footprint,
+                    geom=self.geom, device=dev)
+                ctx = DecisionContext(
+                    acc_id=acc, acc_name=self.profiles[acc].name,
+                    footprint=footprint, state_idx=state_idx,
+                    active_modes=o_modes,
+                    active_footprint=float(slot_fp[idx].sum()),
+                    available=self.masks[acc].tolist(),
+                    soc=self.soc, rng=rng, active_footprints=o_fps,
+                    target_tiles=tiles, profile=self.pmat[acc],
+                    warm=1.0, slack=dl - t_a,
+                    reuse=t_a - float(busy[acc]))
+                mode = int(policy.decide(ctx))
+                if degraded:
+                    # graceful overload degradation (the serve step's rule)
+                    mode = _NC
+                if not self.masks[acc][mode] or not np.isfinite(footprint):
+                    mode = _NC
+
+                frow = None
+                if faults is not None:
+                    fr = fault_mod.fault_row(faults, i, acc, fault_u[i])
+                    frow = fault_mod.StepFault(*(v.reshape(1) for v in fr))
+                # the other devices' last admitted work, in accelerator
+                # order, as the timing model's slots
+                slots = np.zeros((MAX_SLOTS, 3 + n_tiles), np.float32)
+                slots[:, 0] = -1.0
+                for k, j in enumerate(idx[:MAX_SLOTS]):
+                    slots[k, 0] = slot_mode[j]
+                    slots[k, 1] = j
+                    slots[k, 2] = slot_fp[j]
+                    slots[k, 3:] = slot_tiles[j]
+                self.invocations += 1
+                packed = np.concatenate([
+                    np.asarray([mode, acc, footprint, 1.0], np.float32),
+                    tiles.astype(np.float32), slots.reshape(-1)])
+                out = self.perf_fn(packed, frow)
+                exec_t = float(out[0])
+                finish = start + exec_t
+                meas = np.asarray([out[0], out[1], out[2], out[3],
+                                   footprint], np.float32)
+                mt = torch.from_numpy(meas).to(dev)
+                r, reward_state, _ = rewards.evaluate(
+                    reward_state, self._acc_t[acc],
+                    rewards.Measurement(*mt[:, None]), w)
+                r = float(r[0])
+                if train:
+                    policy.observe_reward(ctx, mode, r)
+                fin[acc][head[acc]] = finish
+                head[acc] = (head[acc] + 1) % queue_cap
+                busy[acc] = finish
+                slot_mode[acc] = mode
+                slot_fp[acc] = footprint
+                slot_tiles[acc] = tiles
+                rec.update(mode=mode, state_idx=state_idx, start=start,
+                           finish=finish, exec_time=exec_t,
+                           latency=finish - t_a, reward=r)
+
+            # ---- overload watchdog (EMA of the shed indicator) --------
+            pressure = ((1.0 - pressure_beta) * pressure
+                        + pressure_beta * (0.0 if executed else 1.0))
+            if overload_frac > 0.0 and pressure > overload_frac:
+                tripped = True
+            elif pressure < 0.5 * overload_frac:
+                tripped = False
+            records.append(rec)
+        return records
+
     # ------------------------------------------------------------- helpers
     def _warmth_after(self, mode: int, footprint: float) -> float:
         """:func:`repro_torch.soc.memsys.warmth_after` of one invocation,

@@ -311,17 +311,23 @@ def _lane_rows(spec: vec.PolicySpec, k: int) -> vec.PolicySpec:
 
 
 class StackedVecEnv:
-    """K SoCs as one batched environment (always the gated step).
+    """K SoCs as one batched environment (always the gated,
+    demand-cached step with presampled noise).
 
     Built from configs (profiles resolved from ``seed``/``flavors``, as
     :class:`~repro_torch.soc.vecenv.VecEnv` does) or from per-lane
     environments.  Every public entry point runs all its lanes in one
-    kernel launch; :attr:`calls` counts the entry points used."""
+    kernel launch; :attr:`calls` counts the entry points used.
+    ``fused_step=False`` (``None`` fuses) runs the episodes through the
+    unfused plain PyTorch step lane by lane instead
+    (:func:`~repro_torch.soc.vecenv.run_episodes_unfused`, bitwise the
+    same); serving always runs the fused serve step."""
 
     def __init__(self, socs: Sequence[SoCConfig], seed: int = 0,
                  flavors: Sequence[str] | str = "mixed",
                  envs: Sequence[vec.VecEnv] | None = None,
-                 cycle_time: float = 1e-8, device=None):
+                 cycle_time: float = 1e-8, device=None,
+                 fused_step: bool | None = None):
         if envs is None:
             if isinstance(flavors, str):
                 flavors = [flavors] * len(socs)
@@ -350,6 +356,7 @@ class StackedVecEnv:
                          device=self.device)
             for f in SoCStatic._fields))
         self.n_accs = n_accs
+        self.fused_step = True if fused_step is None else bool(fused_step)
         self.params = vec.LaneParams(pmat=pmat, masks=masks, static=static)
         self.calls = collections.Counter()
 
@@ -362,7 +369,8 @@ class StackedVecEnv:
         environments) — the execution half of :func:`length_buckets`."""
         return StackedVecEnv([self.socs[i] for i in lanes],
                              envs=[self.envs[i] for i in lanes],
-                             cycle_time=self.cycle_time)
+                             cycle_time=self.cycle_time,
+                             fused_step=self.fused_step)
 
     def compile(self, apps: Sequence[Application],
                 seed: int | Sequence[int] = 0) -> StackedApps:
@@ -404,6 +412,10 @@ class StackedVecEnv:
         per-lane lists of ``(QState, EpisodeResult)`` (``((QState,
         MLPQState), EpisodeResult)`` for MLP specs)."""
         specs = [vec._batched(spec) for spec in specs]
+        if not self.fused_step:
+            return self._episodes_lanes_unfused(
+                scheds, specs, cfgs, weights, keys, n_phases=n_phases,
+                n_threads=n_threads, faults=faults)
         xs_l, inc_l, counts = [], [], []
         row = 0
         for k, (sched, spec, cfg) in enumerate(zip(scheds, specs, cfgs)):
@@ -452,6 +464,24 @@ class StackedVecEnv:
                 wpack=res[1][sl], step=spec.mlp.step + mlp_inc.sum(
                     -1, dtype=torch.int32))), er))
             row += counts[k]
+        return out
+
+    def _episodes_lanes_unfused(self, scheds, specs, cfgs, weights, keys,
+                                *, n_phases: int, n_threads: int,
+                                faults=None):
+        """:meth:`_episodes_lanes` through the unfused step, one lane at a
+        time (``specs`` already batched)."""
+        out, row = [], 0
+        for k, (sched, spec, cfg) in enumerate(zip(scheds, specs, cfgs)):
+            n = spec.learned.shape[0]
+            w = rewards.RewardWeights(*(
+                v[row:row + n] if torch.is_tensor(v) and v.dim() else v
+                for v in weights))
+            out.append(vec.run_episodes_unfused(
+                self._lane_params(k), sched, spec, cfg, w,
+                keys[row:row + n], n_phases=n_phases, n_threads=n_threads,
+                cycle_time=self.cycle_time, gated=True, faults=faults))
+            row += n
         return out
 
     # ------------------------------------------------------------ lowering

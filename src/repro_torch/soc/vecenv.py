@@ -49,7 +49,7 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch import resolve_device
-from repro_torch.core import qlearn, rewards
+from repro_torch.core import qlearn, rewards, state as cstate
 from repro_torch.core.modes import CoherenceMode, N_MODES
 from repro_torch.core.policies import EXTRA_SMALL_THRESHOLD
 from repro_torch.kernels.soc_step import ops as soc_step_ops
@@ -63,7 +63,9 @@ from repro_torch.soc.des import Application, stripe_tiles
 from repro_torch.soc import faults as fault_mod
 from repro_torch.soc import nn as socnn
 from repro_torch.soc import traffic as traffic_mod
-from repro_torch.soc.memsys import SoCStatic
+from repro_torch.soc.memsys import (SoCStatic, dma_demand,
+                                    invocation_perf_cached, static_tensors,
+                                    warmth_after)
 
 _NC = int(CoherenceMode.NON_COH_DMA)
 
@@ -551,6 +553,227 @@ def run_episodes(params: LaneParams, sched: Schedule, specs: PolicySpec,
         -1, dtype=torch.int32))), res
 
 
+def _decayed(cfg: qlearn.QConfig, step, frozen):
+    """``(eps, alpha)`` ``(N,)`` at the carried counters ``step (N,)``,
+    the arithmetic :func:`~repro_torch.core.qlearn.decay_arrays` uses (the
+    episode passes ``cfg`` as an argument, so it divides)."""
+    zero = torch.zeros((step.shape[0], 1), dtype=torch.int32,
+                       device=step.device)
+    eps, alpha = qlearn.decay_arrays(cfg, step, frozen, zero)
+    return eps[:, 0], alpha[:, 0]
+
+
+def run_episodes_unfused(params: LaneParams, sched: Schedule,
+                         specs: PolicySpec, cfg: qlearn.QConfig, weights,
+                         keys, *, n_phases: int, n_threads: int,
+                         cycle_time: float, demand_cache: bool = True,
+                         presample_noise: bool = True, gated: bool = False,
+                         ddr_attribution: bool = False, faults=None,
+                         debug_finite: bool = False):
+    """``N`` episodes of a batched spec through the unfused step: plain
+    PyTorch ops step by step, the reference's pre-kernel scan.  Same
+    arguments and results as :func:`run_episodes`, which it equals
+    bitwise with ``demand_cache`` and ``presample_noise``.
+
+    The step senses, selects with the epsilon and alpha decayed from the
+    carried counter, times, rewards and then updates the Q-table and
+    visits (select and update apart, the decay in the loop).
+    ``demand_cache=False`` recomputes every concurrent slot's demand from
+    its profile row each step instead of caching it in the slot table;
+    ``presample_noise=False`` splits each agent's key every step and draws
+    the select noise from the split (``select``'s protocol) instead of
+    presampling the episode's noise from the key."""
+    if ddr_attribution and not demand_cache:
+        raise ValueError("ddr_attribution requires the demand_cache step")
+    specs = _batched(specs)
+    qs0, mlp = specs.qstate, specs.mlp
+    if mlp is not None and not (demand_cache and presample_noise):
+        raise ValueError(
+            "MLP PolicySpecs require the demand_cache + presample_noise "
+            "fast path (the sense features read the cached per-slot "
+            "demand)")
+    pmat, masks = params.pmat, params.masks
+    dev = pmat.device
+    n = qs0.qtable.shape[0]
+    n_steps, T = sched.others.shape
+    n_tiles = sched.tiles.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    ar = torch.arange(n, device=dev)
+    s = static_tensors(params.static, n, dev)
+    geom, warm_cap = soc_step_ref.derive_geom(s)
+    w = rewards.RewardWeights(*(torch.as_tensor(v, device=dev).to(
+        f32).expand(n) for v in weights))
+    learned = specs.learned.expand(n)
+    keys = keys.to(dev)
+    noise = (qlearn.sample_select_noise(keys, (n_steps,), masks.shape[-1])
+             if presample_noise else None)
+    frows = (None if faults is None
+             else fault_mod.sample_fault_arrays(faults, sched.acc_id))
+    if mlp is not None:
+        dims = socnn.mlp_dims(mlp.cfg)
+        qfun = specs.qfun.expand(n)
+        frozen_m = torch.where(qfun, mlp.frozen, qs0.frozen)
+        mstep = torch.where(qfun, mlp.step, qs0.step)
+        wpack = mlp.wpack.to(f32)
+        lr = mlp.lr.to(f32).expand(n)
+
+    qtable = qs0.qtable.to(f32).clone()
+    visits = qs0.visits.clone()
+    step = qs0.step.clone()
+    extrema = rewards.init_reward_state(pmat.shape[0], (n,), dev).extrema
+    tbl_mode = torch.full((n, T), -1, dtype=i32, device=dev)
+    tbl_acc = torch.full((n, T), -1, dtype=i32, device=dev)
+    tbl_fp = torch.zeros((n, T), dtype=f32, device=dev)
+    tbl_tiles = torch.zeros((n, T, n_tiles), dtype=torch.bool, device=dev)
+    tbl_warm = torch.ones((n, T), dtype=f32, device=dev)
+    tbl_dram = torch.zeros((n, T), dtype=f32, device=dev)
+    tbl_llc = torch.zeros((n, T), dtype=f32, device=dev)
+    tbl_fpt = torch.zeros((n, T), dtype=f32, device=dev)
+    ys = []
+    for i in range(n_steps):
+        acc = sched.acc_id[i].long().expand(n)
+        fp = sched.footprint[i].expand(n)
+        tiles = sched.tiles[i].expand(n, n_tiles)
+        thread = sched.thread[i].long()
+        valid = sched.valid[i].expand(n)
+        profile, avail = pmat[acc], masks[acc]
+
+        # ---- sense: the concurrent slots this thread sees
+        omask = sched.others[i][None, :] & (tbl_mode >= 0)
+        omodes = torch.where(omask, tbl_mode, -1)
+        ofps = torch.where(omask, tbl_fp, 0.0)
+        otiles = tbl_tiles & omask[..., None]
+        if demand_cache:
+            ofpt = torch.where(omask, tbl_fpt, 0.0)
+            odram = torch.where(omask, tbl_dram, 0.0)
+            ollc = torch.where(omask, tbl_llc, 0.0)
+        else:
+            ofpt = None
+        state_idx = cstate.observe(
+            active_modes=omodes, active_footprints=ofps,
+            needed_tiles=otiles, target_tiles=tiles, target_footprint=fp,
+            geom=geom, active_fp_per_tile=ofpt)
+        warm_t = torch.where(sched.fresh[i], torch.ones_like(fp),
+                             tbl_warm[:, thread])
+
+        # ---- select: epsilon-greedy Q vs the spec's precomputed mode
+        if presample_noise:
+            nz = qlearn.SelectNoise(*(v[:, i] for v in noise))
+        else:
+            ks = prng.split(keys)
+            keys, nz = ks[:, 0], qlearn.key_noise(ks[:, 1], masks.shape[-1])
+        eps, alpha = _decayed(cfg, step, qs0.frozen)
+        row = qtable[ar, state_idx.long()]
+        row_sel, learned_eff = row, learned
+        if mlp is not None:
+            feats = socnn.step_features(
+                mlp.cfg.features, s, state_idx, footprint=fp, tiles=tiles,
+                omask=omask, omodes=omodes, ofps=ofps, odram=odram,
+                warm_t=warm_t, profile=profile, slack=0.0, reuse=0.0)
+            hs = socnn.forward_layers(wpack, feats, dims)
+            row_sel = torch.where(qfun[:, None], hs[-1], row)
+            eps, alpha_m = _decayed(cfg, mstep, frozen_m)
+            learned_eff = learned | qfun
+        q_action = qlearn.row_select_presampled(row_sel, eps, nz, avail)
+        action = torch.where(learned_eff, q_action,
+                             specs.modes[:, i].expand(n)).to(i32)
+
+        # ---- time and reward the actuated mode
+        ok = (torch.gather(avail, 1, action.long()[:, None])[:, 0]
+              & torch.isfinite(fp))
+        mode = torch.where(ok, action, _NC).to(i32)
+        fault = (None if frows is None else fault_mod.StepFault(
+            *(v[i].expand(n) for v in frows)))
+        if demand_cache:
+            m, aux = invocation_perf_cached(
+                mode, profile, fp, tiles, omodes, odram, ollc, ofps, otiles,
+                warm_t, s, fault=fault)
+        else:
+            oprof = torch.where(omask[..., None],
+                                pmat[torch.clamp(tbl_acc, min=0).long()],
+                                0.0)
+            st = SoCStatic(*(v[..., None] if torch.is_tensor(v) else v
+                             for v in s))
+            od_dram, od_llc = dma_demand(omodes, oprof, ofps, st)
+            m, aux = invocation_perf_cached(
+                mode, profile, fp, tiles, omodes, od_dram, od_llc, ofps,
+                otiles, warm_t, s, fault=fault)
+        off_reward = m.offchip_accesses
+        if ddr_attribution:
+            myt = tiles.to(f32)
+            n_my = torch.clamp(seqsum(myt, -1), min=1.0)
+            ot = otiles.to(f32)
+            o_nt = torch.clamp(seqsum(ot, -1), min=1.0)
+            my_fp_t = (fp / n_my)[:, None] * myt
+            o_fp_t = seqsum(ofpt[..., None] * ot, -2)
+            share = my_fp_t / torch.clamp(my_fp_t + o_fp_t, min=1e-9)
+            my_bpt = (m.offchip_accesses * s.line / n_my)[:, None] * myt
+            o_bpt = seqsum(((odram * m.exec_time[:, None]) / o_nt)[..., None]
+                           * ot, -2)
+            off_reward = seqsum(share * (my_bpt + o_bpt), -1) / s.line
+        meas = rewards.Measurement(
+            exec_time=m.exec_time, comm_cycles=m.comm_cycles,
+            total_cycles=m.total_cycles, offchip_accesses=off_reward,
+            footprint=fp)
+        r, rs_new, _ = rewards.evaluate(rewards.RewardState(extrema), acc,
+                                        meas, w)
+
+        # ---- learn: the table row (a no-op for frozen and placeholder
+        # agents) and, for qfun specs, the network
+        keep = valid if gated else torch.ones_like(valid)
+        new_row = qlearn.row_update(row, alpha, action, r)
+        if mlp is not None:
+            new_row = torch.where(qfun[:, None], row, new_row)
+            wpack = socnn.td_update_from(
+                wpack, hs, action, r, alpha_m * lr, dims,
+                (qfun & valid) if gated else qfun)
+            mstep = mstep + (keep & ~frozen_m).to(i32)
+        inc = (keep & ~qs0.frozen).to(i32)
+        if mlp is not None:
+            inc = torch.where(qfun, 0, inc)
+        sidx = state_idx.long()
+        qtable[ar, sidx] = torch.where(keep[:, None], new_row, row)
+        hot = (torch.arange(visits.shape[-1], device=dev)[None, :]
+               == action[:, None]).to(i32)
+        visits[ar, sidx] = visits[ar, sidx] + hot * inc[:, None]
+        step = step + inc
+        extrema = torch.where(keep[:, None, None], rs_new.extrema, extrema)
+
+        # ---- bookkeeping: this thread's slot (and its cached demand)
+        new = dict(mode=mode, acc=acc.to(i32), fp=fp,
+                   warm=warmth_after(mode, fp, warm_cap),
+                   dram=aux["demand_dram"], llc=aux["demand_llc"],
+                   fpt=fp / torch.clamp(tiles.to(i32).sum(-1),
+                                        min=1).to(f32))
+        for name, tbl in (("mode", tbl_mode), ("acc", tbl_acc),
+                          ("fp", tbl_fp), ("warm", tbl_warm),
+                          ("dram", tbl_dram), ("llc", tbl_llc),
+                          ("fpt", tbl_fpt)):
+            tbl[:, thread] = torch.where(keep, new[name], tbl[:, thread])
+        tbl_tiles[:, thread] = torch.where(keep[:, None], tiles,
+                                           tbl_tiles[:, thread])
+        ys.append((mode, state_idx.to(i32), m.exec_time,
+                   m.offchip_accesses, r))
+
+    mode, state_idx, exec_c, off, rew = (torch.stack(v, -1)
+                                         for v in zip(*ys))
+    qs = qlearn.QState(qtable=qtable, visits=visits, step=step,
+                       frozen=qs0.frozen)
+    if debug_finite:
+        qlearn.debug_finite_check("vecenv.episode", reward=rew,
+                                  qtable=qtable)
+    segments = phase_segments(sched, n_phases, n_threads)
+    phases = phase_metrics(exec_c, off, segments, n_phases=n_phases,
+                           n_threads=n_threads, cycle_time=cycle_time)
+    res = EpisodeResult(phase_time=phases[0], phase_offchip=phases[1],
+                        mode=mode, state_idx=state_idx, exec_time=exec_c,
+                        offchip=off, reward=rew)
+    if mlp is None:
+        return qs, res
+    return (qs, mlp._replace(wpack=wpack, step=torch.where(
+        qfun, mstep, mlp.step))), res
+
+
 class TrainCarry(NamedTuple):
     """Cross-iteration training state beyond the Q-state: the main key
     stream (split 3 ways per iteration), the iteration index (folded into
@@ -587,14 +810,36 @@ class VecEnv:
     ``debug_finite=True`` checks every episode's rewards and trained
     Q-table and raises ``FloatingPointError`` on a non-finite value (it
     synchronizes with the card after each launch).
+
+    ``fused_step`` picks the episode's step: the fused kernel
+    (:func:`run_episodes`) or the unfused plain PyTorch step
+    (:func:`run_episodes_unfused`), which equals it bitwise.  ``None`` (the
+    default) fuses whenever ``demand_cache`` and ``presample_noise`` both
+    hold, the fast path the kernel fuses; ``demand_cache=False`` (every
+    slot's demand recomputed each step) and ``presample_noise=False``
+    (per-step key splitting) are the unfused step's ablations, which the
+    throughput benchmark measures.  ``ddr_attribution`` needs the demand
+    cache.  Serving always runs the fused serve step.
     """
 
     def __init__(self, soc: SoCConfig,
                  profiles: Sequence[AccProfile] | None = None,
                  seed: int = 0, flavor: str = "mixed",
-                 cycle_time: float = 1e-8, ddr_attribution: bool = False,
+                 cycle_time: float = 1e-8, demand_cache: bool = True,
+                 presample_noise: bool = True,
+                 ddr_attribution: bool = False,
+                 fused_step: bool | None = None,
                  debug_finite: bool = False, device=None):
         self.soc = soc
+        self.demand_cache = bool(demand_cache)
+        self.presample_noise = bool(presample_noise)
+        if ddr_attribution and not self.demand_cache:
+            raise ValueError("ddr_attribution requires demand_cache=True")
+        fast = self.demand_cache and self.presample_noise
+        if fused_step and not fast:
+            raise ValueError("fused_step requires demand_cache=True and "
+                             "presample_noise=True")
+        self.fused_step = fast if fused_step is None else bool(fused_step)
         self.device = resolve_device(device)
         rng = np.random.default_rng(seed)
         self.profiles = list(profiles) if profiles is not None else (
@@ -616,12 +861,17 @@ class VecEnv:
 
     @classmethod
     def from_simulator(cls, sim, cycle_time: float = 1e-8,
+                       demand_cache: bool = True,
+                       presample_noise: bool = True,
                        ddr_attribution: bool = False,
+                       fused_step: bool | None = None,
                        debug_finite: bool = False) -> "VecEnv":
         """The scale-path twin of a :class:`~repro_torch.soc.des.
         SoCSimulator`: its SoC, profiles and device."""
         return cls(sim.soc, profiles=sim.profiles, cycle_time=cycle_time,
-                   ddr_attribution=ddr_attribution,
+                   demand_cache=demand_cache,
+                   presample_noise=presample_noise,
+                   ddr_attribution=ddr_attribution, fused_step=fused_step,
                    debug_finite=debug_finite, device=sim.device)
 
     def _sched(self, compiled: CompiledApp) -> Schedule:
@@ -629,12 +879,17 @@ class VecEnv:
 
     def _run(self, compiled: CompiledApp, sched: Schedule, specs, cfg,
              weights, keys, faults=None):
-        return run_episodes(
+        kw = dict(n_phases=compiled.n_phases, n_threads=compiled.n_threads,
+                  cycle_time=self.cycle_time,
+                  ddr_attribution=self.ddr_attribution, faults=faults,
+                  debug_finite=self.debug_finite)
+        if self.fused_step:
+            return run_episodes(self.params, sched, specs, cfg, weights,
+                                keys, **kw)
+        return run_episodes_unfused(
             self.params, sched, specs, cfg, weights, keys,
-            n_phases=compiled.n_phases, n_threads=compiled.n_threads,
-            cycle_time=self.cycle_time,
-            ddr_attribution=self.ddr_attribution, faults=faults,
-            debug_finite=self.debug_finite)
+            demand_cache=self.demand_cache,
+            presample_noise=self.presample_noise, **kw)
 
     # -------------------------------------------------------- spec lowering
     def lower(self, compiled: CompiledApp, policy: str = "q",

@@ -1,10 +1,11 @@
-"""float32 ``log``, ``log1p`` and ``erf_inv`` as XLA's CPU backend computes
-them, operation for operation.
+"""float32 ``log``, ``log1p``, ``exp`` and ``erf_inv`` as XLA's CPU backend
+computes them, operation for operation.
 
 XLA lowers ``log`` on the CPU to a Cephes-style polynomial (the argument
 split into mantissa and exponent) and ``log1p`` to a Cephes rational
 approximation below ``sqrt(2) - 1`` and ``log(1 + x)`` above it; neither
-is the correctly rounded logarithm ``torch.log`` gives.  ``erf_inv`` is
+is the correctly rounded logarithm ``torch.log`` gives.  ``exp`` is the
+Cephes polynomial on the argument reduced by ``ln 2``.  ``erf_inv`` is
 Giles' polynomial in ``w = -log1p(-x * x)``.  Every multiply and add here
 rounds on its own, so these equal the reference compiled without fused
 multiply-add bit for bit (``tests/test_torch_random.py``,
@@ -39,6 +40,13 @@ _L1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
             2.2176239823732856465394e2, 3.0909872225312059774938e2,
             2.1642788614495947685003e2, 6.0118660497603843919306e1)
 _L1P_SMALL = f32(0.41421356237309504880)
+# exp (Cephes): the argument's range, log2(e), and the polynomial of the
+# reduced argument, highest power first
+_EXP_HI, _EXP_LO = f32(88.3762626647950), f32(-88.3762626647949)
+_LOG2E = f32(1.44269504088896341)
+_EXP_P = tuple(f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
 # erf_inv (Giles): coefficients for w < 5, then for w >= 5
 _EI_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
            0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
@@ -79,6 +87,23 @@ def log(x: torch.Tensor) -> torch.Tensor:
     t = torch.where((x >= 0.0) & (x < _MIN_NORM), -float("inf"), t)
     t = torch.where(x == float("inf"), float("inf"), t)
     return torch.where((x < 0.0) | torch.isnan(x), float("nan"), t)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 exponential for inputs in (-87, 87), where the
+    result is a normal float32 (XLA's edges of overflow and underflow
+    differ); NaN passes through."""
+    x = x.to(torch.float32)
+    t = torch.clamp(x, _EXP_LO, _EXP_HI)
+    fx = torch.floor(t * _LOG2E + f32(0.5))
+    r = (t - fx * _LOG_Q2) - fx * _LOG_Q1
+    z = r * r
+    y = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = y * r + c
+    y = (y * z + r) + 1.0
+    pow2n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(torch.isnan(x), x, y * pow2n)
 
 
 def _poly(x, coeffs):

@@ -81,16 +81,22 @@ def test_new_subpackages_are_covered():
 
 def test_chip_smoke_and_port_drivers_load_no_jax():
     """chip_smoke.py and the port drivers it runs import neither JAX nor
-    repro, at import and on the port's path (Fig. 10 and Fig. 13 at a tiny
-    size, and the Qwen3, rwkv6, granite and recurrentgemma smoke
-    serves)."""
+    repro, at import and on the port's path (Fig. 10, Fig. 11's DES
+    cross-check, Fig. 12 and Fig. 13 at a tiny size, and the Qwen3,
+    rwkv6, granite and recurrentgemma smoke serves); nor do the throughput
+    and overhead drivers and ``soc.shard``."""
     root = SRC.parent
     code = (
         "import sys\n"
         "import chip_smoke\n"
         "from benchmarks import torch_fig9_socs, torch_fig11_serving\n"
+        "from benchmarks import torch_vecenv_throughput, torch_overhead\n"
         "from benchmarks import torch_fig10_faults as f10\n"
+        "from benchmarks import torch_fig12_dse as f12\n"
         "from benchmarks import torch_fig13_generalize as f13\n"
+        "from repro_torch.soc import shard\n"
+        "assert torch_fig11_serving.des_crosscheck('cpu', n=32)['agree']\n"
+        "assert f12.run_port('cpu', n=4)['_engine']['calls_ok']\n"
         "from repro_torch.configs import smoke_config\n"
         "from repro_torch.launch import serve\n"
         "f10.run_port('cpu', iters=1, n_phases=2)\n"
