@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from this checkout, one ``nvcc`` per
 source, started together (``soc_step.cu``: ``soc_step_episode`` and
-``soc_step_serve``, each in a healthy and a faulted instantiation, and the
-episode kernel's MLP instantiations, healthy and faulted;
+``soc_step_serve``, each in a healthy and a faulted instantiation, and
+each kernel's MLP instantiations, healthy and faulted (K1m and K2m);
 ``flash_attention.cu``: K3; ``rwkv6_scan.cu``: K5; ``moe_gmm.cu``: K4;
 ``rglru_scan.cu``: K6), and holds each
 against its plain PyTorch version at the shapes its paths give it; checks the card against the CPU
@@ -162,6 +162,35 @@ more paths, each with the counts set to 0 before it and read after:
     admission mismatches, latencies within the reference's bound; 13
     serve-kernel launches (the probe and 12 streams), asserted.
 
+Then two more paths, each with the counts set to 0 before it and read
+after:
+
+  * MLP-agent serving at Fig. 11's shape: on SoC1 and Fig. 11's
+    application, a Q-table trained as Fig. 11 trains it (21 episode
+    launches) and a (14, 16, 16, 4) sense network (Fig. 13's MLPConfig)
+    trained through K1m for as many iterations (10); then four policies
+    in one batch, the learning network, its frozen copy, the Q-table and
+    fixed NON_COH (the last two with placeholder networks), serve 1,024
+    requests at Fig. 11's five offered loads (5 K2m launches) and under
+    ``storm(1024, 0.7, PRNGKey(42))`` (1 K2m-faulted), asserted; every
+    launch is held bitwise against ``ref.serve_episode_ref`` on its own
+    inputs (traces and carries, packs included), the learning network's
+    pack must move and the frozen one's stay.  After it the card is held
+    against the CPU on a small MLP stream (SoC1, 128 requests,
+    overloaded, under a storm) and a checkpointed MLP stream killed after
+    one of three chunks is resumed, bitwise the uninterrupted one;
+  * gemma2-9b serving at full width, after K3 is held against its plain
+    version at the path's prefill (4, 16 over 8 kv heads, 2,048, head dim
+    256; causal and window 4,096) and decode (one row over 2,049 of
+    2,080 rows) shapes with soft-cap 50, in bf16 and float32, and its
+    coverage probes run there, and after the card is held against the
+    CPU on the Gemma-2 smoke serve: random float32 weights (9.24 B
+    parameters) made on the card from a seed, the same 4 prompts of
+    2,048 tokens and 32 greedy tokens, bf16 compute, every attention
+    through K3 with soft-cap 50 (42 ``tc_prefill`` and 42 x 32
+    ``split_decode`` launches, asserted), finite logits inside the final
+    soft-cap of 30; the peak memory is printed.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -184,8 +213,9 @@ results must equal this run's (``chiprun_out/*_parent_kernels.json``).
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
-version, its bound and, for K3 (at the Qwen3, granite and recurrentgemma
-prefill and decode shapes, as 20 launches in a row, the ``ms`` of every
+version, its bound and, for K3 (at the Qwen3, granite, recurrentgemma
+and gemma2-9b prefill and decode shapes (SDPA without gemma2's soft-cap,
+which no PyTorch call applies), as 20 launches in a row, the ``ms`` of every
 kernel, and as the device time of a CUDA graph of 20 launches), PyTorch's
 ``scaled_dot_product_attention`` on the same inputs, for K4 (at the
 granite path's prefill gate/up and down and decode gate/up and down
@@ -234,8 +264,14 @@ SERVE_INT_COLS = ("mode", "state_idx", "action", "executed", "retries",
 KERNELS = ("soc_step_episode", "soc_step_serve", "soc_step_episode_faulted",
            "soc_step_serve_faulted", "soc_step_episode_mlp",
            "soc_step_episode_mlp_faulted", "flash_attention", "rwkv6_scan",
-           "moe_gmm", "rglru_scan")
-SOC_KERNELS = KERNELS[:6]
+           "moe_gmm", "rglru_scan", "soc_step_serve_mlp",
+           "soc_step_serve_mlp_faulted")
+SOC_KERNELS = KERNELS[:6] + KERNELS[10:]
+
+
+def launches(**by_name) -> tuple:
+    """A launch-count tuple in :data:`KERNELS` order, 0 where unnamed."""
+    return tuple(by_name.get(k, 0) for k in KERNELS)
 # held against their plain versions only: no path of the reference runs
 # an MLP agent under faults
 OFF_PATH = ("soc_step_episode_mlp_faulted",)
@@ -281,6 +317,12 @@ RG_SHAPES = [(2, 128, 32), (1, 256, 64), (3, 64, 16)]
 RG_TOL = 1e-5
 RG_WINDOW = 2048
 FA_RG_PREFILL = (QWEN_BATCH, 16, 1, QWEN_PROMPT, QWEN_PROMPT, 256)
+# gemma2-9b's serving path: 16 heads over 8 kv heads of 256, soft-cap 50;
+# its local layers' window (4,096) is longer than the path's 2,080 rows
+FA_GM_PREFILL = (QWEN_BATCH, 16, 8, QWEN_PROMPT, QWEN_PROMPT, 256)
+FA_GM_DECODE = (QWEN_BATCH, 16, 8, 1, QWEN_PROMPT + 1, 256,
+                QWEN_PROMPT + QWEN_GEN)
+GM_SOFTCAP, GM_WINDOW = 50.0, 4096
 FA_RG_DECODE = (QWEN_BATCH, 16, 1, 1, RG_WINDOW, 256)
 # K3 at the granite-moe-3b-a800m serving path's shapes: 24 query heads over
 # 8 kv heads of 64, the same prompt and cache as Qwen3's
@@ -315,6 +357,14 @@ def event_ms(torch, fn, reps: int) -> float:
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / reps
+
+
+def same_carry(torch, a, b) -> bool:
+    """Two serve carries bitwise equal, leaf by leaf (a table stream's
+    ``wpack`` is None in both)."""
+    return all((x is None and y is None)
+               or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in zip(a, b))
 
 
 def compare_cols(torch, what, cols, got, want, int_cols):
@@ -780,6 +830,10 @@ def main() -> None:
         """Integer leaves equal, floats within TOL (or equal when named
         in ``exact_float``)."""
         for f in want._fields:
+            if getattr(want, f) is None:      # a table stream's wpack
+                if getattr(got, f) is not None:
+                    fail(f"{what}: {f} differs")
+                continue
             a, r = getattr(got, f).cpu(), getattr(want, f).cpu()
             ok = (torch.equal(a, r) if not a.is_floating_point()
                   or f in exact_float
@@ -928,7 +982,8 @@ def main() -> None:
                     soc_ops.fault_launches, soc_ops.fault_serve_launches,
                     soc_ops.mlp_launches, soc_ops.mlp_fault_launches,
                     fa_ops.launches, rw_ops.launches, gmm_ops.launches,
-                    rg_ops.launches)
+                    rg_ops.launches, soc_ops.mlp_serve_launches,
+                    soc_ops.mlp_fault_serve_launches)
 
     def reset_counts():
         soc_ops.reset_launches()
@@ -984,7 +1039,7 @@ def main() -> None:
     t_end = time.perf_counter()
     counts["fig6"] = read()
     expected = ITERS + 2 + 1   # train iterations, baseline + eval, suite
-    if counts["fig6"] != (expected, 0, 0, 0, 0, 0, 0, 0, 0, 0):
+    if counts["fig6"] != launches(soc_step_episode=expected):
         fail(f"Fig. 6 launched {dict(zip(KERNELS, counts['fig6']))}, "
              f"expected {expected} of {KERNELS[0]} only")
     if res.n_agents != b or res.qstates.qtable.shape != (b, 243, 4):
@@ -1028,8 +1083,7 @@ def main() -> None:
     fig9_s = time.perf_counter() - t9
     counts["fig9"] = read()
     e9 = r9["_engine"]
-    if counts["fig9"] != (e9["expected_launches"], 0, 0, 0, 0, 0, 0, 0,
-                          0, 0):
+    if counts["fig9"] != launches(soc_step_episode=e9["expected_launches"]):
         fail(f"Fig. 9 launched {dict(zip(KERNELS, counts['fig9']))}, "
              f"expected {e9['expected_launches']} of {KERNELS[0]} only")
     if (e9["train_calls"], e9["eval_calls"]) != (1, 1):
@@ -1068,8 +1122,8 @@ def main() -> None:
     fig11_s = time.perf_counter() - t11
     counts["fig11"] = read()
     e11 = r11["_engine"]
-    want11 = (e11["expected_episode_launches"],
-              e11["expected_serve_launches"], 0, 0, 0, 0, 0, 0, 0, 0)
+    want11 = launches(soc_step_episode=e11["expected_episode_launches"],
+                      soc_step_serve=e11["expected_serve_launches"])
     if counts["fig11"] != want11:
         fail(f"Fig. 11 launched {dict(zip(KERNELS, counts['fig11']))}, "
              f"expected {dict(zip(KERNELS, want11))}")
@@ -1149,7 +1203,7 @@ def main() -> None:
         what = f"{name} vs plain ({mult:g}x load)"
         err = compare_cols(torch, what, soc_ref.SERVE_YCOLS, ky, ry,
                            SERVE_INT_COLS)
-        for f in soc_ref.ServeCarry._fields:
+        for f in soc_ref.ServeCarry._fields[:-1]:   # no wpack
             a, r = getattr(kc, f), getattr(rc, f)
             if not torch.allclose(a.float(), r.float(), rtol=TOL, atol=TOL):
                 fail(f"{what}: carry {f} differs")
@@ -1176,7 +1230,7 @@ def main() -> None:
                 xf[:, h:].contiguous(), xi[:, h:].contiguous(),
                 xv[:, h:].contiguous(), consts, c1, **kw)
             if not (torch.equal(torch.cat([y1, y2], 1), ky)
-                    and all(torch.equal(a, r) for a, r in zip(c2, kc))):
+                    and same_carry(torch, c2, kc)):
                 fail(f"{what}: two chained half chunks differ from one")
             print(f"{what}: two chained chunks of {h} requests == one of "
                   f"{n_req}, bitwise")
@@ -1212,8 +1266,7 @@ def main() -> None:
                         c.priority[:, sl])
                     ys_.append(y_)
                 if not (torch.equal(torch.cat(ys_, 1), ry)
-                        and all(torch.equal(a, r)
-                                for a, r in zip(carry_, rc))):
+                        and same_carry(torch, carry_, rc)):
                     fail(f"soc_step_serve{'_faulted' if faulted_ else ''} "
                          f"edge grid (seed {seed_}, {len(cuts) - 1} "
                          "launches): not bitwise equal to the plain version")
@@ -1237,9 +1290,9 @@ def main() -> None:
     fig10_s = time.perf_counter() - t10
     counts["fig10"] = read()
     e10 = r10["_engine"]
-    want10 = (e10["expected_episode_launches"], 0,
-              e10["expected_fault_episode_launches"], 0, 0, 0, 0, 0, 0,
-              0)
+    want10 = launches(
+        soc_step_episode=e10["expected_episode_launches"],
+        soc_step_episode_faulted=e10["expected_fault_episode_launches"])
     if counts["fig10"] != want10 or 0 in want10[0:3:2]:
         fail(f"Fig. 10 launched {dict(zip(KERNELS, counts['fig10']))}, "
              f"expected {dict(zip(KERNELS, want10))}")
@@ -1270,8 +1323,9 @@ def main() -> None:
     torch.cuda.synchronize()
     fig10x_s = time.perf_counter() - t10x
     counts["fig10_des_xcheck"] = read()
-    want10x = (x10["expected_episode_launches"], 0,
-               x10["expected_fault_episode_launches"], 0, 0, 0, 0, 0, 0, 0)
+    want10x = launches(
+        soc_step_episode=x10["expected_episode_launches"],
+        soc_step_episode_faulted=x10["expected_fault_episode_launches"])
     if counts["fig10_des_xcheck"] != want10x:
         fail(f"Fig. 10's DES cross-check launched "
              f"{dict(zip(KERNELS, counts['fig10_des_xcheck']))}, expected "
@@ -1300,7 +1354,7 @@ def main() -> None:
     torch.cuda.synchronize()
     storm_s = time.perf_counter() - t_st
     counts["storm_serving"] = read()
-    if counts["storm_serving"] != (0, 0, 0, 1, 0, 0, 0, 0, 0, 0):
+    if counts["storm_serving"] != launches(soc_step_serve_faulted=1):
         fail(f"storm serving launched "
              f"{dict(zip(KERNELS, counts['storm_serving']))}, expected one "
              f"{KERNELS[3]}")
@@ -1363,8 +1417,9 @@ def main() -> None:
     fig13_s = time.perf_counter() - t13
     counts["fig13"] = read()
     e13 = r13["_engine"]
-    want13 = (e13["expected_episode_launches"], 0, 0, 0,
-              e13["expected_mlp_episode_launches"], 0, 0, 0, 0, 0)
+    want13 = launches(
+        soc_step_episode=e13["expected_episode_launches"],
+        soc_step_episode_mlp=e13["expected_mlp_episode_launches"])
     if counts["fig13"] != want13 or 0 in want13[0:5:4]:
         fail(f"Fig. 13 launched {dict(zip(KERNELS, counts['fig13']))}, "
              f"expected {dict(zip(KERNELS, want13))}")
@@ -1444,7 +1499,8 @@ def main() -> None:
                 k, v = kc[:, :skv], vc[:, :skv]
             out, plan = fa_kernel.launch(q, k, v, **feat)
             bad = fa_ref.probe_faults(out, fa_ref.probe_expected(
-                keys, sq, skv, h, **feat))
+                keys, sq, skv, h, **{n: x for n, x in feat.items()
+                                     if n != "softcap"}))
             if plan.body != body or bad:
                 fail(f"flash_attention coverage probe {what} pass {sweep}: "
                      f"{bad} wrong outputs ({plan.body}, not {body})")
@@ -1553,7 +1609,7 @@ def main() -> None:
     qwen_s = time.perf_counter() - t_q
     counts["qwen3_serve"] = read()
     check_bodies("qwen3_serve", qcfg.n_layers, qcfg.n_layers * QWEN_GEN)
-    want_q = (0, 0, 0, 0, 0, 0, qcfg.n_layers * (1 + QWEN_GEN), 0, 0, 0)
+    want_q = launches(flash_attention=qcfg.n_layers * (1 + QWEN_GEN))
     if counts["qwen3_serve"] != want_q:
         fail(f"Qwen3-8B serve launched "
              f"{dict(zip(KERNELS, counts['qwen3_serve']))}, expected "
@@ -1682,7 +1738,7 @@ def main() -> None:
     torch.cuda.synchronize()
     rwkv_s = time.perf_counter() - t_r
     counts["rwkv6_serve"] = read()
-    want_r = (0, 0, 0, 0, 0, 0, 0, rcfg.n_layers, 0, 0)
+    want_r = launches(rwkv6_scan=rcfg.n_layers)
     if counts["rwkv6_serve"] != want_r:
         fail(f"rwkv6-3b serve launched "
              f"{dict(zip(KERNELS, counts['rwkv6_serve']))}, expected "
@@ -1884,7 +1940,7 @@ def main() -> None:
         fail(f"granite_serve: K4 bodies {gmm_bodies}, expected {want_gmm}")
     print(f"granite_serve: K4 launches by body {gmm_bodies}")
     steps_g = gcfg.n_layers * (1 + QWEN_GEN)
-    want_g = (0, 0, 0, 0, 0, 0, steps_g, 0, 3 * steps_g, 0)
+    want_g = launches(flash_attention=steps_g, moe_gmm=3 * steps_g)
     if counts["granite_serve"] != want_g:
         fail(f"granite-moe-3b-a800m serve launched "
              f"{dict(zip(KERNELS, counts['granite_serve']))}, expected "
@@ -2042,8 +2098,9 @@ def main() -> None:
     counts["recurrentgemma_serve"] = read()
     check_bodies("recurrentgemma_serve", kinds.count("attn_local"),
                  kinds.count("attn_local") * QWEN_GEN)
-    want_c = (0, 0, 0, 0, 0, 0, kinds.count("attn_local") * (1 + QWEN_GEN),
-              0, 0, kinds.count("rg"))
+    want_c = launches(
+        flash_attention=kinds.count("attn_local") * (1 + QWEN_GEN),
+        rglru_scan=kinds.count("rg"))
     if counts["recurrentgemma_serve"] != want_c:
         fail(f"recurrentgemma-9b serve launched "
              f"{dict(zip(KERNELS, counts['recurrentgemma_serve']))}, "
@@ -2505,7 +2562,7 @@ def main() -> None:
                   f"{ev0.elapsed_time(ev1):.1f} ms on the card")
         del seen12
         e12 = r12["_engine"]
-        want12 = (e12["expected_episode_launches"],) + (0,) * 9
+        want12 = launches(soc_step_episode=e12["expected_episode_launches"])
         if counts["fig12"] != want12 or want12[0] != 16:
             fail(f"Fig. 12 launched {dict(zip(KERNELS, counts['fig12']))}, "
                  f"expected 16 of {KERNELS[0]} only")
@@ -2535,7 +2592,7 @@ def main() -> None:
         new_paths["fig11_des_xcheck"] = time.perf_counter() - t_x
         counts["fig11_des_xcheck"] = read()
         ex = x11["_engine"]
-        want_x = (0, ex["expected_serve_launches"]) + (0,) * 8
+        want_x = launches(soc_step_serve=ex["expected_serve_launches"])
         if counts["fig11_des_xcheck"] != want_x or want_x[1] != 13:
             fail(f"Fig. 11's DES cross-check launched "
                  f"{dict(zip(KERNELS, counts['fig11_des_xcheck']))}, "
@@ -2553,6 +2610,331 @@ def main() -> None:
         return new_paths
 
     soc_layer_paths = soc_layer_phase()
+
+    # ---- 9r. MLP-agent serving at Fig. 11's shape: K2m and K2m-faulted
+    # on the path, each launch bitwise against the plain version, card ==
+    # CPU on a small stream, a killed and resumed checkpointed stream -----
+    serve_kernel = soc_kernel.soc_step_serve
+    serve_ops = soc_ops.fused_serve_episode
+
+    def mlp_serving_phase():
+        """Fig. 11's SoC1 and application: a Q-table trained as Fig. 11
+        trains it (K1) and a (14, 16, 16, 4) sense network (Fig. 13's
+        MLPConfig) trained through K1m for as many iterations; then four
+        policies in one batch, the learning network, its frozen copy, the
+        Q-table and fixed NON_COH (the last two with placeholder
+        networks), serve 1,024 requests at Fig. 11's five offered loads
+        (5 K2m launches) and under storm(1024, 0.7, PRNGKey(42)) at its
+        capacity (1 K2m-faulted).  Returns (path seconds, the launches'
+        recorded kernel arguments by label)."""
+        calls, packed = [], {}
+
+        def rec_ops(*a, **kw):
+            out = serve_ops(*a, **kw)
+            if kw.get("mlp") is not None:
+                calls.append((a, kw, out))
+            return out
+
+        def rec_kernel(*a, **kw):
+            if a[4].wpack is not None:
+                packed.setdefault(("faulted" if kw.get("faulted") else "")
+                                  + str(len(calls)), (a, dict(kw)))
+            return serve_kernel(*a, **kw)
+
+        soc_ops.fused_serve_episode = rec_ops
+        soc_kernel.soc_step_serve = rec_kernel
+        rec_path[0] = "mlp_serving"
+        torch.cuda.synchronize()
+        reset_counts()
+        t_m = time.perf_counter()
+        iters = fig11.ITERS
+        train_app = apps.make_application(s1, seed=0,
+                                          n_phases=fig11.N_PHASES)
+        t_apps = [vec.compile_app(train_app, s1, seed=it)
+                  for it in range(iters)]
+        cfg_t = qlearn.QConfig(decay_steps=t_apps[0].n_steps * iters,
+                               collapse_frac=0.25)
+        qs_t, _ = env1.train_batched(
+            t_apps, cfg_t, rewards.stack_weights(
+                [rewards.PAPER_DEFAULT_WEIGHTS]),
+            prng.PRNGKey(np.arange(1)), eval_app=app1)
+        net = socnn.init_mlp_qstate(prng.PRNGKey(11, device=dev))
+        for it, ta in enumerate(t_apps):
+            (_, net), _ = env1.episode_spec(
+                ta, vec.mlp_policy_spec(net, env1._sched(ta)), cfg=cfg_t,
+                key=prng.PRNGKey(100 + it, device=dev))
+        trained = int(net.step[0])
+        cfg_s = qlearn.QConfig(decay_steps=trained + 2 * n_req)
+        mspecs = vec.stack_specs([
+            vec.mlp_policy_spec(net, sched1),
+            vec.mlp_policy_spec(socnn.freeze(net), sched1),
+            vec.attach_placeholder_mlp(vec.learned_policy_spec(qs_t,
+                                                               sched1)),
+            vec.attach_placeholder_mlp(vec.fixed_policy_spec(
+                env1.params, sched1, 0))])
+        senv = vec.ServeEnv(env1, queue_cap=fig11.QUEUE_CAP,
+                            n_requests=n_req)
+        results = {}
+        for mult in fig11.LOADS + ["storm"]:
+            tspec = fig11._traffic(
+                traffic, (1.0 if mult == "storm" else mult)
+                * cap["capacity_per_mcycle"] * 1e-6, fig11.QUEUE_CAP * svc,
+                0.25 * svc, device=dev)
+            results[mult] = senv.serve_specs(
+                app1, mspecs, tspec, cfg=cfg_s,
+                faults=storm11 if mult == "storm" else None)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t_m
+        soc_ops.fused_serve_episode = serve_ops
+        soc_kernel.soc_step_serve = serve_kernel
+        counts["mlp_serving"] = read()
+        want = launches(soc_step_episode=2 * iters + 1,
+                        soc_step_episode_mlp=iters,
+                        soc_step_serve_mlp=len(fig11.LOADS),
+                        soc_step_serve_mlp_faulted=1)
+        if counts["mlp_serving"] != want or len(calls) != 6:
+            fail(f"MLP serving launched "
+                 f"{dict(zip(KERNELS, counts['mlp_serving']))}, expected "
+                 f"{dict(zip(KERNELS, want))}")
+        for mult, (carry, mqs, mres) in results.items():
+            ex = mres.executed
+            if not (bool(torch.isfinite(carry.wpack).all())
+                    and bool(torch.isfinite(mres.latency).all())
+                    and int(ex.sum()) > 0):
+                fail(f"MLP serving {mult}: non-finite or empty results")
+            if torch.equal(carry.wpack[0], net.wpack[0]):
+                fail(f"MLP serving {mult}: the learning network's pack did "
+                     "not change")
+            if not torch.equal(carry.wpack[1], net.wpack[0]):
+                fail(f"MLP serving {mult}: the frozen network's pack "
+                     "changed")
+            if not bool(mqs.frozen[:2].all()):
+                fail(f"MLP serving {mult}: a placeholder Q-state learned")
+            print(f"mlp serving {mult}{'x' if mult != 'storm' else ''}: "
+                  "served " + ", ".join(
+                      f"{n} {int(ex[i].sum())}/{n_req}" for i, n in
+                      enumerate(("network", "frozen", "table", "non_coh")))
+                  + f"; degraded steps {int(mres.degraded.sum())}; "
+                  f"learning pack moved by "
+                  f"{float((carry.wpack[0] - net.wpack[0]).abs().max()):.4g}")
+        # every launch against the plain version on its own inputs: the
+        # four lighter loads in one plain call (the plain step's cost is
+        # per request, not per stream), the 2x and the storm launches each
+        # alone, timed
+        def joined(group):
+            """One plain call's arguments for the launches of ``group``,
+            their streams stacked."""
+            a0, kw0, _ = group[0]
+            args = [a0[0], torch.cat([g[0][1] for g in group]), a0[2],
+                    soc_ref.ServeParams(*(torch.cat([
+                        soc_ref.serve_params_tensors(g[0][3], 4, dev)[f]
+                        for g in group]) for f in range(9))),
+                    soc_ref.ServeCarry(*(
+                        None if group[0][0][4][f] is None
+                        else torch.cat([g[0][4][f] for g in group])
+                        for f in range(10))),
+                    soc_ref.StepInputs(*(
+                        None if group[0][0][5][f] is None
+                        else torch.cat([g[0][5][f] for g in group])
+                        for f in range(len(soc_ref.StepInputs._fields)))),
+                    *(torch.cat([g[0][j] for g in group])
+                      for j in (6, 7, 8))]
+            m0 = kw0["mlp"]
+            return args, dict(
+                qfun=torch.cat([g[1]["qfun"] for g in group]),
+                mlp_lr=torch.cat([g[1]["mlp"].lr for g in group]),
+                mlp_dims=socnn.mlp_dims(m0.cfg), mlp_feats=m0.cfg.features)
+
+        errs, plain = {}, {}
+        for label, group in (("loads", calls[:4]), ("2x", calls[4:5]),
+                             ("storm", calls[5:6])):
+            args, kw = joined(group)
+            torch.cuda.synchronize()
+            t_p = time.perf_counter()
+            rc, ry = soc_ref.serve_episode_ref(*args, **kw)
+            torch.cuda.synchronize()
+            plain[label] = (time.perf_counter() - t_p) * 1e3
+            for i, (_, _, (kc, ky)) in enumerate(group):
+                sl = slice(4 * i, 4 * i + 4)
+                what = (f"soc_step_serve_mlp"
+                        f"{'_faulted' if label == 'storm' else ''} launch "
+                        f"{label} {i}")
+                err = compare_cols(torch, what, soc_ref.SERVE_YCOLS, ky,
+                                   ry[sl], SERVE_INT_COLS)
+                if err != 0.0 or not same_carry(
+                        torch, kc, rc.map(lambda v: v[sl])):
+                    fail(f"{what}: not bitwise equal to the plain version "
+                         f"(max abs err {err})")
+            errs[label] = 0.0
+        print(f"mlp serving: all 6 launches (B=4, S={n_req}) bitwise equal "
+              f"to ref.serve_episode_ref on their own inputs, packs "
+              f"included; plain version {plain['loads']:.1f} ms for the "
+              f"four lighter loads together, {plain['2x']:.1f} ms (2x), "
+              f"{plain['storm']:.1f} ms (storm)")
+        print(f"mlp_serving path on {card}: {path_s:.3f} s wall, launches "
+              f"{dict(zip(KERNELS, counts['mlp_serving']))}")
+        # the 2x and storm launches (the watchdog holds most of their
+        # network steps off) and the 0.2x one (no degradation: the
+        # network runs on every admitted request of its two streams)
+        by_label = {"soc_step_serve_mlp": packed["4"],
+                    "soc_step_serve_mlp_faulted": packed["faulted5"],
+                    "0.2x": packed["0"]}
+        return path_s, by_label, plain
+
+    def small_mlp_serve(device, directory=None, die_after=None):
+        """Three streams (a learning network, its frozen copy, fixed
+        NON_COH) on SoC1 facing an overloading stream of 128 requests
+        under storm 0.7; with ``directory`` one learning network's stream
+        in three chunks through ``serve_checkpointed``."""
+        e = vec.VecEnv(s1, seed=1, device=device)
+        app = vec.compile_app(apps.make_application(s1, seed=50,
+                                                    n_phases=2), s1, seed=4)
+        sc = e._sched(app)
+        net = socnn.init_mlp_qstate(prng.PRNGKey(7, device=device))
+        tspec = traffic.bursty(4e-3, mix=(0.7, 0.3), deadline=(6000.0, 0.0),
+                               priority=(1.0, 0.25), backoff=400.0,
+                               overload_frac=0.35, prio_reserve=0.25, seed=3)
+        cfg_ = qlearn.QConfig(decay_steps=200)
+        if directory is None:
+            specs = vec.stack_specs([
+                vec.mlp_policy_spec(net, sc),
+                vec.mlp_policy_spec(socnn.freeze(net), sc),
+                vec.attach_placeholder_mlp(vec.fixed_policy_spec(
+                    e.params, sc, 0))])
+            return vec.ServeEnv(e, queue_cap=4, n_requests=128).serve_specs(
+                app, specs, tspec, cfg=cfg_, faults=faults.storm(
+                    128, 0.7, prng.PRNGKey(42), device=device))
+        mgr = CheckpointManager(str(directory))
+        if die_after is not None:
+            mgr = _Killer(mgr, die_after)
+        return vec.ServeEnv(e, queue_cap=4, n_requests=64).serve_checkpointed(
+            app, vec.mlp_policy_spec(net, sc), tspec, mgr, n_chunks=3,
+            cfg=cfg_, key=prng.PRNGKey(8))
+
+    mlp_serving_s, mlp_packed, mlp_plain = mlp_serving_phase()
+    (gc, gq, gr), (cc, cq, cr) = small_mlp_serve(dev), small_mlp_serve("cpu")
+    same_tree("small MLP serving: card vs CPU", gr, cr, ("retries", "depth"))
+    same_tree("small MLP serving: card vs CPU", gq, cq)
+    same_tree("small MLP serving: card vs CPU", gc, cc)
+    mck = ROOT / "build" / "chip_smoke_mlp_ckpt"
+    shutil.rmtree(mck, ignore_errors=True)
+    whole = small_mlp_serve(dev, mck / "whole")
+    try:
+        small_mlp_serve(dev, mck / "serve", die_after=1)
+        fail("the killed checkpointed MLP serving did not stop")
+    except _Crash:
+        pass
+    resumed = small_mlp_serve(dev, mck / "serve")
+    on_cpu = small_mlp_serve("cpu", mck / "cpu")
+    for cls, a, r, c in zip((soc_ref.ServeCarry, qlearn.QState,
+                             vec.ServeResult), resumed, whole, on_cpu):
+        same_tree("resumed MLP serving vs uninterrupted (card)", a, r,
+                  cls._fields)
+        same_tree("resumed MLP serving on the card vs CPU", a, c,
+                  ("retries", "depth"))
+    shutil.rmtree(mck, ignore_errors=True)
+    print("small MLP serving (SoC1, 3 streams, 128 requests, overloaded, "
+          "storm 0.7): card == CPU plain path, packs included; a "
+          "checkpointed MLP stream killed after 1 of 3 chunks and resumed "
+          "on the card: bitwise the uninterrupted stream, == CPU")
+
+    # ---- 9s. flash_attention (K3) at the gemma2-9b path's shapes (soft-cap
+    # 50, group 2 at head dim 256), its coverage probes, the Gemma-2 smoke
+    # serve card == CPU, and gemma2-9b serving at full width ---------------
+    gm = dict(causal=True, softcap=GM_SOFTCAP)
+    gm_fa = {"prefill": qkv(*FA_GM_PREFILL, torch.bfloat16)}
+    qm, kmc, vmc = qkv(*FA_GM_DECODE[:6], torch.bfloat16,
+                       s_max=FA_GM_DECODE[6])
+    gm_fa["decode"] = (qm, kmc[:, :FA_GM_DECODE[4]], vmc[:, :FA_GM_DECODE[4]])
+    for feat in (gm, dict(gm, window=GM_WINDOW)):
+        fa_err = max(fa_err, fa_vs_plain(
+            f"gemma2 prefill {FA_GM_PREFILL} bf16 {feat}", *gm_fa["prefill"],
+            body="tc_prefill", **feat))
+    fa_err = max(fa_err, fa_vs_plain(
+        f"gemma2 decode {FA_GM_DECODE[:6]} bf16 over a cache of "
+        f"{FA_GM_DECODE[6]}, soft-cap {GM_SOFTCAP}", *gm_fa["decode"],
+        body="split_decode", **gm))
+    fa_vs_plain(f"gemma2 prefill {FA_GM_PREFILL} float32 {gm}",
+                *qkv(*FA_GM_PREFILL, torch.float32), body="fp32_prefill",
+                **gm)
+    q32, kc32, vc32 = qkv(*FA_GM_DECODE[:6], torch.float32,
+                          s_max=FA_GM_DECODE[6])
+    fa_vs_plain(f"gemma2 decode {FA_GM_DECODE[:6]} float32 over a cache of "
+                f"{FA_GM_DECODE[6]}, soft-cap {GM_SOFTCAP}", q32,
+                kc32[:, :FA_GM_DECODE[4]], vc32[:, :FA_GM_DECODE[4]],
+                body="split_decode", **gm)
+    del q32, kc32, vc32
+    fa_probe("gemma2 prefill", FA_GM_PREFILL, **gm)
+    fa_probe("gemma2 local prefill", FA_GM_PREFILL, window=GM_WINDOW, **gm)
+    fa_decode_probes("gemma2 decode", FA_GM_DECODE[:6], FA_GM_DECODE[6],
+                     **gm)
+
+    gscfg = smoke_config("gemma2-9b")
+    g_smoke = lambda: lm.init_params(gscfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    gs_cpu = lm_serve.serve(gscfg, 2, 16, 8, device="cpu", params=g_smoke())
+    gs_card = lm_serve.serve(gscfg, 2, 16, 8, device=dev,
+                             params=g_smoke().to(dev))
+    if not np.array_equal(gs_card["generated"], gs_cpu["generated"]):
+        fail("Gemma-2 smoke serve: card and CPU generated different tokens")
+    g_err = max((gs_card[k].cpu() - gs_cpu[k]).abs().max().item()
+                for k in ("prefill_logits", "logits"))
+    if g_err > LM_TOL:
+        fail(f"Gemma-2 smoke serve: card logits {g_err} from the CPU's")
+    print(f"gemma2-9b smoke serve (B=2, prompt 16 over rings of 8, gen 8, "
+          f"float32): tokens equal on the card and the CPU, logits within "
+          f"{g_err:.3e} (bound {LM_TOL})")
+
+    gcfg9 = get_arch("gemma2-9b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    fa_launch, gm_caps = fa_kernel.launch, []
+
+    def capped_launch(*a, **kw):     # the soft-cap of every K3 launch
+        gm_caps.append(kw.get("softcap", 0.0))
+        return fa_launch(*a, **kw)
+
+    fa_kernel.launch = capped_launch
+    t_gm = time.perf_counter()
+    gm_out = lm_serve.serve(gcfg9, batch=QWEN_BATCH,
+                            prompt_len=QWEN_PROMPT, gen=QWEN_GEN, seed=0,
+                            device=dev)
+    torch.cuda.synchronize()
+    gemma_s = time.perf_counter() - t_gm
+    fa_kernel.launch = fa_launch
+    counts["gemma2_serve"] = read()
+    if len(gm_caps) != 42 * 33 or set(gm_caps) != {GM_SOFTCAP}:
+        fail(f"gemma2-9b serve: K3 soft-caps {sorted(set(gm_caps))} over "
+             f"{len(gm_caps)} launches, expected {GM_SOFTCAP} on 1386")
+    check_bodies("gemma2_serve", gcfg9.n_layers, gcfg9.n_layers * QWEN_GEN)
+    want_gm = launches(flash_attention=gcfg9.n_layers * (1 + QWEN_GEN))
+    if counts["gemma2_serve"] != want_gm or want_gm[6] != 42 * 33:
+        fail(f"gemma2-9b serve launched "
+             f"{dict(zip(KERNELS, counts['gemma2_serve']))}, expected "
+             f"{dict(zip(KERNELS, want_gm))}")
+    if not (bool(torch.isfinite(gm_out["prefill_logits"]).all())
+            and bool(torch.isfinite(gm_out["logits"]).all())
+            and float(gm_out["logits"].abs().max()) <= gcfg9.final_softcap):
+        fail("gemma2-9b serve: non-finite logits or logits past the "
+             "final soft-cap")
+    if gm_out["generated"].shape != (QWEN_BATCH, QWEN_GEN):
+        fail(f"gemma2-9b serve: generated {gm_out['generated'].shape}")
+    gm_mem = torch.cuda.max_memory_allocated()
+    print(f"gemma2-9b serve (B={QWEN_BATCH}, prompt {QWEN_PROMPT}, gen "
+          f"{QWEN_GEN}, bf16 compute, float32 parameters, "
+          f"{gcfg9.param_count():,} parameters) on {card}: prefill "
+          f"{gm_out['prefill_s']:.4f} s, decode {gm_out['decode_s']:.4f} s "
+          f"({gm_out['decode_s'] / QWEN_GEN * 1e3:.2f} ms/step, "
+          f"{gm_out['decode_tok_per_s']:.1f} tok/s), bf16 weight copy "
+          f"{gm_out['cast_s']:.4f} s, {gemma_s:.3f} s wall with the weights' "
+          f"init; peak memory {gm_mem / 2**30:.2f} GiB ({gm_mem / 1e9:.2f} "
+          f"GB); launches {dict(zip(KERNELS, counts['gemma2_serve']))} (every "
+          f"one with soft-cap {GM_SOFTCAP}); first tokens "
+          f"{gm_out['generated'][0, :8].tolist()}")
+    del gm_out
+    torch.cuda.empty_cache()
 
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
@@ -2634,12 +3016,12 @@ def main() -> None:
         run = lambda: soc_kernel.soc_step_serve(xf, xi, xv, consts, carry,
                                                 **kw)
         row = {"shape": shape}
-        if parent_kernel is not None:
+        # the parent's serve kernel may have no MLP instantiation
+        if parent_kernel is not None and carry.wpack is None:
             old_run = lambda: parent_kernel.soc_step_serve(
                 xf, xi, xv, consts, carry, **kw)
             (nc, ny), (oc, oy) = run(), old_run()
-            if not (torch.equal(ny, oy)
-                    and all(torch.equal(a, r) for a, r in zip(nc, oc))):
+            if not (torch.equal(ny, oy) and same_carry(torch, nc, oc)):
                 fail(f"{shape}: this serve body and the parent's differ")
             turns = [time_kernel(f) for f in (old_run, run, run, old_run)]
             ms = (turns[1] + turns[2]) / 2
@@ -2647,20 +3029,29 @@ def main() -> None:
         else:
             ms = time_kernel(run)
         row["ms"] = ms
+        mlp = {}
+        if carry.wpack is not None and bool(
+                (consts[:, soc_ref.N_SERVE_CONSTS] != 0).any()):
+            mlp = dict(mlp_dims=kw["mlp_dims"], mlp_feats=kw["mlp_feats"])
         cyc = soc_kernel.serve_chain_cycles(
             s1.n_accs, s1.n_mem_tiles, kw["n_actions"],
-            ddr=kw.get("ddr_attribution", False))
+            ddr=kw.get("ddr_attribution", False), **mlp)
         chain = cyc * xf.shape[1] / (sm_clock_mhz() * 1e3)
         row.update(chain_cycles=cyc, chain_ms=chain)
         serve_rows[shape] = row
         nb, ns, nf = xf.shape
-        carry_bytes = sum(4 * t.numel() for t in carry)
+        carry_bytes = sum(4 * t.numel() for t in carry if t is not None)
         nbytes = (4 * (nb * ns * ((nf - 2 - s1.n_accs) + 2 + xv.shape[-1]
                                   + len(soc_ref.SERVE_YCOLS))
                        + consts.numel()) + 2 * carry_bytes)
-        flops = nb * ns * (4 * (fig11.QUEUE_CAP + 4) + 30 + 200
-                           + s1.n_accs * (9 + 5 * s1.n_mem_tiles)
-                           + (6 if kw["faulted"] else 0))
+        n_qfun = (int((consts[:, soc_ref.N_SERVE_CONSTS] != 0).sum())
+                  if carry.wpack is not None else 0)
+        flops = (nb * ns * (4 * (fig11.QUEUE_CAP + 4) + 30 + 200
+                            + s1.n_accs * (9 + 5 * s1.n_mem_tiles)
+                            + (6 if kw["faulted"] else 0))
+                 + (n_qfun * ns * mlp_step_ops(kw["mlp_dims"],
+                                               kw["mlp_feats"])
+                    if n_qfun else 0))
         by = nbytes / H100_BYTES_PER_S * 1e3
         op = flops / H100_F32_FLOPS * 1e3
         print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
@@ -2672,7 +3063,7 @@ def main() -> None:
                  "this/this/parent " + "/".join(f"{x:.4f}"
                                                for x in row["turns"])
                  + f"), {row['parent_ms'] / ms:.2f}x, outputs bitwise equal"
-                 if parent_kernel is not None else ""))
+                 if "parent_ms" in row else ""))
         return ms, max(by, op), by, op, chain
 
     nums = [
@@ -2684,12 +3075,21 @@ def main() -> None:
         episode_numbers(packed_m, f"soc_step_episode_mlp B={b} S={s_len}"),
         episode_numbers(packed_mf,
                         f"soc_step_episode_mlp_faulted B={b} S={s_len}"),
+        serve_numbers(mlp_packed["soc_step_serve_mlp"],
+                      f"soc_step_serve_mlp B=4 S={n_req}"),
+        serve_numbers(mlp_packed["soc_step_serve_mlp_faulted"],
+                      f"soc_step_serve_mlp_faulted B=4 S={n_req}"),
     ]
+    mlp_light = serve_numbers(mlp_packed["0.2x"],
+                              f"soc_step_serve_mlp B=4 S={n_req} at 0.2x "
+                              "load (no watchdog)")
     plain = [ep_plain_ms, sv_plain_ms, epf_plain_ms, svf_plain_ms,
-             epm_plain_ms, epmf_plain_ms]
-    errs = [ep_err, sv_err, epf_err, svf_err, epm_err, epmf_err]
+             epm_plain_ms, epmf_plain_ms, mlp_plain["2x"],
+             mlp_plain["storm"]]
+    errs = [ep_err, sv_err, epf_err, svf_err, epm_err, epmf_err, 0.0, 0.0]
     shapes = [f"B={b} S={s_len}", f"B=4 S={n_req}", f"B={b} S={s_len}",
-              f"B=4 S={n_req}", f"B={b} S={s_len}", f"B={b} S={s_len}"]
+              f"B=4 S={n_req}", f"B={b} S={s_len}", f"B={b} S={s_len}",
+              f"B=4 S={n_req}", f"B=4 S={n_req}"]
     for name, ms in zip(SOC_KERNELS, plain):
         print(f"{name}: plain version {ms:.1f} ms on the same inputs; "
               f"library_ms null (no single PyTorch call computes the step)")
@@ -2793,7 +3193,7 @@ def main() -> None:
         torch.cuda.synchronize()
         return event_ms(torch, fn, reps)
 
-    def attention_numbers(shape, q, k, v, causal):
+    def attention_numbers(shape, q, k, v, causal, softcap=0.0):
         """(ms, plain ms, SDPA ms, bound ms, bytes ms, ops ms, device ms,
         SDPA device ms, body) of K3 on (q, k, v): ms from 20 launches in a
         row, as every kernel's (the wrapper's host work included where it
@@ -2801,9 +3201,11 @@ def main() -> None:
         launches (the host's work left out); the bytes of q, k, v read
         once and the output written once; the operations of the (query,
         key) pairs the mask keeps (a multiply and an add per element of
-        QK^T and of PV), at the bf16 tensor-core peak."""
+        QK^T and of PV), at the bf16 tensor-core peak.  With ``softcap``
+        SDPA, which has none, is timed without it as the nearest
+        yardstick."""
         b, h, hkv, sq, skv, hd = shape
-        feat = dict(causal=causal)
+        feat = dict(causal=causal, softcap=softcap)
         kern = lambda: fa_kernel.flash_attention(q, k, v, **feat)
         # SDPA aligns a causal mask top-left: one query row sees every key
         sdpa = lambda: F.scaled_dot_product_attention(
@@ -2981,6 +3383,12 @@ def main() -> None:
     rg_num = rglru_numbers(RG_SCAN, *rg_in)
     fa_rg_pre = attention_numbers(FA_RG_PREFILL, *rg_fa["prefill"], True)
     fa_rg_dec = attention_numbers(FA_RG_DECODE, *rg_fa["decode"], True)
+    fa_gm_pre = attention_numbers(FA_GM_PREFILL, *gm_fa["prefill"], True,
+                                  GM_SOFTCAP)
+    fa_gm_dec = attention_numbers(FA_GM_DECODE[:6], *gm_fa["decode"], True,
+                                  GM_SOFTCAP)
+    # the same prefill without the soft-cap, to see what the tanh costs
+    fa_gm_nocap = attention_numbers(FA_GM_PREFILL, *gm_fa["prefill"], True)
     gmm_pre = gmm_numbers("prefill gate/up", GMM_PREFILL, gmm_sizes[0])
     gmm_down = gmm_numbers("prefill down", GMM_DOWN, gmm_sizes[0])
     gmm_dec = gmm_numbers("decode gate/up", GMM_DECODE, gmm_sizes[1])
@@ -2990,6 +3398,7 @@ def main() -> None:
                "storm_serving": storm_s, "fig13": fig13_s,
                "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s,
                "granite_serve": granite_s, "recurrentgemma_serve": rgemma_s,
+               "mlp_serving": mlp_serving_s, "gemma2_serve": gemma_s,
                "des_vs_vecenv": des_vs_vec_s, **des_paths,
                **soc_layer_paths}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
@@ -3002,20 +3411,31 @@ def main() -> None:
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/soc_step/csrc/soc_step.cu",
-         "replaces": ("src/repro/kernels/soc_step/kernel.py:258"
+         "replaces": ("src/repro/kernels/soc_step/ops.py:128"
+                      if name.startswith("soc_step_serve_mlp")
+                      else "src/repro/kernels/soc_step/kernel.py:258"
                       if "serve" in name
                       else "src/repro/kernels/soc_step/kernel.py:113"),
+         "replaces_note": ("no TPU kernel: the reference serves MLP agents "
+                           "in its XLA scan"
+                           if name.startswith("soc_step_serve_mlp")
+                           else "the Pallas kernel"),
          "variant": ("mlp_dims, " if "mlp" in name else "")
                     + ("faulted=True" if "faulted" in name else "healthy"),
-         "launches": sum(c[j] for c in counts.values()),
-         "launches_by_path": by_path(j), "max_abs_err": errs[j],
+         "launches": sum(c[KERNELS.index(name)] for c in counts.values()),
+         "launches_by_path": by_path(KERNELS.index(name)),
+         "max_abs_err": errs[j],
          "ms": nums[j][0], "plain_ms": plain[j], "bound_ms": nums[j][1],
          "bound_by": "bytes" if nums[j][2] >= nums[j][3] else "operations",
-         "library_ms": None, "main_path_s": on_paths(j),
+         "library_ms": None, "main_path_s": on_paths(KERNELS.index(name)),
          "shape": shapes[j], "chain_ms": nums[j][4],
          "by_shape": by_shape[name] or [serve_rows[f"{name} {shapes[j]}"]],
          "card": card}
         for j, name in enumerate(SOC_KERNELS)], "paths_s": paths_s}
+    kernels["kernels"][SOC_KERNELS.index("soc_step_serve_mlp")].update(
+        light_load_ms=mlp_light[0], light_load_chain_ms=mlp_light[4],
+        light_load="0.2x Fig. 11's capacity: no watchdog, the network on "
+                   "every admitted request of its two streams")
     j = KERNELS.index("flash_attention")
     kernels["kernels"].append({
         "name": "flash_attention", "route": "cuda",
@@ -3048,16 +3468,28 @@ def main() -> None:
         "gr_decode_ms": fa_gr_dec[0], "gr_decode_plain_ms": fa_gr_dec[1],
         "gr_decode_bound_ms": fa_gr_dec[3],
         "gr_decode_library_ms": fa_gr_dec[2],
+        "gm_shape": f"prefill {FA_GM_PREFILL}, soft-cap {GM_SOFTCAP}",
+        "gm_ms": fa_gm_pre[0], "gm_plain_ms": fa_gm_pre[1],
+        "gm_bound_ms": fa_gm_pre[3], "gm_library_ms": fa_gm_pre[2],
+        "gm_decode_shape": str(FA_GM_DECODE[:6]),
+        "gm_decode_ms": fa_gm_dec[0], "gm_decode_plain_ms": fa_gm_dec[1],
+        "gm_decode_bound_ms": fa_gm_dec[3],
+        "gm_decode_library_ms": fa_gm_dec[2],
+        "gm_library_note": "SDPA without the soft-cap (no PyTorch call "
+                           "soft-caps attention)",
+        "gm_no_softcap_ms": fa_gm_nocap[0],
         "timing": "ms: 20 launches in a row, as every kernel's; device_ms: "
                   "a CUDA graph of 20 launches replayed",
         "device_ms": {n: x[6] for n, x in (
             ("prefill", fa_pre), ("decode", fa_dec), ("rg", fa_rg_pre),
             ("rg_decode", fa_rg_dec), ("gr", fa_gr_pre),
-            ("gr_decode", fa_gr_dec))},
+            ("gr_decode", fa_gr_dec), ("gm", fa_gm_pre),
+            ("gm_decode", fa_gm_dec), ("gm_no_softcap", fa_gm_nocap))},
         "library_device_ms": {n: x[7] for n, x in (
             ("prefill", fa_pre), ("decode", fa_dec), ("rg", fa_rg_pre),
             ("rg_decode", fa_rg_dec), ("gr", fa_gr_pre),
-            ("gr_decode", fa_gr_dec))},
+            ("gr_decode", fa_gr_dec), ("gm", fa_gm_pre),
+            ("gm_decode", fa_gm_dec))},
         "float32_decode_ms": fa_f32_dec,
         "bodies_by_path": fa_bodies, "max_abs_err_by_body": fa_errs,
         "hgmma": hgmma_by_body, "card": card})

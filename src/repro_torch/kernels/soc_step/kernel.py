@@ -10,8 +10,9 @@ root of the checkout.  A missing ``nvcc`` raises: there is no fallback.
 stream for ``B`` episodes at once, :func:`soc_step_serve` the serving
 kernel for ``B`` arrival streams; ``faulted=True`` launches each kernel's
 fault-injected instantiation, which reads four more float columns per
-row, and ``wpack0`` the episode kernel's MLP instantiation, which keeps
-``B`` packed Q-networks resident beside the Q-tables.  The source's notes
+row, and a weight pack (``wpack0``, or a serve carry's ``wpack``) each
+kernel's MLP instantiation, which keeps ``B`` packed Q-networks resident
+beside the Q-tables.  The source's notes
 say what bounds each and how it is laid out.  :func:`plan` gives the
 episode kernel's block shape, ring depth and shared memory from shapes
 alone, :func:`serve_plan` the serve kernel's; :func:`chain_cycles`
@@ -90,9 +91,7 @@ def plan(T: int, n_tiles: int, n_feat: int, n_actions: int, n_states: int,
     fixed = (n_states * n_actions + 4 * n_accs + T * (N_TBL_COLS + n_tiles)
              + n_consts + _scratch_words(T, n_tiles, mlp))
     if mlp:
-        dims = [int(d) for d in mlp_dims]
-        rows, cols = pack_shape(dims)
-        fixed += rows * cols + sum(dims) + 2 * MAX_WIDTH
+        fixed += _mlp_words(mlp_dims)
     ring = max(1, min(MAX_RING, S))
     words = lambda r: fixed + 2 * r * (nf + 5) + r * N_YCOLS
     while ring > 1 and 4 * words(ring) > SMEM_LIMIT:
@@ -106,16 +105,24 @@ def plan(T: int, n_tiles: int, n_feat: int, n_actions: int, n_states: int,
 N_SERVE_V = 3            # a request row: t_arr, deadline, priority
 
 
+def _mlp_words(mlp_dims) -> int:
+    """Shared-memory words of a network (``csrc/soc_step.cu::
+    mlp_words``): the pack, every layer's output, two backward buffers."""
+    dims = [int(d) for d in mlp_dims]
+    rows, cols = pack_shape(dims)
+    return rows * cols + sum(dims) + 2 * MAX_WIDTH
+
+
 @functools.lru_cache(maxsize=None)
 def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
                n_accs: int, queue_cap: int, S: int, *,
-               faulted: bool = False) -> Plan:
+               faulted: bool = False, mlp_dims: tuple | None = None) -> Plan:
     """Block shape, ring depth and shared-memory bytes of the serve kernel
     (``csrc/soc_step.cu::serve_words`` counts the same words): one warp a
     stream, a two-chunk ring of ``ring`` requests' xf, xi and xv rows
-    (the largest of 32, S and what fits), the carry's tables and rings
-    and the step's scratch for ``n_accs`` slots.  Raises ValueError past
-    the kernel's limits."""
+    (the largest of 32, S and what fits), the carry's tables and rings,
+    the step's scratch for ``n_accs`` slots and, with ``mlp_dims``, the
+    network.  Raises ValueError past the kernel's limits."""
     if not (1 <= n_accs <= MAX_T and 1 <= n_tiles <= MAX_TILES
             and n_actions == N_MODES and queue_cap >= 1):
         raise ValueError(f"n_accs={n_accs}, n_tiles={n_tiles}, n_actions="
@@ -124,10 +131,12 @@ def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
                          f"{MAX_TILES}, {N_MODES} actions)")
     nf = 4 + n_tiles + n_accs + n_feat + 3 * n_actions + (4 if faulted
                                                           else 0)
+    mlp = mlp_dims is not None
     fixed = (n_states * n_actions + 4 * n_accs
              + n_accs * (N_TBL_COLS + n_tiles) + n_accs + n_accs * queue_cap
-             + N_SERVE_CONSTS + n_accs + N_YCOLS + n_accs
-             + _scratch_words(n_accs, n_tiles, False))
+             + N_SERVE_CONSTS + (2 if mlp else 0) + n_accs + N_YCOLS + n_accs
+             + _scratch_words(n_accs, n_tiles, mlp)
+             + (_mlp_words(mlp_dims) if mlp else 0))
     ring = max(1, min(MAX_RING, S))
     words = lambda r: (fixed + 2 * r * (nf + 5 + N_SERVE_V)
                        + r * len(SERVE_YCOLS))
@@ -221,7 +230,8 @@ def chain_cycles(T: int, n_tiles: int, n_actions: int, **kw) -> float:
 
 
 def serve_chain_ops(n_accs: int, n_tiles: int, n_actions: int, *,
-                    ddr: bool = False) -> dict:
+                    ddr: bool = False, mlp_dims=None,
+                    mlp_feats: str = "sense") -> dict:
     """Operations, by kind, on the longest dependent chain of one request
     of the serve kernel, counted from ``csrc/soc_step.cu``: what the
     request before wrote (the finish-time ring and busy times, beside the
@@ -230,9 +240,11 @@ def serve_chain_ops(n_accs: int, n_tiles: int, n_actions: int, *,
     count's compare, the start time's ``tmax``, the first admissible
     retry's select), the ``oth`` flags (the busy times' load, the compare,
     the store and ``__syncwarp``), then the gated step over ``n_accs``
-    slots (:func:`chain_ops`), the finish time's add and the ring write's
-    store and ``__syncwarp``."""
-    ops = chain_ops(n_accs, n_tiles, n_actions, ddr=ddr)
+    slots (:func:`chain_ops`; with ``mlp_dims`` a ``qfun`` stream's
+    features, forward and TD update), the finish time's add and the ring
+    write's store and ``__syncwarp``."""
+    ops = chain_ops(n_accs, n_tiles, n_actions, ddr=ddr, mlp_dims=mlp_dims,
+                    mlp_feats=mlp_feats)
     extra = dict(smem=2, add=5, shfl=1, tmin=1, sync=2)
     return {k: ops[k] + extra.get(k, 0) for k in ops}
 
@@ -261,8 +273,8 @@ def _load():
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.soc_step_serve_launch
-        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 13
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.soc_step_qdiv_probe
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
@@ -295,6 +307,22 @@ def _check_xi(xi, limits):
                              f"[{lo[col]}, {hi[col]}]")
 
 
+def _check_mlp(wpack, b, mlp_dims, mlp_feats) -> list:
+    """The layer widths, after checking that ``wpack`` holds ``b``
+    networks of those widths the kernels take."""
+    _check("wpack", wpack, torch.float32, 3)
+    if mlp_dims is None or mlp_feats not in ("sense", "onehot"):
+        raise ValueError("the MLP variant needs mlp_dims and mlp_feats "
+                         "'sense' or 'onehot'")
+    dims = [int(d) for d in mlp_dims]
+    if (tuple(wpack.shape[1:]) != pack_shape(dims) or wpack.shape[0] != b
+            or not 2 <= len(dims) <= 5 or max(dims) > MAX_WIDTH):
+        raise ValueError(f"wpack {tuple(wpack.shape)} does not hold {b} "
+                         f"networks of widths {dims} (at most 4 layers of "
+                         f"at most {MAX_WIDTH})")
+    return dims
+
+
 def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
                      n_threads: int, n_tiles: int, n_actions: int,
                      ddr_attribution: bool = False, gated: bool = False,
@@ -320,17 +348,7 @@ def soc_step_episode(xf, xi, consts, qtable0, extrema0, wpack0=None, *,
     _check("extrema0", extrema0, torch.float32, 3)
     mlp = wpack0 is not None
     if mlp:
-        _check("wpack0", wpack0, torch.float32, 3)
-        if mlp_dims is None or mlp_feats not in ("sense", "onehot"):
-            raise ValueError("the MLP variant needs mlp_dims and mlp_feats "
-                             "'sense' or 'onehot'")
-        dims = [int(d) for d in mlp_dims]
-        if (tuple(wpack0.shape[1:]) != pack_shape(dims)
-                or wpack0.shape[0] != xf.shape[0] or not 2 <= len(dims) <= 5
-                or max(dims) > 243):
-            raise ValueError(f"wpack0 {tuple(wpack0.shape)} does not hold "
-                             f"B networks of widths {dims} (at most 4 "
-                             "layers of at most 243)")
+        dims = _check_mlp(wpack0, xf.shape[0], mlp_dims, mlp_feats)
     b, s, nf = xf.shape
     n_states, n_a = qtable0.shape[1:]
     n_accs = extrema0.shape[2]
@@ -427,7 +445,8 @@ def qdiv_probe_inputs(n: int, seed: int = 0):
 
 def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
                    n_actions: int, ddr_attribution: bool = False,
-                   faulted: bool = False):
+                   faulted: bool = False, mlp_dims=None,
+                   mlp_feats: str = "sense"):
     """Run ``B`` packed arrival-stream chunks through the CUDA kernel.
 
     ``xf (B, S, NF)`` f32 / ``xi (B, S, 5)`` i32 are the packed step rows
@@ -438,8 +457,16 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
     pack_serve_consts`) and ``carry0`` a
     :class:`~repro_torch.kernels.soc_step.ref.ServeCarry` of CUDA tensors.
     With ``faulted`` the rows of ``xf`` end in the four fault columns.
-    Returns ``(carry_final, y (B, S, 13))``."""
+    Returns ``(carry_final, y (B, S, 13))``.
+
+    A carry with ``wpack (B, R, C)`` launches the MLP instantiation (K2m,
+    faulted K2m-faulted): networks of layer widths ``mlp_dims`` over the
+    ``mlp_feats`` embedding, ``consts (B, 36)`` ending in ``[qfun,
+    mlp_lr]``; the trained pack comes back in the carry."""
     c = carry0
+    mlp = c.wpack is not None
+    if mlp:
+        dims = _check_mlp(c.wpack, xf.shape[0], mlp_dims, mlp_feats)
     for name, t, dt, nd in (
             ("xf", xf, torch.float32, 3), ("xi", xi, torch.int32, 3),
             ("xv", xv, torch.float32, 3), ("consts", consts, torch.float32,
@@ -460,11 +487,12 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
     queue_cap = c.fin.shape[2]
     n_feat = (nf - 4 - n_tiles - n_accs - 3 * n_actions
               - (4 if faulted else 0))
-    devs = {t.device for t in (xf, xi, xv, consts, *c)}
+    devs = {t.device for t in (xf, xi, xv, consts, *c) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    n_consts = N_SERVE_CONSTS + (2 if mlp else 0)
     if (tuple(xi.shape) != (b, s, 5) or tuple(xv.shape) != (b, s, 3)
-            or tuple(consts.shape) != (b, N_SERVE_CONSTS)
+            or tuple(consts.shape) != (b, n_consts)
             or c.qtable.shape[0] != b or n_a != n_actions
             or tuple(c.extrema.shape) != (b, 4, n_accs)
             or tuple(c.tbl.shape) != (b, n_accs, 6 + n_tiles)
@@ -475,29 +503,35 @@ def soc_step_serve(xf, xi, xv, consts, carry0: ServeCarry, *, n_tiles: int,
         raise ValueError(
             f"inconsistent shapes xf={tuple(xf.shape)} xi={tuple(xi.shape)} "
             f"xv={tuple(xv.shape)} consts={tuple(consts.shape)} carry="
-            f"{[tuple(t.shape) for t in c]} for n_tiles={n_tiles} "
-            f"n_actions={n_actions}")
+            f"{[tuple(t.shape) for t in c if t is not None]} for "
+            f"n_tiles={n_tiles} n_actions={n_actions}")
     _check_xi(xi, ((0, n_accs), (4, n_actions)))
     pl = serve_plan(n_tiles, n_feat, n_actions, n_states, n_accs, queue_cap,
-                    s, faulted=bool(faulted))
+                    s, faulted=bool(faulted),
+                    mlp_dims=tuple(dims) if mlp else None)
     lib = _load()
     y = torch.empty((b, s, len(SERVE_YCOLS)), dtype=torch.float32,
                     device=xf.device)
     misc0 = torch.stack([c.pressure, c.tripped], dim=-1).contiguous()
-    out = ServeCarry(*(torch.empty_like(t) for t in c))
+    out = c.map(torch.empty_like)
     misc = torch.empty_like(misc0)
+    dims_arr = (ctypes.c_int * 5)(*(dims if mlp else []))
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.soc_step_serve_launch(
             xf.data_ptr(), xi.data_ptr(), xv.data_ptr(), consts.data_ptr(),
             c.qtable.data_ptr(), c.extrema.data_ptr(), c.tbl.data_ptr(),
             c.busy.data_ptr(), c.fin.data_ptr(), c.head.data_ptr(),
-            misc0.data_ptr(), c.step.data_ptr(), y.data_ptr(),
+            misc0.data_ptr(), c.step.data_ptr(),
+            c.wpack.data_ptr() if mlp else None, y.data_ptr(),
             out.qtable.data_ptr(), out.extrema.data_ptr(),
             out.tbl.data_ptr(), out.busy.data_ptr(), out.fin.data_ptr(),
             out.head.data_ptr(), misc.data_ptr(), out.step.data_ptr(),
-            b, s, nf, N_SERVE_CONSTS, n_tiles, n_accs, n_feat, n_actions,
+            out.wpack.data_ptr() if mlp else None,
+            b, s, nf, n_consts, n_tiles, n_accs, n_feat, n_actions,
             n_states, queue_cap, int(ddr_attribution), int(faulted),
+            ("sense", "onehot").index(mlp_feats) if mlp else -1,
+            len(dims) if mlp else 0, ctypes.cast(dims_arr, ctypes.c_void_p),
             pl.ring, stream)
     if err != 0:
         raise RuntimeError(f"soc_step_serve launch failed: CUDA error {err}")

@@ -183,7 +183,8 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
                weights, qtable, rs: rewards.RewardState, tbl,
                x: StepInputs, *, ddr_attribution: bool = False,
                gated: bool = False, wpack=None, qfun=None, mlp_lr=None,
-               mlp_dims=None, mlp_feats: str = "sense"):
+               mlp_dims=None, mlp_feats: str = "sense", slack=0.0,
+               reuse=0.0):
     """One fused sense->select->time->reward->learn step for B episodes.
 
     ``qtable (B, 243, A)`` and ``tbl (B, T, 6 + n_tiles)`` are updated in
@@ -192,7 +193,9 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
     With ``wpack (B, R, C)`` (and ``qfun``/``mlp_lr (B,)``, ``mlp_dims``,
     ``mlp_feats``) returns ``(rs_new, wpack_new, y)``: ``qfun`` episodes
     select from the network's Q-row, train the network and leave their
-    table row bitwise untouched.
+    table row bitwise untouched.  ``slack``/``reuse`` (numbers or ``(B,)``)
+    are the serving step's deadline-slack and reuse-distance features,
+    zero in episodes.
     """
     f32 = torch.float32
     b = tbl.shape[0]
@@ -227,7 +230,7 @@ def fused_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
         feats = socnn.step_features(
             mlp_feats, s, state_idx, footprint=x.footprint, tiles=x.tiles,
             omask=omask, omodes=omodes, ofps=ofps, odram=odram,
-            warm_t=warm_t, profile=x.profile, slack=0.0, reuse=0.0)
+            warm_t=warm_t, profile=x.profile, slack=slack, reuse=reuse)
         hs = socnn.forward_layers(wpack, feats, mlp_dims)
         row_sel = torch.where(qfun[:, None], hs[-1], row)
         learned_eff = learned | qfun
@@ -404,12 +407,20 @@ class ServeCarry(NamedTuple):
     pressure: torch.Tensor  # (B,) float32
     tripped: torch.Tensor   # (B,) float32
     step: torch.Tensor      # (B,) int32
+    # (B, R, C) float32 packed MLP weights of streams served by networks;
+    # None for table and fixed serving
+    wpack: torch.Tensor | None = None
+
+    def map(self, fn) -> "ServeCarry":
+        """``fn`` applied to every tensor leaf (``wpack`` may be None)."""
+        return ServeCarry(*(None if v is None else fn(v) for v in self))
 
 
 def init_serve_carry(qtable0, extrema0, n_accs: int, n_tiles: int,
-                     queue_cap: int, step0) -> ServeCarry:
+                     queue_cap: int, step0, wpack0=None) -> ServeCarry:
     """Fresh streams: idle devices, empty rings, no pressure.  Serving
-    slots are accelerators, so the slot table has ``n_accs`` rows."""
+    slots are accelerators, so the slot table has ``n_accs`` rows.
+    ``wpack0 (B, R, C)`` joins the carry of MLP-served streams."""
     b = qtable0.shape[0]
     dev = qtable0.device
     f32 = torch.float32
@@ -422,7 +433,8 @@ def init_serve_carry(qtable0, extrema0, n_accs: int, n_tiles: int,
         pressure=torch.zeros((b,), dtype=f32, device=dev),
         tripped=torch.zeros((b,), dtype=f32, device=dev),
         step=torch.as_tensor(step0, device=dev).to(torch.int32)
-        .expand(b).clone())
+        .expand(b).clone(),
+        wpack=None if wpack0 is None else wpack0.to(f32).clone())
 
 
 def _backoff_cycles(backoff, retries: int):
@@ -433,7 +445,8 @@ def _backoff_cycles(backoff, retries: int):
 def serve_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
                weights, sp: ServeParams, carry: ServeCarry, x: StepInputs,
                t_arr, deadline, priority, *,
-               ddr_attribution: bool = False):
+               ddr_attribution: bool = False, qfun=None, mlp_lr=None,
+               mlp_dims=None, mlp_feats: str = "sense"):
     """One offered request of ``B`` streams: admit or shed, then the gated
     fused step.  Same semantics, order and association as
     ``repro.kernels.soc_step.ref.serve_step``.
@@ -448,6 +461,12 @@ def serve_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
     the epsilon-reopen point.  ``x``'s thread/fresh/others/valid/eps/alpha
     fields are placeholders the step owns.  Carry tensors are updated in
     place (they are the caller's copies); returns ``(carry, y (B, 13))``.
+
+    A carry with ``wpack`` serves networks (``qfun``/``mlp_lr (B,)``,
+    ``mlp_dims``, ``mlp_feats``): overload gates the network as it gates
+    the table (``qfun & ~degraded``), the deadline slack at arrival and
+    the idle gap since the accelerator's last admitted work feed the
+    features, and the trained pack rides the carry.
     """
     f32 = torch.float32
     b = carry.busy.shape[0]
@@ -491,10 +510,16 @@ def serve_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
         valid=executed, eps=eps, alpha=alpha,
         pre_mode=torch.where(degraded, int(CoherenceMode.NON_COH_DMA),
                              x.pre_mode.to(torch.int32)).to(torch.int32))
-    rs, y = fused_step(s, geom, warm_cap, learned & ~degraded, weights,
-                       carry.qtable, rewards.RewardState(
-                           extrema=carry.extrema), carry.tbl, si,
-                       ddr_attribution=ddr_attribution, gated=True)
+    mlp_kw = {}
+    if carry.wpack is not None:
+        mlp_kw = dict(wpack=carry.wpack, qfun=qfun & ~degraded,
+                      mlp_lr=mlp_lr, mlp_dims=mlp_dims, mlp_feats=mlp_feats,
+                      slack=deadline - t_arr, reuse=t_arr - busy_a)
+    out = fused_step(s, geom, warm_cap, learned & ~degraded, weights,
+                     carry.qtable, rewards.RewardState(
+                         extrema=carry.extrema), carry.tbl, si,
+                     ddr_attribution=ddr_attribution, gated=True, **mlp_kw)
+    rs, y = out[0], out[-1]
 
     # ---- queue / ring bookkeeping
     ex_f = executed.to(f32)
@@ -536,7 +561,8 @@ def serve_step(s: SoCStatic, geom: CacheGeometry, warm_cap, learned,
         start * ex_f,
         finish * ex_f], dim=-1)
     new_carry = carry._replace(extrema=rs.extrema, pressure=pressure,
-                               tripped=tripped, step=step.to(torch.int32))
+                               tripped=tripped, step=step.to(torch.int32),
+                               wpack=out[1] if mlp_kw else None)
     return new_carry, y_serve
 
 
@@ -551,14 +577,18 @@ def serve_params_tensors(sp: ServeParams, batch: int,
 
 def serve_episode_ref(s: SoCStatic, learned, weights, sp: ServeParams,
                       carry0: ServeCarry, xs: StepInputs, t_arr, deadline,
-                      priority, *, ddr_attribution: bool = False):
+                      priority, *, ddr_attribution: bool = False,
+                      qfun=None, mlp_lr=None, mlp_dims=None,
+                      mlp_feats: str = "sense"):
     """Loop :func:`serve_step` over ``B`` arrival-stream chunks.
 
     ``xs`` leaves and ``t_arr``/``deadline``/``priority`` are ``(B, S,
     ...)``; ``s``, ``learned``, the weights and ``sp`` leaves numbers or
     ``(B,)`` tensors.  Returns ``(carry_final, ys (B, S, 13))`` (columns
     :data:`SERVE_YCOLS`); the carry continues into the next chunk.  Fault
-    columns in ``xs`` perturb the timing of each request."""
+    columns in ``xs`` perturb the timing of each request.  A carry with a
+    weight pack serves networks (``qfun``, ``mlp_lr`` numbers or ``(B,)``,
+    the static ``mlp_dims`` and ``mlp_feats``)."""
     dev = carry0.qtable.device
     b, n_steps = xs.acc_id.shape
     f32 = torch.float32
@@ -568,24 +598,37 @@ def serve_episode_ref(s: SoCStatic, learned, weights, sp: ServeParams,
         torch.as_tensor(v, device=dev).to(f32).expand(b) for v in weights))
     spt = serve_params_tensors(sp, b, dev)
     geom, warm_cap = derive_geom(st)
-    carry = ServeCarry(*(v.clone() for v in carry0))
+    carry = carry0.map(torch.clone)
+    mlp_kw = {}
+    if carry.wpack is not None:
+        mlp_kw = dict(
+            qfun=torch.as_tensor(qfun, device=dev).to(torch.bool).expand(b),
+            mlp_lr=torch.as_tensor(mlp_lr, device=dev).to(f32).expand(b),
+            mlp_dims=tuple(mlp_dims), mlp_feats=mlp_feats)
     ys = []
     for i in range(n_steps):
         carry, y = serve_step(st, geom, warm_cap, learned_t, w, spt, carry,
                               step_slice(xs, i), t_arr[:, i],
                               deadline[:, i], priority[:, i],
-                              ddr_attribution=ddr_attribution)
+                              ddr_attribution=ddr_attribution, **mlp_kw)
         ys.append(y)
     return carry, torch.stack(ys, dim=1)
 
 
 def pack_serve_consts(s: SoCStatic, learned, weights, sp: ServeParams,
-                      batch: int, device=None) -> torch.Tensor:
+                      batch: int, device=None, qfun=None,
+                      mlp_lr=None) -> torch.Tensor:
     """The serve kernel's ``(B, 34)`` consts rows: :func:`pack_consts`
-    followed by the nine :class:`ServeParams` scalars."""
+    followed by the nine :class:`ServeParams` scalars; with ``qfun`` (the
+    MLP variant) ``(B, 36)``, ending in ``[qfun, mlp_lr]``."""
     spt = serve_params_tensors(sp, batch, device)
-    return torch.cat([pack_consts(s, learned, weights, batch, device),
-                      torch.stack(list(spt), dim=-1)], dim=-1).contiguous()
+    cols = [pack_consts(s, learned, weights, batch, device),
+            torch.stack(list(spt), dim=-1)]
+    if qfun is not None:
+        cols.append(torch.stack([
+            torch.as_tensor(v, device=device).to(torch.float32).expand(batch)
+            for v in (qfun, mlp_lr)], dim=-1))
+    return torch.cat(cols, dim=-1).contiguous()
 
 
 def pack_serve_rows(t_arr, deadline, priority) -> torch.Tensor:

@@ -22,6 +22,8 @@ _ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
 _MOE = ("router", "w_gate", "w_up", "w_down")
 _STATES = {"rwkv": rwkv6.RwkvState, "rg": rglru.RGLRUState}
+# a layer's norms in order; the post-norms where the config has them
+_NORMS = ("ln1", "ln2", "post_ln1", "post_ln2")
 
 
 def _fields(node, names):
@@ -56,24 +58,24 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
     for kind, node, s in _layer_nodes(cfg, tree):
         fields = lambda sub, names: (t(a, s) for a in _fields(node[sub],
                                                               names))
+        norms = tuple(t(node[k], s) for k in _NORMS if k in node)
         if kind == "rwkv":
             layers.append(transformer.RwkvLayer(
-                t(node["ln1"], s), t(node["ln2"], s),
+                norms,
                 rwkv6.TimeMixParams(*fields("tm", rwkv6.TIME_MIX_FIELDS)),
                 rwkv6.ChannelMixParams(*fields("cm",
                                                rwkv6.CHANNEL_MIX_FIELDS))))
             continue
         if kind == "rg":
             layers.append(transformer.RgLayer(
-                t(node["ln1"], s), t(node["ln2"], s),
+                norms,
                 rglru.RGLRUParams(*fields("rg", rglru.RGLRU_FIELDS)),
                 mlp.MLPParams(*fields("mlp", _MLP))))
             continue
         attn = attention.AttnParams(*fields("attn", _ATTN))
         ff = (mlp.MoEParams(*fields("moe", _MOE)) if "moe" in node
               else mlp.MLPParams(*fields("mlp", _MLP)))
-        layers.append(transformer.Layer(t(node["ln1"], s),
-                                        t(node["ln2"], s), attn, ff))
+        layers.append(transformer.Layer(norms, attn, ff))
     head = tree.get("lm_head")
     return transformer.Transformer(layers, t(tree["embed"], None),
                                    None if head is None else t(head, None),
@@ -95,7 +97,8 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
         else:
             subs = (("attn", _ATTN),
                     ("moe", _MOE) if hasattr(p, "moe") else ("mlp", _MLP))
-        out = {"ln1": n(p.ln1), "ln2": n(p.ln2)}
+        out = {k: n(w) for k, w in zip(_NORMS, p.norms())
+               if w is not None}
         for sub, names in subs:
             out[sub] = {f: n(getattr(getattr(p, sub), f)) for f in names}
         return out

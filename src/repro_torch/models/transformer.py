@@ -88,9 +88,6 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append("audio codebooks (ROADMAP A15)")
     if cfg.kv_cache_dtype == "int8":
         missing.append("the int8 KV cache (ROADMAP A15)")
-    gemma = [f for f in ("post_norms", "final_softcap") if getattr(cfg, f)]
-    if gemma:
-        missing.append(f"Gemma-2's {', '.join(gemma)} (ROADMAP A15)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(missing)}")
@@ -99,15 +96,29 @@ def check_supported(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
-class Layer(nn.Module):
-    """One residual attention layer: ``ln1``, ``attn``, ``ln2`` and
-    ``mlp`` (a gated MLP) or ``moe`` (an MoE layer)."""
+class _Norms(nn.Module):
+    """A residual layer's norms: ``ln1`` and ``ln2`` before its two
+    branches and, where the config has ``post_norms`` (Gemma-2),
+    ``post_ln1`` and ``post_ln2`` on their outputs (None without)."""
 
-    def __init__(self, ln1, ln2, attn: attention.AttnParams,
-                 ff: mlp.MLPParams | mlp.MoEParams):
+    def __init__(self, ln1, ln2, post_ln1=None, post_ln2=None):
         super().__init__()
-        self.ln1 = nn.Parameter(ln1.detach(), requires_grad=False)
-        self.ln2 = nn.Parameter(ln2.detach(), requires_grad=False)
+        p = lambda w: (None if w is None
+                       else nn.Parameter(w.detach(), requires_grad=False))
+        self.ln1, self.ln2 = p(ln1), p(ln2)
+        self.post_ln1, self.post_ln2 = p(post_ln1), p(post_ln2)
+
+    def norms(self) -> tuple:
+        return self.ln1, self.ln2, self.post_ln1, self.post_ln2
+
+
+class Layer(_Norms):
+    """One residual attention layer: the norms, ``attn`` and ``mlp`` (a
+    gated MLP) or ``moe`` (an MoE layer)."""
+
+    def __init__(self, norms, attn: attention.AttnParams,
+                 ff: mlp.MLPParams | mlp.MoEParams):
+        super().__init__(*norms)
         self.attn = attn
         if isinstance(ff, mlp.MoEParams):
             self.moe = ff
@@ -115,27 +126,24 @@ class Layer(nn.Module):
             self.mlp = ff
 
 
-class RwkvLayer(nn.Module):
-    """One residual RWKV-6 layer: ``ln1``, ``tm`` (time mix), ``ln2``,
-    ``cm`` (channel mix)."""
+class RwkvLayer(_Norms):
+    """One residual RWKV-6 layer: the norms, ``tm`` (time mix) and ``cm``
+    (channel mix); a ``post_ln1`` follows the time mix, as in the
+    reference, which has no post-norm after the channel mix."""
 
-    def __init__(self, ln1, ln2, tm: rwkv6.TimeMixParams,
+    def __init__(self, norms, tm: rwkv6.TimeMixParams,
                  cm: rwkv6.ChannelMixParams):
-        super().__init__()
-        self.ln1 = nn.Parameter(ln1.detach(), requires_grad=False)
-        self.ln2 = nn.Parameter(ln2.detach(), requires_grad=False)
+        super().__init__(*norms)
         self.tm = tm
         self.cm = cm
 
 
-class RgLayer(nn.Module):
-    """One residual RG-LRU layer: ``ln1``, ``rg`` (the Griffin recurrent
-    block), ``ln2``, ``mlp`` (a gated MLP)."""
+class RgLayer(_Norms):
+    """One residual RG-LRU layer: the norms, ``rg`` (the Griffin recurrent
+    block) and ``mlp`` (a gated MLP)."""
 
-    def __init__(self, ln1, ln2, rg: rglru.RGLRUParams, ff: mlp.MLPParams):
-        super().__init__()
-        self.ln1 = nn.Parameter(ln1.detach(), requires_grad=False)
-        self.ln2 = nn.Parameter(ln2.detach(), requires_grad=False)
+    def __init__(self, norms, rg: rglru.RGLRUParams, ff: mlp.MLPParams):
+        super().__init__(*norms)
         self.rg = rg
         self.mlp = ff
 
@@ -161,17 +169,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     check_supported(cfg)
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
+    norms = lambda: ((zeros(), zeros(), zeros(), zeros()) if cfg.post_norms
+                     else (zeros(), zeros()))
 
     def layer(kind):
         if kind == "rwkv":
-            return RwkvLayer(zeros(), zeros(),
+            return RwkvLayer(norms(),
                              rwkv6.init_time_mix(cfg, generator, device),
                              rwkv6.init_channel_mix(cfg, generator, device))
         if kind == "rg":
-            return RgLayer(zeros(), zeros(),
+            return RgLayer(norms(),
                            rglru.init_rglru(cfg, generator, device),
                            mlp.init_mlp(cfg, generator, device))
-        return Layer(zeros(), zeros(),
+        return Layer(norms(),
                      attention.init_attn(cfg, generator, device),
                      mlp.init_moe(cfg, generator, device) if cfg.n_experts
                      else mlp.init_mlp(cfg, generator, device))
@@ -187,8 +197,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
     """``params`` with every attention, MLP and expert matmul weight and
-    the head cast once to the compute dtype (the norms and the MoE router
-    stay float32 and shared, the embedding table stays as it is: it is
+    the head cast once to the compute dtype (the norms, post-norms
+    included, and the MoE router stay float32 and shared, the embedding table stays as it is: it is
     cast after the gather; RWKV layers and RG-LRU blocks, which compute in
     float32, are shared as they are).  A tied head's copy is ``embed.T``
     cast, held as the copy's ``lm_head``.  Computes the same numbers as
@@ -208,8 +218,8 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
         if isinstance(l, RwkvLayer):
             return l
         if isinstance(l, RgLayer):
-            return RgLayer(l.ln1, l.ln2, l.rg, ff(l))
-        return Layer(l.ln1, l.ln2,
+            return RgLayer(l.norms(), l.rg, ff(l))
+        return Layer(l.norms(),
                      attention.AttnParams(c(l.attn.wq), c(l.attn.wk),
                                           c(l.attn.wv), c(l.attn.wo),
                                           l.attn.q_norm, l.attn.k_norm),
@@ -228,11 +238,14 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 cache_pos: int | None = None):
     """One residual layer; returns ``(x, cache)``: an attention layer's
     cache written in place, an RWKV or RG-LRU layer's new state (None
-    without one)."""
+    without one).  Where the config has ``post_norms`` (Gemma-2), each
+    branch's output is normalized before it joins the residual."""
+    post = lambda y, w: (y if w is None
+                         else common.rms_norm(y, w, cfg.norm_eps))
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "rwkv":
         out, state = rwkv6.time_mix(cfg, p.tm, h, cache)
-        x = x + out
+        x = x + post(out, p.post_ln1)
         h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
         out2, state = rwkv6.channel_mix(cfg, p.cm, h2, state)
         return x + out2, state
@@ -242,11 +255,13 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
         out, cache = attention.attend(cfg, p.attn, h, positions,
                                       layer_window=layer_window(cfg, kind),
                                       cache_kv=cache, cache_pos=cache_pos)
-    x = x + out
+    x = x + post(out, p.post_ln1)
     h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
-        return x + mlp.moe(cfg, p.moe, h2)[0], cache
-    return x + mlp.mlp(cfg, p.mlp, h2), cache
+        out2 = mlp.moe(cfg, p.moe, h2)[0]
+    else:
+        out2 = mlp.mlp(cfg, p.mlp, h2)
+    return x + post(out2, p.post_ln2), cache
 
 
 def embed_tokens(cfg: ArchConfig, params: Transformer,
@@ -262,10 +277,13 @@ def embed_tokens(cfg: ArchConfig, params: Transformer,
 
 def lm_logits(cfg: ArchConfig, params: Transformer,
               h: torch.Tensor) -> torch.Tensor:
+    """The head's float32 logits, soft-capped where ``cfg.final_softcap``
+    (Gemma-2) in float32."""
     dt = h.dtype
     h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
     head = params.lm_head if params.lm_head is not None else params.embed.T
-    return (h @ head.to(dt)).to(torch.float32)
+    return common.softcap((h @ head.to(dt)).to(torch.float32),
+                          cfg.final_softcap)
 
 
 # --------------------------------------------------------------------------

@@ -24,9 +24,10 @@ leaves (``wpack (B, R, C)``, ``step (B,)``), as ``qlearn.QState`` does;
 :func:`mlp_from_numpy` converts a reference ``MLPQState``.  The forward,
 the TD update and the features run over that axis; every float sum runs
 left to right, the order the reference compiled without fused
-multiply-add uses, and ``log2`` is XLA's ``log`` over ``log(2)``
-(:mod:`repro_torch.xla_math`), so the plain version, the CUDA kernel and
-that reference round alike.
+multiply-add uses, and ``log2`` is XLA's ``log``
+(:mod:`repro_torch.xla_math`) times the float32 reciprocal of ``log(2)``,
+the product XLA folds ``jnp.log2``'s division by that constant into, so
+the plain version, the CUDA kernel and that reference round alike.
 
 :func:`train_portfolio` trains ONE network across (SoC x app) pairs with
 per-iteration federated averaging; ``benchmarks/torch_fig13_generalize.
@@ -52,7 +53,9 @@ from repro_torch.soc.accelerators import IRREGULAR, PF
 # Width of the "sense" embedding; the order of the features is part of
 # the spec (the CUDA kernel builds the same vector).
 N_SENSE_FEATURES = 14
-_LN2 = _f32(np.log(2.0))
+# jnp.log2 is log(x) / log(2); XLA turns a division by a constant into a
+# product with its float32 reciprocal (also the tile fraction's 1 / n_tiles).
+_INV_LN2 = float(np.float32(1.0) / np.float32(np.log(2.0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +177,7 @@ def step_features(feats: str, s, state_idx, *, footprint, tiles, omask,
         return (torch.arange(N_STATES, device=state_idx.device)[None, :]
                 == state_idx[:, None].long()).to(f32)
     llc_total = s.llc_slice_bytes * s.n_mem_tiles
-    n_tiles = tiles.shape[-1]
+    inv_nt = float(np.float32(1.0) / np.float32(tiles.shape[-1]))
     fp = footprint.to(f32)
     cached = omask & (omodes > 0)
     non_coh = omask & (omodes == 0)
@@ -183,12 +186,12 @@ def step_features(feats: str, s, state_idx, *, footprint, tiles, omask,
     sl = (slack * _f32(1e-6)).expand_as(fp)
     ru = (reuse * _f32(1e-6)).expand_as(fp)
     clip4 = lambda v: torch.clamp(v, 0.0, 4.0) * 0.25
-    log2 = lambda v: true_div(xla_math.log(v), _LN2)
+    log2 = lambda v: xla_math.log(v) * _INV_LN2
     cols = [
         log2(1.0 + fp) * _f32(1.0 / 32.0),
         clip4(fp / s.l2_bytes),
         clip4(fp / llc_total),
-        true_div(seqsum(tiles.to(f32), -1), float(n_tiles)),
+        seqsum(tiles.to(f32), -1) * inv_nt,
         seqsum(omask.to(f32), -1) * 0.125,
         seqsum(cached.to(f32), -1) * 0.125,
         seqsum(non_coh.to(f32), -1) * 0.125,

@@ -582,9 +582,9 @@ class StackedVecEnv:
         draws onto its own schedule over its REAL length, so padding rows
         are never invoked; ``faults`` rows follow each lane's request
         accelerators.  Returns ``(ServeCarry, QState, ServeResult)`` with
-        ``(K, N, ...)`` leaves."""
-        if specs.mlp is not None:
-            raise vec.not_ported("MLP-agent serving", "A11")
+        ``(K, N, ...)`` leaves.  MLP specs (``(K, N)`` networks) serve as
+        :func:`~repro_torch.soc.vecenv.run_serve` serves them, the packs
+        in the carry."""
         self.calls["serve"] += 1
         cfg = cfg or qlearn.QConfig()
         k, n = specs.learned.shape
@@ -602,13 +602,20 @@ class StackedVecEnv:
             arrs.append(arr)
             lane_specs.append(spec)
             qs0 = spec.qstate
-            sps.append(vec.serve_params(_lane_cfg(cfg, i), qs0.frozen,
-                                        traffic))
+            step0, frozen = vec.merged_agent(spec)
+            sps.append(vec.serve_params(_lane_cfg(cfg, i), frozen, traffic))
             carries.append(soc_step_ref.init_serve_carry(
                 qs0.qtable, rewards.init_reward_state(
                     self.n_accs, (n,), self.device).extrema,
-                self.n_accs, stacked.n_tiles, queue_cap, qs0.step))
-        cat = lambda parts: [torch.cat(vs) for vs in zip(*parts)]
+                self.n_accs, stacked.n_tiles, queue_cap, step0,
+                None if spec.mlp is None else spec.mlp.wpack))
+        cat = lambda parts: [None if vs[0] is None else torch.cat(vs)
+                             for vs in zip(*parts)]
+        mlp = specs.mlp
+        mlp_kw = {} if mlp is None else dict(
+            qfun=specs.qfun.reshape(k * n),
+            mlp=socnn.MLPQState(*(v.reshape(k * n, *v.shape[2:])
+                                  for v in mlp[:4]), cfg=mlp.cfg))
         sp = soc_step_ref.ServeParams(*cat([
             soc_step_ref.serve_params_tensors(p, n, self.device)
             for p in sps]))
@@ -621,15 +628,16 @@ class StackedVecEnv:
             StepInputs(*(None if vs[0] is None else torch.cat(vs)
                          for vs in zip(*xs_l))),
             lane_rows("t_arr"), lane_rows("deadline"),
-            lane_rows("priority"))
+            lane_rows("priority"), **mlp_kw)
         outs = []
         for i in range(k):
             sl = slice(i * n, (i + 1) * n)
-            c_i = soc_step_ref.ServeCarry(*(v[sl] for v in carry))
+            c_i = carry.map(lambda v: v[sl])
             outs.append((c_i, *vec.serve_results(lane_specs[i].qstate, c_i,
                                                  ys[sl], arrs[i])))
-        stack = lambda cls, j: cls(*(torch.stack(vs) for vs in zip(
-            *[o[j] for o in outs])))
+        stack = lambda cls, j: cls(*(None if vs[0] is None
+                                     else torch.stack(vs) for vs in zip(
+                                         *[o[j] for o in outs])))
         return (stack(soc_step_ref.ServeCarry, 0), stack(qlearn.QState, 1),
                 stack(vec.ServeResult, 2))
 

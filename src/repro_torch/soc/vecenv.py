@@ -391,6 +391,18 @@ def learned_policy_spec(qstate: qlearn.QState,
         qstate=qstate)
 
 
+def merged_agent(specs: PolicySpec):
+    """``(step0, frozen)`` of the agents that drive a batched spec's decay
+    schedule: an MLP spec's network where ``qfun`` holds, else the
+    table's (bitwise the table's for placeholder networks)."""
+    qs = specs.qstate
+    if specs.mlp is None:
+        return qs.step, qs.frozen
+    qfun = specs.qfun.expand(qs.step.shape[0])
+    return (torch.where(qfun, specs.mlp.step, qs.step),
+            torch.where(qfun, specs.mlp.frozen, qs.frozen))
+
+
 def _batched(spec: PolicySpec) -> PolicySpec:
     """A spec with a leading policy axis (single specs gain one)."""
     if spec.learned.dim() == 0:
@@ -431,11 +443,7 @@ def episode_inputs(params: LaneParams, sched: Schedule, specs: PolicySpec,
     noise = qlearn.sample_select_noise(keys, (n_steps,), masks.shape[-1])
     live = (sched.valid if gated
             else torch.ones_like(sched.valid))[None, :]
-    step0, frozen = qs0.step, qs0.frozen
-    if specs.mlp is not None:
-        qfun = specs.qfun.expand(n)
-        step0 = torch.where(qfun, specs.mlp.step, step0)
-        frozen = torch.where(qfun, specs.mlp.frozen, frozen)
+    step0, frozen = merged_agent(specs)
     inc = (live & ~frozen[:, None]).to(torch.int32)
     eps_t, alpha_t = qlearn.decay_arrays(cfg, step0, frozen, inc)
     acc = sched.acc_id.long()
@@ -1099,11 +1107,6 @@ class VecEnv:
         return normalized_metrics(er, base)
 
 
-def not_ported(what: str, item: str):
-    """The error for a reference option the port does not have yet."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 # ===================================================================== serving
 class ServeResult(NamedTuple):
     """Per-request traces of serving chunks (``(..., n_requests)`` leaves).
@@ -1233,9 +1236,11 @@ def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
     schedule rows (default all; a padded stacked lane passes its real
     length).  ``carry=None`` starts fresh streams; ``faults`` perturbs
     every stream alike.  Returns ``(ServeCarry (N), QState (N),
-    ServeResult (N, n_requests))``."""
-    if specs.mlp is not None:
-        raise not_ported("MLP-agent serving", "A11")
+    ServeResult (N, n_requests))``.  MLP specs (``specs.mlp``) serve their
+    networks: the merged agent drives the decay and freeze, the trained
+    weights ride the returned carry's ``wpack`` (rebuild the agent with
+    ``mlp._replace(wpack=carry.wpack, step=carry.step)``) and the
+    returned placeholder Q-state stays frozen."""
     specs = _batched(specs)
     qs0 = specs.qstate
     n = qs0.qtable.shape[0]
@@ -1244,16 +1249,20 @@ def run_serve(params: LaneParams, sched: Schedule, specs: PolicySpec,
         tspec, n_requests, sched.acc_id.shape[0] if n_real is None
         else int(n_real), t0)
     xs = serve_inputs(params, sched, specs, arr, keys, faults)
+    step0, frozen = merged_agent(specs)
     if carry is None:
         carry = soc_step_ref.init_serve_carry(
             qs0.qtable, rewards.init_reward_state(
                 n_accs, (n,), qs0.qtable.device).extrema,
-            n_accs, sched.tiles.shape[-1], queue_cap, qs0.step)
+            n_accs, sched.tiles.shape[-1], queue_cap, step0,
+            None if specs.mlp is None else specs.mlp.wpack)
     carry, ys = soc_step_ops.fused_serve_episode(
         params.static, specs.learned.expand(n), weights,
-        serve_params(cfg, qs0.frozen, tspec), carry, xs,
+        serve_params(cfg, frozen, tspec), carry, xs,
         arr.t_arr.expand(n, -1), arr.deadline.expand(n, -1),
-        arr.priority.expand(n, -1), ddr_attribution=ddr_attribution)
+        arr.priority.expand(n, -1), ddr_attribution=ddr_attribution,
+        qfun=None if specs.mlp is None else specs.qfun.expand(n),
+        mlp=specs.mlp)
     qs, res = serve_results(qs0, carry, ys, arr)
     if debug_finite:
         qlearn.debug_finite_check("vecenv.serve", reward=res.reward,
@@ -1272,8 +1281,7 @@ class ServeEnv:
     delegates to :meth:`VecEnv.episode_spec`, the episodic path.  Chunks
     chain: pass the returned carry and the last arrival time back in;
     :meth:`serve_checkpointed` does so through a checkpoint manager.
-    MLP-agent serving (an MLP instantiation of the serve kernel, ROADMAP
-    A11) is not ported: MLP specs raise."""
+    MLP specs serve their networks, whose weights ride the carry."""
 
     def __init__(self, env: VecEnv, *, queue_cap: int = 8,
                  n_requests: int = 1024):
@@ -1283,16 +1291,20 @@ class ServeEnv:
         self.queue_cap = int(queue_cap)
         self.n_requests = int(n_requests)
 
-    def init_carry(self, qstate: qlearn.QState, mlp=None):
-        """Fresh streams (idle devices, the agents' Q-tables)."""
-        if mlp is not None:
-            raise not_ported("MLP-agent serving", "A11")
+    def init_carry(self, qstate: qlearn.QState, mlp=None, qfun=None):
+        """Fresh streams (idle devices, the agents' Q-tables).  For an
+        MLP-lowered spec pass ``(spec.qstate, spec.mlp, spec.qfun)``: the
+        weight pack joins the carry and the decay counter starts at the
+        merged agent's step."""
         n_accs = self.env.pmat.shape[0]
         n = qstate.qtable.shape[0]
+        step0 = (qstate.step if mlp is None
+                 else torch.where(qfun, mlp.step, qstate.step))
         return soc_step_ref.init_serve_carry(
             qstate.qtable, rewards.init_reward_state(
                 n_accs, (n,), self.env.device).extrema,
-            n_accs, self.env.soc.n_mem_tiles, self.queue_cap, qstate.step)
+            n_accs, self.env.soc.n_mem_tiles, self.queue_cap, step0,
+            None if mlp is None else mlp.wpack)
 
     def _call(self, compiled, specs, traffic, cfg, weights, keys, carry,
               t0, n_requests, faults):
@@ -1365,7 +1377,8 @@ class ServeEnv:
         key = (key if key is not None else prng.PRNGKey(0)).to(
             self.env.device)
         n = int(n_requests or self.n_requests)
-        state = {"carry": self.init_carry(spec.qstate),
+        state = {"carry": self.init_carry(spec.qstate, spec.mlp,
+                                          spec.qfun),
                  "qstate": spec.qstate,
                  "results": _zero_serve_results(n_chunks, n,
                                                 self.env.device),

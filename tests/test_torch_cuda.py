@@ -1,5 +1,5 @@
 """The CUDA soc_step kernels (episode and serve, healthy and faulted; the
-episode kernel's MLP instantiations), the flash-attention kernel (K3),
+episode and serve kernels' MLP instantiations), the flash-attention kernel (K3),
 the RWKV-6 scan kernel (K5), the grouped expert-matmul kernel (K4) and
 the RG-LRU scan kernel (K6) against their plain PyTorch versions, on the
 card.
@@ -418,7 +418,7 @@ def _check_serve(rate, intensity=None):
     cpu = lambda t: t.cpu()
     rc, ry = ref.serve_episode_ref(
         s, cpu(learned), w, ref.ServeParams(*map(cpu, sp)),
-        ref.ServeCarry(*map(cpu, carry0)),
+        carry0.map(cpu),
         ref.StepInputs(*(None if v is None else cpu(v) for v in xs)),
         *map(cpu, rows))
     ry = ry.numpy()
@@ -430,7 +430,7 @@ def _check_serve(rate, intensity=None):
         else:
             np.testing.assert_allclose(ky[..., c], ry[..., c], err_msg=name,
                                        **TOL)
-    for name in ref.ServeCarry._fields:
+    for name in ref.ServeCarry._fields[:-1]:    # a table carry: no wpack
         np.testing.assert_allclose(getattr(kc, name).cpu().numpy(),
                                    getattr(rc, name).numpy(), err_msg=name,
                                    **TOL)
@@ -453,6 +453,85 @@ def test_cuda_faulted_serve_kernel_matches_ref(rate):
     _check_serve(rate, intensity=0.7)
 
 
+def _mlp_serve_case(rate, device, intensity=None):
+    """Four streams on SoC1 facing one bursty stream: a learning sense
+    network, its frozen copy, a Q-table and fixed NON_COH with
+    placeholder networks (``attach_placeholder_mlp``)."""
+    soc = SOCS["SoC1"]
+    env = vecenv.VecEnv(soc, seed=1, device=device)
+    app = vecenv.compile_app(make_application(soc, seed=50, n_phases=2),
+                             soc, seed=4)
+    sched = app.schedule.to(device)
+    mlp = socnn.init_mlp_qstate(prng.PRNGKey(7, device=device))
+    specs = vecenv.stack_specs([
+        vecenv.mlp_policy_spec(mlp, sched),
+        vecenv.mlp_policy_spec(socnn.freeze(mlp), sched),
+        vecenv.attach_placeholder_mlp(vecenv.learned_policy_spec(
+            qlearn.init_qstate(device=device), sched)),
+        vecenv.attach_placeholder_mlp(
+            vecenv.fixed_policy_spec(env.params, sched, 0))])
+    tspec = traffic.bursty(rate, mix=(0.7, 0.3), deadline=(6000.0, 0.0),
+                           priority=(1.0, 0.25), backoff=400.0,
+                           overload_frac=0.35, prio_reserve=0.25, seed=3,
+                           device=device)
+    cfg = qlearn.QConfig(decay_steps=200)
+    arr = traffic.sample_arrivals(tspec, 160, sched.acc_id.shape[0])
+    keys = prng.PRNGKey(np.arange(4), device=device)
+    fs = (None if intensity is None else
+          faults.storm(160, intensity, prng.PRNGKey(42), device=device))
+    xs = vecenv.serve_inputs(env.params, sched, specs, arr, keys, fs)
+    qs0 = specs.qstate
+    step0, frozen = vecenv.merged_agent(specs)
+    carry0 = ref.init_serve_carry(
+        qs0.qtable, rewards.init_reward_state(soc.n_accs, (4,),
+                                              device).extrema,
+        soc.n_accs, soc.n_mem_tiles, 4, step0, specs.mlp.wpack)
+    sp = vecenv.serve_params(cfg, frozen, tspec)
+    rows = [v.expand(4, -1) for v in (arr.t_arr, arr.deadline,
+                                      arr.priority)]
+    return env.static, specs, sp, carry0, xs, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,intensity", [(2e-7, None), (4e-3, None),
+                                            (4e-3, 0.7)])
+def test_cuda_mlp_serve_kernel_bitwise(rate, intensity):
+    """K2m (K2m-faulted under a storm) in two chained launches, bitwise
+    equal to ``ref.serve_episode_ref`` on the CPU: every trace column and
+    every carry leaf, the trained packs included."""
+    _need_card()
+    s, specs, sp, carry0, xs, rows = _mlp_serve_case(rate, "cuda",
+                                                     intensity)
+    w = rewards.PAPER_DEFAULT_WEIGHTS
+    kw = dict(qfun=specs.qfun, mlp=specs.mlp)
+    ops.reset_launches()
+    h = 80
+    c1, y1 = ops.fused_serve_episode(
+        s, specs.learned, w, sp, carry0, _slice(xs, slice(None, h)),
+        *(r[:, :h] for r in rows), **kw)
+    kc, ky2 = ops.fused_serve_episode(
+        s, specs.learned, w, sp, c1, _slice(xs, slice(h, None)),
+        *(r[:, h:] for r in rows), **kw)
+    torch.cuda.synchronize()
+    counts = (ops.mlp_serve_launches, ops.mlp_fault_serve_launches,
+              ops.serve_launches, ops.fault_serve_launches)
+    assert counts == ((0, 2, 0, 0) if intensity else (2, 0, 0, 0))
+    cpu = lambda t: t.cpu()
+    rc, ry = ref.serve_episode_ref(
+        s, cpu(specs.learned), w, ref.ServeParams(*map(cpu, sp)),
+        carry0.map(cpu),
+        ref.StepInputs(*(None if v is None else cpu(v) for v in xs)),
+        *map(cpu, rows), qfun=cpu(specs.qfun), mlp_lr=cpu(specs.mlp.lr),
+        mlp_dims=socnn.mlp_dims(specs.mlp.cfg))
+    assert torch.equal(torch.cat([y1, ky2], 1).cpu(), ry)
+    for name in ref.ServeCarry._fields:
+        assert torch.equal(getattr(kc, name).cpu(), getattr(rc, name)), name
+    assert not torch.equal(kc.wpack[0], carry0.wpack[0])
+    assert torch.equal(kc.wpack[1], carry0.wpack[1])
+    if rate > 1e-3:
+        assert ry[..., 10].max() == 1.0   # the watchdog tripped
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("faulted", [False, True])
 def test_cuda_serve_kernel_bitwise_on_the_edge_grid(faulted):
@@ -466,7 +545,7 @@ def test_cuda_serve_kernel_bitwise_on_the_edge_grid(faulted):
     rc, ry = ref.serve_episode_ref(
         c.static, cpu(c.learned), rewards.RewardWeights(
             *map(cpu, c.weights)), ref.ServeParams(*map(cpu, c.sp)),
-        ref.ServeCarry(*map(cpu, c.carry0)),
+        c.carry0.map(cpu),
         ref.StepInputs(*(None if v is None else cpu(v) for v in c.xs)),
         cpu(c.t_arr), cpu(c.deadline), cpu(c.priority))
     h = c.t_arr.shape[1] // 3
@@ -482,7 +561,7 @@ def test_cuda_serve_kernel_bitwise_on_the_edge_grid(faulted):
         runs.append((carry, torch.cat(ys, 1)))
     for carry, y in runs:
         assert torch.equal(y.cpu(), ry)
-        for name in ref.ServeCarry._fields:
+        for name in ref.ServeCarry._fields[:-1]:   # no wpack
             assert torch.equal(getattr(carry, name).cpu(),
                                getattr(rc, name)), name
 

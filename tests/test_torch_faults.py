@@ -308,6 +308,9 @@ def test_zero_spec_is_no_faults(path):
                 assert b_tree is None
                 continue
             for a, b in zip(a_tree, b_tree):
+                if a is None:      # a table stream's carry has no wpack
+                    assert b is None
+                    continue
                 assert torch.equal(a, b), (path, maker.__name__)
 
 

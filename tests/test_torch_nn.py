@@ -452,13 +452,23 @@ def test_non_finite_weights_degrade_to_non_coh(iso):
 
 
 def test_mlp_serving_is_not_ported(iso):
+    """(Named before MLP serving was ported; its agreement with the
+    reference is in ``tests/test_torch_serve_mlp.py``.)  A network serves
+    a short stream: the pack rides the carry, the placeholder Q-state
+    stays frozen and untouched, and the served network is the spec's."""
     env, app = iso
-    spec = tvec.mlp_policy_spec(tnn.init_mlp_qstate(prng.PRNGKey(1)),
-                                app.schedule)
+    mlp = tnn.init_mlp_qstate(prng.PRNGKey(1))
+    spec = tvec.mlp_policy_spec(mlp, app.schedule)
     from repro_torch.soc import traffic as ttraffic
-    with pytest.raises(NotImplementedError, match="A11"):
-        tvec.ServeEnv(env, n_requests=4).serve(app, spec,
-                                               ttraffic.poisson(1e-5))
+    senv = tvec.ServeEnv(env, n_requests=4)
+    carry, qs, res = senv.serve(app, spec, ttraffic.poisson(1e-5))
+    assert carry.wpack.shape == mlp.wpack.shape
+    assert bool(torch.isfinite(carry.wpack).all())
+    assert bool(qs.frozen.all()) and int(qs.visits.sum()) == 0
+    assert torch.equal(qs.qtable, spec.qstate.qtable)
+    assert res.executed.shape == (4,)
+    fresh = senv.init_carry(spec.qstate, spec.mlp, spec.qfun)
+    assert torch.equal(fresh.wpack, mlp.wpack)
 
 
 # ------------------------------------------------------ portfolio training

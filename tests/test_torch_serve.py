@@ -47,6 +47,8 @@ INT_COLS = ("mode", "state_idx", "action", "executed", "retries", "depth",
             "degraded")
 LOADS = {"under": 2e-7, "over": 4e-3}
 XS_FIELDS = tref.StepInputs._fields[:15]      # the healthy (fault-free) row
+# a table stream's carry (no weight pack)
+CARRY_FIELDS = tuple(f for f in tref.ServeCarry._fields if f != "wpack")
 
 
 def _traffic(mod, rate):
@@ -124,11 +126,11 @@ def reference_tables() -> dict:
         groups = {
             "xs": (XS_FIELDS, [r[0][0] for r in runs]),
             "sp": (tref.ServeParams._fields, [r[0][1] for r in runs]),
-            "carry0": (tref.ServeCarry._fields, [r[0][2] for r in runs]),
+            "carry0": (CARRY_FIELDS, [r[0][2] for r in runs]),
             "arr": (("t_arr", "deadline", "priority"),
                     [(r[0][3].t_arr, r[0][3].deadline, r[0][3].priority)
                      for r in runs]),
-            "carry": (tref.ServeCarry._fields, [r[1][0] for r in runs]),
+            "carry": (CARRY_FIELDS, [r[1][0] for r in runs]),
             "ys": (("y",), [(r[1][1],) for r in runs])}
         for g, (fields, items) in groups.items():
             for i, f in enumerate(fields):
@@ -186,7 +188,9 @@ def tables(tmp_path_factory):
 def _port_run(tab, load, chunks=1):
     g = lambda grp, cls: cls(*(torch.as_tensor(tab[f"{load}/{grp}/{f}"])
                                 for f in cls._fields if f in XS_FIELDS
-                                or cls is not tref.StepInputs))
+                                or cls is tref.ServeParams
+                                or (cls is tref.ServeCarry
+                                    and f in CARRY_FIELDS)))
     xs = g("xs", tref.StepInputs)
     sp = g("sp", tref.ServeParams)
     carry = g("carry0", tref.ServeCarry)
@@ -215,7 +219,7 @@ def _compare(tab, load, carry, ys, ints_only=False):
         elif not ints_only:
             np.testing.assert_allclose(ys[..., c], want[..., c],
                                        err_msg=name, **TOL)
-    for name in tref.ServeCarry._fields:
+    for name in CARRY_FIELDS:
         got = getattr(carry, name).numpy()
         ref = tab[f"{load}/carry/{name}"]
         if name in ("head", "step"):

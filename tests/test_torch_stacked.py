@@ -270,10 +270,10 @@ def test_profile_fixed_heterogeneous_matches_reference(name, runs):
 
 
 def test_faults_and_mlp_raise(envs):
-    """MLP-agent serving (ROADMAP A11) raises; MLP agents in episodes,
-    which raised before A11 was ported, lower onto the lanes
-    (``lower_mlps``; their agreement with the reference is in
-    ``tests/test_torch_nn.py``); fault specs, which raised before A9 was
+    """(Named when MLP serving raised.)  MLP agents lower onto the lanes
+    (``lower_mlps``) and run episodes and serving (their agreement with the
+    reference is in ``tests/test_torch_nn.py`` and
+    ``tests/test_torch_serve_mlp.py``); fault specs, which raised before A9 was
     ported, are taken by every stacked and serving entry point: a zero
     spec gives the healthy result bitwise (the storm cases are in
     ``tests/test_torch_faults.py``)."""
@@ -298,11 +298,15 @@ def test_faults_and_mlp_raise(envs):
     res = tenv.episodes(ts, mspecs)
     assert res.mode.shape[:2] == (k, 1)
     assert bool(torch.isfinite(res.phase_time).all())
-    with pytest.raises(NotImplementedError, match="A11"):
-        tenv.serve(ts, mspecs, tspec, n_requests=8)
+    carry, qs, sres = tenv.serve(ts, mspecs, tspec, n_requests=8)
+    assert carry.wpack.shape == mlps.wpack.shape
+    assert sres.executed.shape == (k, 1, 8)
+    assert bool(qs.frozen.all())
     serve_env = tvec.ServeEnv(tenv.envs[0], queue_cap=2, n_requests=4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve_env.init_carry(tq.init_qstate(), mlp=object())
+    one = tnn.MLPQState(*(v[0] for v in mlps[:4]), cfg=mlps.cfg)
+    c0 = serve_env.init_carry(tq.init_qstate(), mlp=one,
+                              qfun=torch.ones((), dtype=torch.bool))
+    assert torch.equal(c0.wpack, one.wpack)
     _, _, res = serve_env.serve(ts.compiled[0], tpol.ManualPolicy().lower(
         tenv.envs[0], ts.compiled[0]), tspec, faults=zero)
     assert res.executed.shape == (4,)
