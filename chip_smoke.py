@@ -191,6 +191,43 @@ after:
     ``split_decode`` launches, asserted), finite logits inside the final
     soft-cap of 30; the peak memory is printed.
 
+Then it holds K3 against its plain version at qwen2-vl-2b's shapes (12
+query heads over 2 kv heads of 128: group 6) and musicgen-large's (32
+heads over 32 kv heads of 64: group 1), prefill and decode, in bf16 and
+float32, with the coverage probes of the tensor-core prefill and of the
+split decode (1, 4 and 7 query rows) at both; holds a bf16 smoke serve
+(Qwen3's smoke config at head dim 64, a prompt of 80 tokens, so the
+plans pick ``tc_prefill`` and the bf16 ``split_decode``, asserted) on the
+card against the CPU, the card decoding the CPU's tokens, every step's
+logits within 2e-2; holds arctic-480b's smoke serve (the dense residual
+MLP beside the MoE, float32: K4 through ``fp32_tiled``, K3 in float32)
+on the card against the CPU (tokens equal, logits within 1e-5), its
+launches counted; and drives three more LM paths and three fidelity
+paths, each with the counts set to 0 just before it and read just
+after:
+
+  * qwen2-vl-2b serving at full width (M-RoPE over (16, 24, 24) rotary
+    sections, 256 projected vision-stub embeddings of width 1,280 over
+    the first positions): the LM paths' traffic and weights' rule; 28
+    ``tc_prefill`` and 28 x 32 ``split_decode`` K3 launches, asserted;
+  * musicgen-large serving at full width (4 audio codebooks, sinusoidal
+    positions, GeLU, full multi-head attention): 48 and 48 x 32;
+  * Qwen3-8B serving with the int8 KV cache: 36 and 36 x 32; then the
+    bf16 cache's path again beside it (the same counts), so the two
+    prefill and decode times and peaks (above the memory the script
+    holds) compare warm, and both caches' bytes;
+  * Fig. 6 ``--fidelity`` (``benchmarks/torch_fig6_reward_dse.py``
+    ``des_points``) at full SoC and app width, cut to the first 2 of 15
+    weightings x 2 of 10 iterations: no launch, and the batched path's
+    classification of the same weightings (2 seeds; 3 episode launches)
+    must equal it (``des_agreement``; 4 episode launches: 2 training,
+    the NON_COH baseline and the frozen agents);
+  * Fig. 9's cross-check (``torch_fig9_socs.crosscheck_port``) on all 8
+    lanes: one episode launch against the simulator's replays,
+    ``agree``;
+  * Fig. 9 ``--fidelity`` (``torch_fig9_socs.run_des``) on SoC1-mixed, 1
+    of 8 lanes, x 2 of 10 iterations: no launch.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -213,10 +250,10 @@ results must equal this run's (``chiprun_out/*_parent_kernels.json``).
 
 It checks each path's kernel launch counts and finite outputs, prints the
 paths' headline numbers and wall times, and times each kernel, its plain
-version, its bound and, for K3 (at the Qwen3, granite, recurrentgemma
-and gemma2-9b prefill and decode shapes (SDPA without gemma2's soft-cap,
-which no PyTorch call applies), as 20 launches in a row, the ``ms`` of every
-kernel, and as the device time of a CUDA graph of 20 launches), PyTorch's
+version, its bound and, for K3 (at the Qwen3, granite, recurrentgemma,
+gemma2-9b, qwen2-vl-2b and musicgen-large prefill and decode shapes
+(SDPA without gemma2's soft-cap, which no PyTorch call applies), as 20
+launches in a row, the ``ms`` of every kernel, and as the device time of a CUDA graph of 20 launches), PyTorch's
 ``scaled_dot_product_attention`` on the same inputs, for K4 (at the
 granite path's prefill gate/up and down and decode gate/up and down
 shapes, also as the device time of a CUDA graph of 20 launches, beside
@@ -224,7 +261,8 @@ its CUDA-core body ``fp32_tiled`` on the same inputs) cuBLAS's dense batched
 product over the whole buffer (no single PyTorch call computes the SoC
 step, the WKV or the RG-LRU recurrence).  Exits non-zero,
 printing no result, without a CUDA card or outside a checkout of the
-repository.  The last line of standard
+repository.  ``chiprun_out/lm_serving_port.json`` and
+``chiprun_out/fidelity_port.json`` keep the new paths' numbers.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its numbers.
 """
@@ -331,6 +369,24 @@ FA_GR_DECODE = (QWEN_BATCH, 24, 8, 1, QWEN_PROMPT + 1, 64,
                 QWEN_PROMPT + QWEN_GEN)
 # every bf16 K3 launch on an LM path goes through one of these bodies
 FA_BF16_BODIES = ("tc_prefill", "split_decode")
+# K3 at qwen2-vl-2b's serving path's shapes (12 query heads over 2 kv heads
+# of 128: group 6) and musicgen-large's (32 heads over 32 kv heads of 64:
+# group 1, full multi-head attention), the same prompt and cache as Qwen3's
+FA_VL_PREFILL = (QWEN_BATCH, 12, 2, QWEN_PROMPT, QWEN_PROMPT, 128)
+FA_VL_DECODE = (QWEN_BATCH, 12, 2, 1, QWEN_PROMPT + 1, 128,
+                QWEN_PROMPT + QWEN_GEN)
+FA_MG_PREFILL = (QWEN_BATCH, 32, 32, QWEN_PROMPT, QWEN_PROMPT, 64)
+FA_MG_DECODE = (QWEN_BATCH, 32, 32, 1, QWEN_PROMPT + 1, 64,
+                QWEN_PROMPT + QWEN_GEN)
+# the bf16 smoke serve, card against CPU: Qwen3's smoke config at head dim
+# 64 in bf16, a prompt long enough for the tensor-core prefill's 64 rows;
+# each step's logits within the reference's bf16 bound
+BF16_PROMPT, BF16_GEN, BF16_TOL = 80, 8, 2e-2
+# the fidelity paths' depth cuts (full SoC and app width): Fig. 6 at the
+# first 2 of 15 weightings x 2 of 10 iterations; Fig. 9's _run_des on one
+# of 8 lanes x 2 of 10 iterations; Fig. 9's cross-check on all 8 lanes
+FID6_WEIGHTS, FID6_ITERS = 2, 2
+FID9_LANE, FID9_ITERS = ("SoC1", "mixed"), 2
 
 
 def fail(msg: str, code: int = 1):
@@ -456,6 +512,8 @@ def main() -> None:
         from benchmarks import torch_fig2_isolation as fig2
         from benchmarks import torch_fig3_parallel as fig3
         from benchmarks import torch_fig5_phases as fig5
+        from benchmarks import torch_fig6_reward_dse as fig6d
+        from repro_torch.data.synthetic import DataConfig, host_batch
         from repro_torch import random as prng
         from repro_torch.configs import get_arch, smoke_config
         from repro_torch.kernels import nvcc
@@ -1607,6 +1665,9 @@ def main() -> None:
                            gen=QWEN_GEN, seed=0, device=dev)
     torch.cuda.synchronize()
     qwen_s = time.perf_counter() - t_q
+    qwen_bf16 = dict(prefill_s=q_out["prefill_s"],
+                     decode_ms=q_out["decode_s"] / QWEN_GEN * 1e3,
+                     tok_s=q_out["decode_tok_per_s"])
     counts["qwen3_serve"] = read()
     check_bodies("qwen3_serve", qcfg.n_layers, qcfg.n_layers * QWEN_GEN)
     want_q = launches(flash_attention=qcfg.n_layers * (1 + QWEN_GEN))
@@ -1620,6 +1681,7 @@ def main() -> None:
     if q_out["generated"].shape != (QWEN_BATCH, QWEN_GEN):
         fail(f"Qwen3-8B serve: generated {q_out['generated'].shape}")
     q_mem = torch.cuda.max_memory_allocated()
+    qwen_bf16["peak_gib"] = q_mem / 2**30
     print(f"qwen3-8b serve (B={QWEN_BATCH}, prompt {QWEN_PROMPT}, gen "
           f"{QWEN_GEN}, bf16 compute, float32 parameters) on {card}: "
           f"prefill {q_out['prefill_s']:.4f} s, decode "
@@ -2936,6 +2998,269 @@ def main() -> None:
     del gm_out
     torch.cuda.empty_cache()
 
+    # ---- 9t. flash_attention (K3) at qwen2-vl-2b's (group 6) and
+    # musicgen-large's (group 1) shapes, in bf16 and float32, and their
+    # coverage probes -----------------------------------------------------
+    new_fa = {}
+    for tag, pre, dec in (("qwen2-vl", FA_VL_PREFILL, FA_VL_DECODE),
+                          ("musicgen", FA_MG_PREFILL, FA_MG_DECODE)):
+        qn, kn, vn = qkv(*dec[:6], torch.bfloat16, s_max=dec[6])
+        new_fa[tag] = {"prefill": qkv(*pre, torch.bfloat16),
+                       "decode": (qn, kn[:, :dec[4]], vn[:, :dec[4]])}
+        fa_err = max(fa_err, fa_vs_plain(
+            f"{tag} prefill {pre} bf16 causal", *new_fa[tag]["prefill"],
+            body="tc_prefill"))
+        fa_err = max(fa_err, fa_vs_plain(
+            f"{tag} decode {dec[:6]} bf16 over a cache of {dec[6]}",
+            *new_fa[tag]["decode"], body="split_decode"))
+        fa_vs_plain(f"{tag} prefill {pre} float32 causal",
+                    *qkv(*pre, torch.float32), body="fp32_prefill")
+        q32, kc32, vc32 = qkv(*dec[:6], torch.float32, s_max=dec[6])
+        fa_vs_plain(f"{tag} decode {dec[:6]} float32 over a cache of "
+                    f"{dec[6]}", q32, kc32[:, :dec[4]], vc32[:, :dec[4]],
+                    body="split_decode")
+        del q32, kc32, vc32
+        fa_probe(f"{tag} prefill", pre, causal=True)
+        fa_decode_probes(f"{tag} decode", dec[:6], dec[6], causal=True)
+    torch.cuda.empty_cache()
+
+    # ---- 9u. a bf16 smoke serve, card against CPU, through the tensor-core
+    # bodies: the card decodes the CPU's tokens, so every step's logits
+    # compare (within 2e-2) ------------------------------------------------
+    bcfg = smoke_config("qwen3-8b").replace(compute_dtype="bfloat16",
+                                            head_dim=64)
+    b_params = lambda: lm.init_params(bcfg, torch.Generator().manual_seed(0),
+                                      "cpu")
+    b_cpu = lm_serve.serve(bcfg, 2, BF16_PROMPT, BF16_GEN, device="cpu",
+                           params=b_params())
+    b_prompt = torch.from_numpy(host_batch(
+        bcfg, DataConfig(BF16_PROMPT, 2, seed=0), 0)["tokens"]).to(dev)
+    b_feed = torch.cat([b_cpu["prefill_logits"].argmax(-1).to(torch.int32),
+                        torch.from_numpy(b_cpu["generated"][:, :-1])],
+                       dim=1).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_b = time.perf_counter()
+    b_run = lm.compute_copy(bcfg, b_params().to(dev))
+    b_cache, b_logits = lm.prefill(bcfg, b_run, {"tokens": b_prompt},
+                                   max_len=BF16_PROMPT + BF16_GEN)
+    b_steps = [b_logits]
+    for i in range(BF16_GEN):
+        b_cache, b_logits = lm.decode_step(
+            bcfg, b_run, b_cache, {"tokens": b_feed[:, i:i + 1]},
+            BF16_PROMPT + i)
+        b_steps.append(b_logits)
+    torch.cuda.synchronize()
+    bf16_smoke_s = time.perf_counter() - t_b
+    counts["bf16_smoke_serve"] = read()
+    check_bodies("bf16_smoke_serve", bcfg.n_layers,
+                 bcfg.n_layers * BF16_GEN)
+    b_want = [b_cpu["prefill_logits"]] + [
+        b_cpu["logits"][:, i:i + 1] for i in range(BF16_GEN)]
+    b_err = max((g.cpu() - w).abs().max().item()
+                for g, w in zip(b_steps, b_want))
+    if not b_err <= BF16_TOL:
+        fail(f"bf16 smoke serve: card logits {b_err} from the CPU's")
+    print(f"bf16 smoke serve (Qwen3 smoke at head dim 64, B=2, prompt "
+          f"{BF16_PROMPT}, gen {BF16_GEN}, bf16) on {card}: every step's "
+          f"logits within {b_err:.3e} of the CPU's (bound {BF16_TOL}), the "
+          f"card fed the CPU's tokens; launches "
+          f"{dict(zip(KERNELS, counts['bf16_smoke_serve']))}")
+    del b_run, b_cache
+
+    # ---- 9v. arctic-480b's smoke serve (the dense residual beside the MoE),
+    # card against CPU in float32: K4 through fp32_tiled, K3 in float32 ---
+    acfg = smoke_config("arctic-480b")
+    a_params = lambda: lm.init_params(acfg, torch.Generator().manual_seed(0),
+                                      "cpu")
+    a_cpu = lm_serve.serve(acfg, 2, 16, 8, device="cpu", params=a_params())
+    torch.cuda.synchronize()
+    reset_counts()
+    t_a = time.perf_counter()
+    a_card = lm_serve.serve(acfg, 2, 16, 8, device=dev,
+                            params=a_params().to(dev))
+    torch.cuda.synchronize()
+    arctic_smoke_s = time.perf_counter() - t_a
+    counts["arctic_smoke_serve"] = read()
+    a_bodies = dict(gmm_ops.body_launches)
+    want_a = launches(flash_attention=acfg.n_layers * 9,
+                      moe_gmm=acfg.n_layers * 3 * 9)
+    if (counts["arctic_smoke_serve"] != want_a
+            or a_bodies["fp32_tiled"] != want_a[KERNELS.index("moe_gmm")]):
+        fail(f"arctic smoke serve launched "
+             f"{dict(zip(KERNELS, counts['arctic_smoke_serve']))} (K4 "
+             f"bodies {a_bodies}), expected {dict(zip(KERNELS, want_a))}")
+    if not np.array_equal(a_card["generated"], a_cpu["generated"]):
+        fail("arctic smoke serve: card and CPU generated different tokens")
+    a_err = max((a_card[k].cpu() - a_cpu[k]).abs().max().item()
+                for k in ("prefill_logits", "logits"))
+    if a_err > LM_TOL:
+        fail(f"arctic smoke serve: card logits {a_err} from the CPU's")
+    print(f"arctic-480b smoke serve (B=2, prompt 16, gen 8, float32, the "
+          f"dense residual beside 4 experts top-2) on {card}: tokens equal "
+          f"on the card and the CPU, logits within {a_err:.3e} (bound "
+          f"{LM_TOL}); launches "
+          f"{dict(zip(KERNELS, counts['arctic_smoke_serve']))}, K4 bodies "
+          f"{a_bodies}")
+
+    # ---- 9w. qwen2-vl-2b, musicgen-large and Qwen3-8B with the int8 KV
+    # cache, serving at full width ------------------------------------------
+    def lm_path(path, cfg, gen_shape, what):
+        """One LM serving path at full width: 4 synthetic prompts of 2,048
+        tokens, 32 greedy tokens, bf16 compute, random float32 weights
+        from seed 0 on the card; every attention through K3 (asserted per
+        body), finite logits; returns its wall and numbers, the peak
+        memory also above what the script held before the path."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t_l = time.perf_counter()
+        out = lm_serve.serve(cfg, batch=QWEN_BATCH, prompt_len=QWEN_PROMPT,
+                             gen=QWEN_GEN, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_l
+        counts[path] = read()
+        check_bodies(path, cfg.n_layers, cfg.n_layers * QWEN_GEN)
+        want = launches(flash_attention=cfg.n_layers * (1 + QWEN_GEN))
+        if counts[path] != want:
+            fail(f"{path} launched {dict(zip(KERNELS, counts[path]))}, "
+                 f"expected {dict(zip(KERNELS, want))}")
+        if not (bool(torch.isfinite(out["prefill_logits"]).all())
+                and bool(torch.isfinite(out["logits"]).all())):
+            fail(f"{path}: non-finite logits")
+        if out["generated"].shape != gen_shape:
+            fail(f"{path}: generated {out['generated'].shape}, expected "
+                 f"{gen_shape}")
+        mem = torch.cuda.max_memory_allocated()
+        row = dict(prefill_s=out["prefill_s"],
+                   decode_ms=out["decode_s"] / QWEN_GEN * 1e3,
+                   tok_s=out["decode_tok_per_s"], peak_gib=mem / 2**30,
+                   own_peak_gib=(mem - base) / 2**30, wall_s=wall,
+                   params=cfg.param_count())
+        print(f"{cfg.name} serve{what} (B={QWEN_BATCH}, prompt {QWEN_PROMPT},"
+              f" gen {QWEN_GEN}, bf16 compute, float32 parameters, "
+              f"{row['params']:,} parameters) on {card}: prefill "
+              f"{row['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s "
+              f"({row['decode_ms']:.2f} ms/step, {row['tok_s']:.1f} tok/s), "
+              f"bf16 weight copy {out['cast_s']:.4f} s, {wall:.3f} s wall "
+              f"with the weights' init; peak memory {row['peak_gib']:.2f} "
+              f"GiB ({row['own_peak_gib']:.2f} above what the script held "
+              f"before); launches {dict(zip(KERNELS, counts[path]))}; first "
+              f"tokens {out['generated'].reshape(-1)[:8].tolist()}")
+        del out
+        torch.cuda.empty_cache()
+        return wall, row
+
+    def cache_bytes(cfg):
+        c = lm.init_cache(cfg, QWEN_BATCH, QWEN_PROMPT + QWEN_GEN, dev)
+        n = sum(t.nbytes for kv in c for e in kv
+                for t in (e if isinstance(e, tuple) else (e,)))
+        del c
+        return n
+
+    vcfg, mcfg = get_arch("qwen2-vl-2b"), get_arch("musicgen-large")
+    i8cfg = qcfg.replace(kv_cache_dtype="int8")
+    lm_rows = {}
+    qwen2vl_s, lm_rows["qwen2-vl-2b"] = lm_path(
+        "qwen2vl_serve", vcfg, (QWEN_BATCH, QWEN_GEN),
+        f" ({vcfg.vision_tokens} vision tokens of {vcfg.vision_dim}, M-RoPE "
+        f"{vcfg.mrope_sections})")
+    musicgen_s, lm_rows["musicgen-large"] = lm_path(
+        "musicgen_serve", mcfg, (QWEN_GEN, QWEN_BATCH, mcfg.n_codebooks, 1),
+        f" ({mcfg.n_codebooks} codebooks, sinusoidal positions)")
+    # the int8 cache's path, then the bf16 cache's again beside it, so
+    # both run warm and over the same memory held by the script
+    qwen_int8_s, lm_rows["qwen3-8b int8"] = lm_path(
+        "qwen3_int8_serve", i8cfg, (QWEN_BATCH, QWEN_GEN),
+        " (int8 KV cache)")
+    qwen_again_s, lm_rows["qwen3-8b bf16"] = lm_path(
+        "qwen3_serve_beside_int8", qcfg, (QWEN_BATCH, QWEN_GEN),
+        " (bf16 KV cache, again beside the int8 one)")
+    lm_rows["qwen3-8b bf16, the first path"] = qwen_bf16
+    i8, bf = lm_rows["qwen3-8b int8"], lm_rows["qwen3-8b bf16"]
+    i8["cache_bytes"], bf["cache_bytes"] = (cache_bytes(i8cfg),
+                                            cache_bytes(qcfg))
+    print(f"qwen3-8b, int8 / bf16 KV cache, on {card}: prefill "
+          f"{i8['prefill_s']:.4f} / {bf['prefill_s']:.4f} s, decode "
+          f"{i8['decode_ms']:.2f} / {bf['decode_ms']:.2f} ms/step, peak "
+          f"{i8['own_peak_gib']:.2f} / {bf['own_peak_gib']:.2f} GiB above "
+          f"what the script held ({i8['peak_gib']:.2f} / "
+          f"{bf['peak_gib']:.2f} in all); cache {i8['cache_bytes']:,} / "
+          f"{bf['cache_bytes']:,} bytes "
+          f"({i8['cache_bytes'] / bf['cache_bytes']:.4f})")
+    (ROOT / "chiprun_out" / "lm_serving_port.json").write_text(
+        json.dumps({"card": card, "rows": lm_rows}, indent=1))
+
+    # ---- 9x. the Fig. 6 and Fig. 9 --fidelity paths at full SoC and app
+    # width, cut depth ------------------------------------------------------
+    print(f"fidelity cuts: Fig. 6 --fidelity at the first {FID6_WEIGHTS} of "
+          f"15 weightings x {FID6_ITERS} of 10 iterations (SoC-motiv-par, "
+          f"the 6-phase train app, the seed-900 6-phase test app), its "
+          f"classification held against the batched path's on the same "
+          f"weightings (2 seeds); Fig. 9 _run_des on {FID9_LANE[0]}-"
+          f"{FID9_LANE[1]}, 1 of 8 lanes, x {FID9_ITERS} of 10 iterations "
+          f"(8-phase apps, the profiled suite); Fig. 9 _des_crosscheck on "
+          f"all 8 lanes")
+    fid_s = {}
+
+    def fid_path(path, run, want):
+        torch.cuda.synchronize()
+        reset_counts()
+        t_f = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        fid_s[path] = time.perf_counter() - t_f
+        counts[path] = read()
+        if counts[path] != want:
+            fail(f"{path} launched {dict(zip(KERNELS, counts[path]))}, "
+                 f"expected {dict(zip(KERNELS, want))}")
+        return out
+
+    pts6, sim6 = fid_path("fig6_des", lambda: fig6d.des_points(
+        fig6d.WEIGHTS[:FID6_WEIGHTS], FID6_ITERS, dev), launches())
+    bpts6, _ = fid_path("fig6_des_agreement", lambda: fig6d.batched_points(
+        fig6d.WEIGHTS[:FID6_WEIGHTS], FID6_ITERS, 2, dev),
+        launches(soc_step_episode=FID6_ITERS + 2))   # + NON_COH, agents
+    cls6, bcls6 = fig6d.classify(pts6), fig6d.classify(bpts6)
+    if not all(math.isfinite(v) for p in pts6.values() for v in p.values()):
+        fail("fig6_des: non-finite points")
+    if cls6 != bcls6:
+        fail(f"fig6_des: des_agreement false: DES {cls6}, batched {bcls6}")
+    print(f"fig6_des on {card}: {fid_s['fig6_des']:.3f} s wall, "
+          f"{sim6.invocations} invocations "
+          f"({sim6.invocations / fid_s['fig6_des']:.1f} a second); points "
+          f"{json.dumps(pts6)}; des_agreement True ({cls6}; the batched "
+          f"path {fid_s['fig6_des_agreement']:.3f} s)")
+    x9 = fid_path("fig9_des_xcheck", lambda: fig9.crosscheck_port(dev),
+                  launches(soc_step_episode=1))
+    if not x9["agree"]:
+        fail(f"fig9_des_xcheck: max_rel_err {x9['max_rel_err']}, not below "
+             f"1e-3")
+    print(f"fig9_des_xcheck on {card}: {fid_s['fig9_des_xcheck']:.3f} s "
+          f"wall, 8 lanes x 5 policies, max_rel_err "
+          f"{x9['max_rel_err']:.3g}, agree True")
+    r9d = fid_path("fig9_des", lambda: fig9.run_des(dev, [FID9_LANE],
+                                                    FID9_ITERS), launches())
+    row9 = r9d[f"{FID9_LANE[0]}-{FID9_LANE[1]}"]
+    if not all(math.isfinite(v) for fam in fig9.FAMILIES
+               for v in row9[fam]):
+        fail("fig9_des: non-finite rows")
+    e9 = r9d["_engine"]
+    print(f"fig9_des on {card}: {fid_s['fig9_des']:.3f} s wall, "
+          f"{e9['invocations']} invocations "
+          f"({e9['invocations_per_s']:.1f} a second); "
+          + " ".join(f"{fam}=({row9[fam][0]:.6f}, {row9[fam][1]:.6f})"
+                     for fam in fig9.FAMILIES)
+          + f"; headline {json.dumps(r9d['_headline'])}")
+    (ROOT / "chiprun_out" / "fidelity_port.json").write_text(json.dumps(
+        {"fig6_des": pts6, "fig6_batched": bpts6, "fig9_des_xcheck": x9,
+         "fig9_des": r9d, "walls_s": fid_s}, indent=1))
+    print(f"fidelity paths on {card}: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in fid_s.items())
+          + f"; {sum(fid_s.values()):.3f} s in all")
+
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
         for _ in range(3):
@@ -3389,6 +3714,14 @@ def main() -> None:
                                   GM_SOFTCAP)
     # the same prefill without the soft-cap, to see what the tanh costs
     fa_gm_nocap = attention_numbers(FA_GM_PREFILL, *gm_fa["prefill"], True)
+    fa_vl_pre = attention_numbers(FA_VL_PREFILL, *new_fa["qwen2-vl"]["prefill"],
+                                  True)
+    fa_vl_dec = attention_numbers(FA_VL_DECODE[:6],
+                                  *new_fa["qwen2-vl"]["decode"], True)
+    fa_mg_pre = attention_numbers(FA_MG_PREFILL, *new_fa["musicgen"]["prefill"],
+                                  True)
+    fa_mg_dec = attention_numbers(FA_MG_DECODE[:6],
+                                  *new_fa["musicgen"]["decode"], True)
     gmm_pre = gmm_numbers("prefill gate/up", GMM_PREFILL, gmm_sizes[0])
     gmm_down = gmm_numbers("prefill down", GMM_DOWN, gmm_sizes[0])
     gmm_dec = gmm_numbers("decode gate/up", GMM_DECODE, gmm_sizes[1])
@@ -3399,6 +3732,11 @@ def main() -> None:
                "qwen3_serve": qwen_s, "rwkv6_serve": rwkv_s,
                "granite_serve": granite_s, "recurrentgemma_serve": rgemma_s,
                "mlp_serving": mlp_serving_s, "gemma2_serve": gemma_s,
+               "bf16_smoke_serve": bf16_smoke_s,
+               "arctic_smoke_serve": arctic_smoke_s,
+               "qwen2vl_serve": qwen2vl_s, "musicgen_serve": musicgen_s,
+               "qwen3_int8_serve": qwen_int8_s,
+               "qwen3_serve_beside_int8": qwen_again_s, **fid_s,
                "des_vs_vecenv": des_vs_vec_s, **des_paths,
                **soc_layer_paths}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
@@ -3437,6 +3775,7 @@ def main() -> None:
         light_load="0.2x Fig. 11's capacity: no watchdog, the network on "
                    "every admitted request of its two streams")
     j = KERNELS.index("flash_attention")
+    bound_by = lambda n: "bytes" if n[4] >= n[5] else "operations"
     kernels["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3478,18 +3817,34 @@ def main() -> None:
         "gm_library_note": "SDPA without the soft-cap (no PyTorch call "
                            "soft-caps attention)",
         "gm_no_softcap_ms": fa_gm_nocap[0],
+        **{f"{tag}_{k}": v for tag, shape, dshape, pre, dec in (
+            ("vl", FA_VL_PREFILL, FA_VL_DECODE[:6], fa_vl_pre, fa_vl_dec),
+            ("mg", FA_MG_PREFILL, FA_MG_DECODE[:6], fa_mg_pre, fa_mg_dec))
+           for k, v in (("shape", f"prefill {shape}"), ("ms", pre[0]),
+                        ("plain_ms", pre[1]), ("bound_ms", pre[3]),
+                        ("bound_by", bound_by(pre)),
+                        ("library_ms", pre[2]),
+                        ("decode_shape", str(dshape)),
+                        ("decode_ms", dec[0]), ("decode_plain_ms", dec[1]),
+                        ("decode_bound_ms", dec[3]),
+                        ("decode_bound_by", bound_by(dec)),
+                        ("decode_library_ms", dec[2]))},
         "timing": "ms: 20 launches in a row, as every kernel's; device_ms: "
                   "a CUDA graph of 20 launches replayed",
         "device_ms": {n: x[6] for n, x in (
             ("prefill", fa_pre), ("decode", fa_dec), ("rg", fa_rg_pre),
             ("rg_decode", fa_rg_dec), ("gr", fa_gr_pre),
             ("gr_decode", fa_gr_dec), ("gm", fa_gm_pre),
-            ("gm_decode", fa_gm_dec), ("gm_no_softcap", fa_gm_nocap))},
+            ("gm_decode", fa_gm_dec), ("gm_no_softcap", fa_gm_nocap),
+            ("vl", fa_vl_pre), ("vl_decode", fa_vl_dec),
+            ("mg", fa_mg_pre), ("mg_decode", fa_mg_dec))},
         "library_device_ms": {n: x[7] for n, x in (
             ("prefill", fa_pre), ("decode", fa_dec), ("rg", fa_rg_pre),
             ("rg_decode", fa_rg_dec), ("gr", fa_gr_pre),
             ("gr_decode", fa_gr_dec), ("gm", fa_gm_pre),
-            ("gm_decode", fa_gm_dec))},
+            ("gm_decode", fa_gm_dec), ("vl", fa_vl_pre),
+            ("vl_decode", fa_vl_dec), ("mg", fa_mg_pre),
+            ("mg_decode", fa_mg_dec))},
         "float32_decode_ms": fa_f32_dec,
         "bodies_by_path": fa_bodies, "max_abs_err_by_body": fa_errs,
         "hgmma": hgmma_by_body, "card": card})
@@ -3508,7 +3863,6 @@ def main() -> None:
         "probe_cases_bitwise": rw_probes,
         "shape": f"(B, H, T, K) {RWKV_SCAN}", "card": card})
     j = KERNELS.index("moe_gmm")
-    bound_by = lambda n: "bytes" if n[4] >= n[5] else "operations"
     kernels["kernels"].append({
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

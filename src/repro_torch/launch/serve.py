@@ -14,7 +14,11 @@ attention, MLP and expert matmul weights and the head are cast to the
 compute dtype once, before the timed phases (``cast_s``; RWKV layers,
 RG-LRU blocks and the MoE router compute in float32).  The cache holds
 ``prompt_len + gen`` rows (the reference's ``max_len``); a local layer's
-ring holds at most its window.
+ring holds at most its window; ``kv_cache_dtype="int8"`` quantizes it.
+An audio model's prompt is (B, K, S) codebook ids and each step decodes K
+tokens; a VLM's prompt carries the pipeline's ``vision_embeds`` and
+``mrope_positions``, and each decode step the M-RoPE positions
+``prompt_len + i`` on all three streams, as the reference's.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --batch 4 --prompt-len 2048 --gen 32
@@ -24,6 +28,10 @@ ring holds at most its window.
         --arch granite-moe-3b-a800m --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \
+        --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch musicgen-large --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu
 """
@@ -56,16 +64,18 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
 
     ``params`` defaults to random float32 weights from a generator seeded
     with ``seed`` on the device.  Returns the reference's ``prefill_s``,
-    ``decode_s``, ``decode_tok_per_s`` and ``generated`` (B, gen) int32,
-    plus ``cast_s``, ``prefill_logits`` (B, 1, V) and ``logits``
-    (B, gen, V), the float32 logits each generated token was taken
-    from."""
+    ``decode_s``, ``decode_tok_per_s`` and ``generated``, (B, gen) int32
+    (with K codebooks the reference's (gen, B, K, 1)), plus ``cast_s``,
+    ``prefill_logits`` (B, 1, V) and ``logits`` (B, gen, V) (with K
+    codebooks (B, K, 1, V) and (B, K, gen, V)), the float32 logits each
+    generated token was taken from."""
     dev = resolve_device(device)
     if params is None:
         rng = torch.Generator(device=dev).manual_seed(seed)
         params = transformer.init_params(cfg, rng, dev)
     data = host_batch(cfg, DataConfig(prompt_len, batch, seed=seed), 0)
-    prompt = {"tokens": torch.from_numpy(data["tokens"]).to(dev)}
+    prompt = {k: torch.from_numpy(v).to(dev) for k, v in data.items()
+              if k != "labels"}
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -83,23 +93,33 @@ def serve(cfg: ArchConfig, batch: int, prompt_len: int, gen: int,
     toks, logits = [], []
     t1 = time.perf_counter()
     for i in range(gen):
+        step = {"tokens": tok}
+        if cfg.family == "vlm":
+            step["mrope_positions"] = torch.full(
+                (3, batch, 1), prompt_len + i, dtype=torch.int32, device=dev)
         cache, step_logits = transformer.decode_step(
-            cfg, run, cache, {"tokens": tok}, prompt_len + i)
+            cfg, run, cache, step, prompt_len + i)
         tok = torch.argmax(step_logits, dim=-1).to(torch.int32)
         toks.append(tok)
         logits.append(step_logits)
     _sync(dev)
     t_decode = time.perf_counter() - t1
 
+    if cfg.n_codebooks:
+        generated = (torch.stack(toks).cpu().numpy().astype(np.int32)
+                     if toks else np.zeros((0, batch, cfg.n_codebooks, 1),
+                                           np.int32))
+    else:
+        generated = (torch.cat(toks, dim=-1).cpu().numpy().astype(np.int32)
+                     if toks else np.zeros((batch, 0), np.int32))
     return {
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_per_s": batch * gen / max(t_decode, 1e-9),
-        "generated": torch.cat(toks, dim=-1).cpu().numpy().astype(np.int32)
-        if toks else np.zeros((batch, 0), np.int32),
+        "generated": generated,
         "cast_s": t_cast,
         "prefill_logits": prefill_logits,
-        "logits": torch.cat(logits, dim=1) if logits else None,
+        "logits": torch.cat(logits, dim=-2) if logits else None,
     }
 
 

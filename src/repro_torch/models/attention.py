@@ -1,6 +1,7 @@
 """Grouped-query attention: causal masking, sliding-window (local) layers
 with their rolling KV ring, tanh logit soft-capping, qwen3's per-head
-qk-RMSNorm, and a KV-cache decode path.
+qk-RMSNorm, qwen2-vl's M-RoPE, and a KV-cache decode path with a
+compute-dtype or an int8 cache.
 
 The same semantics as ``repro.models.attention``, with one difference of
 route: the reference computes attention with XLA (``attention_scores``)
@@ -12,10 +13,12 @@ CPU).  :func:`attention_scores` stays as the reference's plain function,
 the tests' oracle (its ``rolling`` option is the reference's ring
 decode); no path calls it.
 
-The KV cache is a pair of plain compute-dtype tensors per layer, written
-in place: ``max_len`` rows for a global layer, a ring of
-``min(max_len, window)`` rows for a local one.  The int8 cache is not
-ported.
+The KV cache is a pair of entries per layer, written in place: ``max_len``
+rows for a global layer, a ring of ``min(max_len, window)`` rows for a
+local one.  An entry is a compute-dtype tensor, or with
+``kv_cache_dtype="int8"`` an ``(int8 values, float32 scales)`` pair
+(:func:`quantize_kv`), dequantized on read; the kernel reads the
+dequantized compute-dtype rows, as the reference's attention does.
 """
 from __future__ import annotations
 
@@ -56,21 +59,54 @@ def init_attn(cfg: ArchConfig, generator: torch.Generator,
         q_norm=qn, k_norm=qn.clone())
 
 
-def _plain(entry) -> torch.Tensor:
-    if not isinstance(entry, torch.Tensor):
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP A15)")
-    return entry
+# the float32 reciprocal XLA multiplies by where the reference divides by
+# 127.0 (ROADMAP C7: measured on its jitted quantize_kv, 4.4% of the
+# scales differ from a true division)
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+_MIN_SCALE = torch.tensor(1e-8, dtype=torch.float32)
 
 
-def cache_write(entry: torch.Tensor, val: torch.Tensor, pos: int) -> None:
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8-quantize (B, S, K, hd) with a float32 per-(B, S, K) scale,
+    ``max|x| / 127`` floored at 1e-8; values rounded half to even and
+    clipped to +-127."""
+    x32 = x.to(torch.float32)
+    scale = torch.maximum(x32.abs().amax(-1, keepdim=True) * _INV_127,
+                          _MIN_SCALE)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def cache_rows(entry) -> int:
+    """The rows a cache entry holds (a ring's size)."""
+    return (entry[0] if isinstance(entry, tuple) else entry).shape[1]
+
+
+def cache_slice(entry, end: int):
+    """The entry's first ``end`` rows (a view)."""
+    if isinstance(entry, tuple):
+        return entry[0][:, :end], entry[1][:, :end]
+    return entry[:, :end]
+
+
+def cache_write(entry, val: torch.Tensor, pos: int) -> None:
     """Write ``val`` (B, S, K, hd) at positions ``pos .. pos + S - 1`` of
-    the cache entry, in place."""
-    _plain(entry)[:, pos:pos + val.shape[1]] = val.to(entry.dtype)
+    the cache entry, in place; an int8 entry takes ``val`` quantized."""
+    end = pos + val.shape[1]
+    if isinstance(entry, tuple):
+        q, scale = quantize_kv(val)
+        entry[0][:, pos:end] = q
+        entry[1][:, pos:end] = scale
+    else:
+        entry[:, pos:end] = val.to(entry.dtype)
 
 
-def cache_read(entry: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    return _plain(entry).to(dt)
+def cache_read(entry, dt: torch.dtype) -> torch.Tensor:
+    """The entry in ``dt``: an int8 entry dequantized (its values times
+    their scale in float32, then cast)."""
+    if isinstance(entry, tuple):
+        return (entry[0].to(torch.float32) * entry[1]).to(dt)
+    return entry.to(dt)
 
 
 def attention_scores(q, k, v, *, causal_offset: int, window: int = 0,
@@ -112,10 +148,10 @@ def attention_scores(q, k, v, *, causal_offset: int, window: int = 0,
 
 
 def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
-                positions: torch.Tensor):
+                positions: torch.Tensor, mrope_positions=None):
     """q (B, S, H, hd) and k, v (B, S, K, hd) in the compute dtype, q and
-    k qk-normed and rotated (with
-    rotary positions)."""
+    k qk-normed and rotated: by M-RoPE where the config has sections and
+    ``mrope_positions`` (3, B, S) is given, else by ``positions``."""
     dt = common.dtype_of(cfg.compute_dtype)
     hd = cfg.resolved_head_dim
     x = x.to(dt)
@@ -127,18 +163,24 @@ def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
         q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = common.rms_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.pos_emb == "rope":
-        q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope_sections and mrope_positions is not None:
+            q = common.apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                                   cfg.rope_theta)
+            k = common.apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                                   cfg.rope_theta)
+        else:
+            q = common.apply_rope(q, positions, cfg.rope_theta)
+            k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def ring_write(entry: torch.Tensor, val: torch.Tensor, pos: int) -> None:
+def ring_write(entry, val: torch.Tensor, pos: int) -> None:
     """Write ``val`` (B, S, K, hd), the keys or values of positions ``pos ..
     pos + S - 1``, into a local layer's ring of ``size`` rows, in place:
     position ``t`` goes to row ``t % size``, and of more than ``size`` new
     rows only the last ``size`` are kept (the reference's prefill and
     decode writes)."""
-    size, s = _plain(entry).shape[1], val.shape[1]
+    size, s = cache_rows(entry), val.shape[1]
     keep = min(s, size)
     val = val[:, s - keep:]
     start = (pos + s - keep) % size
@@ -150,54 +192,49 @@ def ring_write(entry: torch.Tensor, val: torch.Tensor, pos: int) -> None:
 
 def attend(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
            positions: torch.Tensor, *, layer_window: int = 0,
-           cache_kv=None, cache_pos: int | None = None):
+           cache_kv=None, cache_pos: int | None = None,
+           mrope_positions=None):
     """The attention sub-layer; returns ``(out, cache_kv)``.
 
     Without a cache: causal attention over ``x``'s own keys, within
     ``layer_window`` of each query when it is > 0.
 
-    A global layer's ``cache_kv`` = (k_cache, v_cache), each (B, S_max, K,
-    hd): the new keys and values are written at ``cache_pos`` (in place)
-    and the queries attend to the cache's first ``cache_pos + S`` rows.
-    With the queries end-aligned to those keys every written key is
-    visible to the causal mask, which is the reference's masked full-cache
-    attention (masked logits contribute an exact 0 after ``exp``).
-
-    A local layer's cache (``layer_window`` > 0) is a ring of ``size`` =
-    ``min(max_len, window)`` rows (:func:`ring_write`).  A prompt (S > 1,
-    from ``cache_pos`` 0) attends to its own keys within the window and is
-    then written to the ring.  A decode step (S = 1) writes at ``cache_pos
-    % size`` and attends to the ring's first ``min(cache_pos + 1, size)``
-    rows, all of them in the past and within the window, with no mask but
-    that count (the reference's ``rolling=True``).
+    With one, the new keys and values are written in place at
+    ``cache_pos``: a global layer's ``cache_kv`` = (k_cache, v_cache), each
+    of S_max rows (:func:`cache_write`); a local layer's (``layer_window``
+    > 0) a ring of ``size`` = ``min(max_len, window)`` rows
+    (:func:`ring_write`).  A prompt (from ``cache_pos`` 0) attends to the
+    keys it computed, within the window on a local layer, as the
+    reference's prefill does (with an int8 cache, unquantized).  Otherwise
+    the queries attend to the cache's rows, read back in the compute dtype
+    (an int8 cache dequantized): a global layer's first ``cache_pos + S``,
+    end-aligned so every written key is visible to the causal mask (the
+    reference's masked full-cache attention: masked logits contribute an
+    exact 0 after ``exp``); a local layer's decode step (S = 1) the ring's
+    first ``min(cache_pos + 1, size)``, all of them in the past and within
+    the window, with no mask but that count (the reference's
+    ``rolling=True``).
     """
     dt = common.dtype_of(cfg.compute_dtype)
-    q, k, v = project_qkv(cfg, p, x, positions)
+    q, k, v = project_qkv(cfg, p, x, positions, mrope_positions)
     s = x.shape[1]
     window = layer_window
-    if cache_kv is None:
-        keys, values = k, v
-    elif layer_window:
+    keys, values = k, v
+    if cache_kv is not None:
         k_cache, v_cache = cache_kv
-        if s > 1 and cache_pos != 0:
+        if layer_window and s > 1 and cache_pos != 0:
             raise NotImplementedError(
                 "a local layer takes a prompt only from position 0")
-        ring_write(k_cache, k, cache_pos)
-        ring_write(v_cache, v, cache_pos)
-        if s > 1:
-            keys, values = k, v
-        else:
-            n = min(cache_pos + 1, _plain(k_cache).shape[1])
-            keys = cache_read(k_cache[:, :n], dt)
-            values = cache_read(v_cache[:, :n], dt)
-            window = 0
-    else:
-        k_cache, v_cache = cache_kv
-        cache_write(k_cache, k, cache_pos)
-        cache_write(v_cache, v, cache_pos)
-        end = cache_pos + s
-        keys = cache_read(k_cache[:, :end], dt)
-        values = cache_read(v_cache[:, :end], dt)
+        write = ring_write if layer_window else cache_write
+        write(k_cache, k, cache_pos)
+        write(v_cache, v, cache_pos)
+        if cache_pos:
+            if layer_window:
+                end, window = min(cache_pos + 1, cache_rows(k_cache)), 0
+            else:
+                end = cache_pos + s
+            keys = cache_read(cache_slice(k_cache, end), dt)
+            values = cache_read(cache_slice(v_cache, end), dt)
     out = fa_ops.flash_attention(q, keys, values, causal=True,
                                  window=window, softcap=cfg.attn_softcap)
     b = x.shape[0]

@@ -1,8 +1,10 @@
-"""Shared model building blocks: norms, rotary embeddings, init helpers.
+"""Shared model building blocks: norms, positional embeddings, init
+helpers.
 
 The same semantics as ``repro.models.common``: RMSNorm in float32 with a
-``(1 + w)`` scale, rotary embeddings from the same float32 frequency
-table, tanh soft-capping, and the same init distributions (a truncated
+``(1 + w)`` scale, rotary embeddings (and qwen2-vl's M-RoPE) from the same
+float32 frequency table, musicgen's sinusoidal positions, tanh
+soft-capping, and the same init distributions (a truncated
 normal on [-2, 2] scaled by fan-in^-1/2, and N(0, 0.02)) drawn from a
 ``torch.Generator``, so the numbers differ from ``jax.random``'s.
 """
@@ -92,6 +94,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _mrope_sections_on(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The position stream (0 = t, 1 = h, 2 = w) of every rotary dim."""
+    return torch.repeat_interleave(torch.arange(len(sections)),
+                                   torch.tensor(sections)).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: tuple, theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): the rotary dims split into (temporal,
+    height, width) sections, each rotated by its own position stream.
+
+    x: (B, S, H, hd); positions3: (3, B, S); sections sum to hd // 2."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {hd // 2}")
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    pos = positions3[_mrope_sections_on(tuple(sections), x.device)]
+    angles = pos.movedim(0, -1).to(torch.float32) * freqs   # (B, S, hd/2)
+    angles = angles[..., None, :]                           # (B, S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoidal_freqs_on(dim: int, device: torch.device) -> torch.Tensor:
+    """exp(-log(10000) i / half) for i < half, in float32; the division by
+    the constant ``half`` is a product with its float32 reciprocal, as XLA
+    compiles it (ROADMAP C7; exact where ``half`` is a power of two)."""
+    half = dim // 2
+    e = (torch.tensor(-math.log(10000.0), dtype=torch.float32)
+         * torch.arange(half, dtype=torch.float32)
+         * torch.tensor(1.0 / half, dtype=torch.float32))
+    return torch.exp(e).to(device)
+
+
+def sinusoidal_pos_emb(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Classic transformer sinusoidal embeddings (musicgen): (..., dim)
+    float32, the sines then the cosines."""
+    freqs = _sinusoidal_freqs_on(dim, positions.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def activation(name: str):

@@ -7,7 +7,9 @@ per layer in order.  ``attn``, ``mlp``, ``moe``, ``tm``, ``cm`` and
 ``rg`` nodes (and an RWKV or RG-LRU layer's cache entry) may be named
 tuples (as ``jax.tree_util.tree_map(np.asarray, params)`` leaves them) or
 dicts; :func:`params_to_numpy` writes dicts.  A tree with a tied head has no
-``lm_head``, and passes both ways without one.
+``lm_head``, and passes both ways without one.  An arctic layer carries
+its dense ``mlp`` beside its ``moe``, a VLM's tree its ``vision_proj``,
+and an audio model's ``embed`` and ``lm_head`` a leading codebook axis.
 """
 from __future__ import annotations
 
@@ -73,13 +75,18 @@ def params_from_numpy(cfg: ArchConfig, tree: dict,
                 mlp.MLPParams(*fields("mlp", _MLP))))
             continue
         attn = attention.AttnParams(*fields("attn", _ATTN))
-        ff = (mlp.MoEParams(*fields("moe", _MOE)) if "moe" in node
-              else mlp.MLPParams(*fields("mlp", _MLP)))
-        layers.append(transformer.Layer(norms, attn, ff))
-    head = tree.get("lm_head")
+        dense = (mlp.MLPParams(*fields("mlp", _MLP)) if "mlp" in node
+                 else None)
+        if "moe" in node:
+            layers.append(transformer.Layer(
+                norms, attn, mlp.MoEParams(*fields("moe", _MOE)), dense))
+        else:
+            layers.append(transformer.Layer(norms, attn, dense))
+    opt = lambda name: (None if tree.get(name) is None
+                        else t(tree[name], None))
     return transformer.Transformer(layers, t(tree["embed"], None),
-                                   None if head is None else t(head, None),
-                                   t(tree["final_norm"], None))
+                                   opt("lm_head"), t(tree["final_norm"], None),
+                                   opt("vision_proj"))
 
 
 def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
@@ -95,8 +102,9 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
         elif isinstance(p, transformer.RgLayer):
             subs = (("rg", rglru.RGLRU_FIELDS), ("mlp", _MLP))
         else:
-            subs = (("attn", _ATTN),
-                    ("moe", _MOE) if hasattr(p, "moe") else ("mlp", _MLP))
+            subs = (("attn", _ATTN),) + ((("moe", _MOE),) if hasattr(p, "moe")
+                                         else ()) + (
+                (("mlp", _MLP),) if hasattr(p, "mlp") else ())
         out = {k: n(w) for k, w in zip(_NORMS, p.norms())
                if w is not None}
         for sub, names in subs:
@@ -116,6 +124,8 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
             "final_norm": n(params.final_norm)}
     if params.lm_head is not None:
         tree["lm_head"] = n(params.lm_head)
+    if params.vision_proj is not None:
+        tree["vision_proj"] = n(params.vision_proj)
     if tail:
         tree["tail"] = {f"t{i}_{pattern[i]}": layers[n_super * span + i]
                         for i in range(tail)}
@@ -124,10 +134,12 @@ def params_to_numpy(cfg: ArchConfig, params: transformer.Transformer) -> dict:
 
 def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> list:
     """The reference's cache tree (numpy leaves; each attention layer a
-    ``(k, v)`` pair, a local layer's of its ring's size, each RWKV layer
+    ``(k, v)`` pair, a local layer's of its ring's size, each entry an
+    array or, in an int8 cache, an ``(int8, scale)`` pair; each RWKV layer
     an ``RwkvState``, each RG-LRU layer an ``RGLRUState``) as the port's
-    per-layer list: K/V in the compute dtype, recurrent states in float32
-    (the layers read them in float32)."""
+    per-layer list: K/V in the compute dtype (an int8 entry as int8 values
+    and float32 scales), recurrent states in float32 (the layers read them
+    in float32)."""
     transformer.check_supported(cfg)
     dt = common.dtype_of(cfg.compute_dtype)
 
@@ -140,6 +152,10 @@ def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> list:
             state = _STATES[kind]
             return state(*(t(a, s, torch.float32)
                            for a in _fields(node, state._fields)))
+        if isinstance(node[0], tuple):     # (int8 values, scales)
+            raw = lambda a: torch.from_numpy(np.array(
+                a if s is None else a[s])).to(device)
+            return tuple((raw(e[0]), raw(e[1])) for e in node)
         return (t(node[0], s), t(node[1], s))
 
     return [entry(*n) for n in _layer_nodes(cfg, tree)]

@@ -1,17 +1,23 @@
-"""Model assembly for the dense and Mixture-of-Experts attention families,
-RWKV-6 and the RecurrentGemma hybrid: prefill and greedy decode with a KV
-cache or recurrent states.
+"""Model assembly for every family of the reference's configs (dense,
+Mixture-of-Experts, RWKV-6, the RecurrentGemma hybrid, the vision-language
+and audio models): prefill and greedy decode with a KV cache or recurrent
+states.
 
 The same semantics as ``repro.models.transformer`` for layers of the
-attention (global and local), RWKV and RG-LRU kinds, with a gated MLP or
-an MoE layer, the embedding scale, and a head of its own or tied to the
-embedding.  The reference stacks each superblock's parameters along a
+attention (global and local), RWKV and RG-LRU kinds, with a gated MLP, an
+MoE layer or both (arctic's dense residual beside its MoE), Gemma-2's
+post-norms and final soft-cap, the embedding scale, a head of its own or
+tied to the embedding, musicgen's audio codebooks (K embeddings summed, K
+heads) and sinusoidal positions, and qwen2-vl's M-RoPE with its vision
+stub (projected patch embeddings over the first ``vision_tokens``
+positions).  The reference stacks each superblock's parameters along a
 leading axis for ``lax.scan``; here the layers are a ``ModuleList`` of
 ``n_layers`` in order (superblock ``s``, position ``i`` is layer ``s *
 len(pattern) + i``, then the tail), and a loop runs them.  The parameter
 names follow the reference's tree (``layers.<n>.ln1``, ``.attn.wq``,
 ``.mlp.w_gate``, ``.moe.router``, ``.tm.wr``, ``.cm.wk``, ``.rg.wa``,
-``embed``, ``lm_head`` (absent when tied), ``final_norm``);
+``embed``, ``lm_head`` (absent when tied), ``vision_proj`` (a VLM's),
+``final_norm``);
 :mod:`repro_torch.models.convert` carries a reference tree across.
 
 Parameters are float32 and are cast to ``cfg.compute_dtype`` at use, as
@@ -21,17 +27,14 @@ kernel) and the head (a tied head's ``embed.T``) (the numbers are the
 same, the cast being deterministic; the MoE router stays float32).
 RWKV layers and RG-LRU blocks compute in float32 against their float32
 weights, as the reference's do, so the copy leaves them as they are.  The
-cache holds one ``(k, v)`` pair of compute-dtype tensors per attention
-layer, updated in place (``(B, max_len, K, hd)`` for a global layer, a
-ring of ``min(max_len, window)`` rows for a local one), one
+cache holds one ``(k, v)`` pair of entries per attention layer, updated in
+place (``(B, max_len, K, hd)`` for a global layer, a ring of
+``min(max_len, window)`` rows for a local one; each entry a
+compute-dtype tensor or, with ``kv_cache_dtype="int8"``, an ``(int8,
+float32 scale)`` pair: :mod:`repro_torch.models.attention`), one
 :class:`~repro_torch.models.rwkv6.RwkvState` per RWKV layer and one
 float32 :class:`~repro_torch.models.rglru.RGLRUState` per RG-LRU layer,
 replaced by each step's new state.
-
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): arctic's dense residual beside its MoE, M-RoPE, sinusoidal
-positions, audio codebooks, the int8 KV cache, and Gemma-2's post-norms
-and final soft-cap.
 """
 from __future__ import annotations
 
@@ -75,22 +78,19 @@ def layer_window(cfg: ArchConfig, kind: str) -> int:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a feature the port lacks."""
-    missing = []
-    if cfg.moe_dense_residual:
-        missing.append("the dense residual MLP beside the MoE (ROADMAP "
-                       "A15)")
-    if cfg.mrope_sections or cfg.family == "vlm":
-        missing.append("M-RoPE and the vision frontend (ROADMAP A15)")
-    if cfg.pos_emb not in ("rope", "none"):
-        missing.append(f"{cfg.pos_emb} positions (ROADMAP A15)")
-    if cfg.n_codebooks:
-        missing.append("audio codebooks (ROADMAP A15)")
-    if cfg.kv_cache_dtype == "int8":
-        missing.append("the int8 KV cache (ROADMAP A15)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {'; '.join(missing)}")
+    """Raise ``ValueError`` for a config no model can run: an unknown
+    positional embedding or KV-cache type, or M-RoPE sections that do not
+    cover the rotary half of the head.  Every feature of the reference's
+    configs is ported."""
+    if cfg.pos_emb not in ("rope", "sinusoidal", "none"):
+        raise ValueError(f"{cfg.name}: unknown pos_emb {cfg.pos_emb!r}")
+    if cfg.kv_cache_dtype not in ("", "int8"):
+        raise ValueError(f"{cfg.name}: unknown kv_cache_dtype "
+                         f"{cfg.kv_cache_dtype!r}")
+    if cfg.mrope_sections and (sum(cfg.mrope_sections)
+                               != cfg.resolved_head_dim // 2):
+        raise ValueError(f"{cfg.name}: M-RoPE sections {cfg.mrope_sections}"
+                         f" do not sum to {cfg.resolved_head_dim // 2}")
 
 
 # --------------------------------------------------------------------------
@@ -114,14 +114,18 @@ class _Norms(nn.Module):
 
 class Layer(_Norms):
     """One residual attention layer: the norms, ``attn`` and ``mlp`` (a
-    gated MLP) or ``moe`` (an MoE layer)."""
+    gated MLP) or ``moe`` (an MoE layer), or both where the config has
+    ``moe_dense_residual`` (arctic: ``dense`` passed beside the MoE)."""
 
     def __init__(self, norms, attn: attention.AttnParams,
-                 ff: mlp.MLPParams | mlp.MoEParams):
+                 ff: mlp.MLPParams | mlp.MoEParams,
+                 dense: mlp.MLPParams | None = None):
         super().__init__(*norms)
         self.attn = attn
         if isinstance(ff, mlp.MoEParams):
             self.moe = ff
+            if dense is not None:
+                self.mlp = dense
         else:
             self.mlp = ff
 
@@ -150,16 +154,19 @@ class RgLayer(_Norms):
 
 class Transformer(nn.Module):
     """``embed`` (V, D), ``layers``, ``final_norm`` (D,), ``lm_head``
-    (D, V), None when the head is tied to ``embed``."""
+    (D, V), None when the head is tied to ``embed``; with K audio
+    codebooks ``embed`` (K, V, D) and ``lm_head`` (K, D, V); a VLM's
+    ``vision_proj`` (vision_dim, D), else None."""
 
-    def __init__(self, layers, embed, lm_head, final_norm):
+    def __init__(self, layers, embed, lm_head, final_norm, vision_proj=None):
         super().__init__()
+        p = lambda w: (None if w is None
+                       else nn.Parameter(w.detach(), requires_grad=False))
         self.layers = nn.ModuleList(layers)
-        self.embed = nn.Parameter(embed.detach(), requires_grad=False)
-        self.lm_head = (None if lm_head is None else
-                        nn.Parameter(lm_head.detach(), requires_grad=False))
-        self.final_norm = nn.Parameter(final_norm.detach(),
-                                       requires_grad=False)
+        self.embed = p(embed)
+        self.lm_head = p(lm_head)
+        self.final_norm = p(final_norm)
+        self.vision_proj = p(vision_proj)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -181,38 +188,53 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             return RgLayer(norms(),
                            rglru.init_rglru(cfg, generator, device),
                            mlp.init_mlp(cfg, generator, device))
-        return Layer(norms(),
-                     attention.init_attn(cfg, generator, device),
-                     mlp.init_moe(cfg, generator, device) if cfg.n_experts
-                     else mlp.init_mlp(cfg, generator, device))
+        if not cfg.n_experts:
+            return Layer(norms(), attention.init_attn(cfg, generator, device),
+                         mlp.init_mlp(cfg, generator, device))
+        return Layer(norms(), attention.init_attn(cfg, generator, device),
+                     mlp.init_moe(cfg, generator, device),
+                     mlp.init_mlp(cfg, generator, device)
+                     if cfg.moe_dense_residual else None)
 
     layers = [layer(kind) for kind in layer_kinds(cfg)]
-    embed = common.embed_init((cfg.vocab, d), generator=generator,
-                              device=device)
-    lm_head = (None if cfg.tie_embeddings else
-               common.dense_init((d, cfg.vocab), 0, generator=generator,
-                                 device=device))
-    return Transformer(layers, embed, lm_head, zeros())
+    dense = lambda shape, axis: common.dense_init(
+        shape, axis, generator=generator, device=device)
+    if cfg.n_codebooks:
+        k = cfg.n_codebooks
+        embed = common.embed_init((k, cfg.vocab, d), generator=generator,
+                                  device=device)
+        lm_head = dense((k, d, cfg.vocab), 1)
+    else:
+        embed = common.embed_init((cfg.vocab, d), generator=generator,
+                                  device=device)
+        lm_head = None if cfg.tie_embeddings else dense((d, cfg.vocab), 0)
+    vision = (dense((cfg.vision_dim, d), 0) if cfg.family == "vlm"
+              else None)
+    return Transformer(layers, embed, lm_head, zeros(), vision)
 
 
 def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
-    """``params`` with every attention, MLP and expert matmul weight and
-    the head cast once to the compute dtype (the norms, post-norms
-    included, and the MoE router stay float32 and shared, the embedding table stays as it is: it is
-    cast after the gather; RWKV layers and RG-LRU blocks, which compute in
+    """``params`` with every attention, MLP and expert matmul weight, the
+    head and a VLM's vision projection cast once to the compute dtype (the
+    norms, post-norms included, and the MoE router stay float32 and
+    shared, the embedding table stays as it is: it is cast after the
+    gather; RWKV layers and RG-LRU blocks, which compute in
     float32, are shared as they are).  A tied head's copy is ``embed.T``
     cast, held as the copy's ``lm_head``.  Computes the same numbers as
     ``params``; with a float32 compute dtype it shares every tensor."""
     dt = common.dtype_of(cfg.compute_dtype)
     c = lambda w: w.to(dt)
 
+    def dense(l):
+        return mlp.MLPParams(c(l.mlp.w_gate), c(l.mlp.w_up),
+                             c(l.mlp.w_down))
+
     def ff(l):
         if hasattr(l, "moe"):
             m, ce = l.moe, lambda w: c(w).contiguous()
             return mlp.MoEParams(m.router, ce(m.w_gate), ce(m.w_up),
                                  ce(m.w_down))
-        return mlp.MLPParams(c(l.mlp.w_gate), c(l.mlp.w_up),
-                             c(l.mlp.w_down))
+        return dense(l)
 
     def layer(l):
         if isinstance(l, RwkvLayer):
@@ -223,11 +245,16 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
                      attention.AttnParams(c(l.attn.wq), c(l.attn.wk),
                                           c(l.attn.wv), c(l.attn.wo),
                                           l.attn.q_norm, l.attn.k_norm),
-                     ff(l))
+                     ff(l),
+                     dense(l) if hasattr(l, "moe") and hasattr(l, "mlp")
+                     else None)
 
     layers = [layer(l) for l in params.layers]
     head = params.lm_head if params.lm_head is not None else params.embed.T
-    return Transformer(layers, params.embed, head.to(dt), params.final_norm)
+    vision = (None if params.vision_proj is None
+              else c(params.vision_proj))
+    return Transformer(layers, params.embed, head.to(dt), params.final_norm,
+                       vision)
 
 
 # --------------------------------------------------------------------------
@@ -235,11 +262,13 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
 # --------------------------------------------------------------------------
 def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
-                cache_pos: int | None = None):
+                cache_pos: int | None = None, mrope_positions=None):
     """One residual layer; returns ``(x, cache)``: an attention layer's
     cache written in place, an RWKV or RG-LRU layer's new state (None
     without one).  Where the config has ``post_norms`` (Gemma-2), each
-    branch's output is normalized before it joins the residual."""
+    branch's output is normalized before it joins the residual; with
+    ``moe_dense_residual`` (arctic) the dense MLP's output is added to the
+    MoE's."""
     post = lambda y, w: (y if w is None
                          else common.rms_norm(y, w, cfg.norm_eps))
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
@@ -254,36 +283,65 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
     else:
         out, cache = attention.attend(cfg, p.attn, h, positions,
                                       layer_window=layer_window(cfg, kind),
-                                      cache_kv=cache, cache_pos=cache_pos)
+                                      cache_kv=cache, cache_pos=cache_pos,
+                                      mrope_positions=mrope_positions)
     x = x + post(out, p.post_ln1)
     h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
         out2 = mlp.moe(cfg, p.moe, h2)[0]
+        if cfg.moe_dense_residual:
+            out2 = out2 + mlp.mlp(cfg, p.mlp, h2)
     else:
         out2 = mlp.mlp(cfg, p.mlp, h2)
     return x + post(out2, p.post_ln2), cache
 
 
-def embed_tokens(cfg: ArchConfig, params: Transformer,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """The tokens' embeddings in the compute dtype, times sqrt(d_model)
-    held in that dtype where ``cfg.embed_scale``."""
+def embed_tokens(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
+                 *, positions: torch.Tensor | None = None,
+                 vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype: (B, S) ids, or (B, K,
+    S) with K audio codebooks, whose K float32 embeddings are added one
+    after another in codebook order (the reference's prompt takes a Python
+    ``sum``, its decode reduces a stack, which XLA adds in the same order:
+    tests/test_torch_lm_configs.py); times
+    sqrt(d_model) held in that dtype where ``cfg.embed_scale``; a VLM's
+    projected ``vision_embeds`` (B, vision_tokens, vision_dim) over the
+    first positions; sinusoidal embeddings of ``positions`` (default
+    ``0 .. S - 1``) added where ``cfg.pos_emb`` is ``"sinusoidal"``."""
     dt = common.dtype_of(cfg.compute_dtype)
-    h = params.embed[tokens.long()].to(dt)
+    tokens = tokens.long()
+    if cfg.n_codebooks:
+        h = params.embed[0][tokens[:, 0]]
+        for k in range(1, cfg.n_codebooks):
+            h = h + params.embed[k][tokens[:, k]]
+    else:
+        h = params.embed[tokens]
+    h = h.to(dt)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if cfg.family == "vlm" and vision_embeds is not None:
+        vis = vision_embeds.to(dt) @ params.vision_proj.to(dt)
+        h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        if positions is None:
+            positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        h = h + common.sinusoidal_pos_emb(positions, cfg.d_model).to(dt)
     return h
 
 
 def lm_logits(cfg: ArchConfig, params: Transformer,
               h: torch.Tensor) -> torch.Tensor:
-    """The head's float32 logits, soft-capped where ``cfg.final_softcap``
-    (Gemma-2) in float32."""
+    """The head's float32 logits (B, S, V), or (B, K, S, V) with K audio
+    codebooks, soft-capped where ``cfg.final_softcap`` (Gemma-2) in
+    float32."""
     dt = h.dtype
     h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
     head = params.lm_head if params.lm_head is not None else params.embed.T
-    return common.softcap((h @ head.to(dt)).to(torch.float32),
-                          cfg.final_softcap)
+    if cfg.n_codebooks:
+        logits = torch.einsum("bsd,kdv->bksv", h, head.to(dt))
+    else:
+        logits = h @ head.to(dt)
+    return common.softcap(logits.to(torch.float32), cfg.final_softcap)
 
 
 # --------------------------------------------------------------------------
@@ -293,7 +351,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> list:
     """Per layer, a zeroed ``(k, v)`` pair of (B, size, K, hd) for an
     attention layer (``size`` = ``max_len``, or ``min(max_len, window)``
-    for a local layer's ring), a zeroed
+    for a local layer's ring; with the int8 cache each entry an int8
+    tensor of zeros and its (B, size, K, 1) float32 scales of ones, as the
+    reference's), a zeroed
     :class:`~repro_torch.models.rwkv6.RwkvState` for an RWKV layer and
     :class:`~repro_torch.models.rglru.RGLRUState` for an RG-LRU layer
     (``max_len`` unused)."""
@@ -308,53 +368,65 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         window = layer_window(cfg, kind)
         size = min(max_len, window) if window else max_len
         shape = (batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
+        if cfg.kv_cache_dtype == "int8":
+            return tuple((torch.zeros(shape, dtype=torch.int8, device=device),
+                          torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                     device=device)) for _ in range(2))
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
     return [entry(kind) for kind in layer_kinds(cfg)]
 
 
-def _run_layers(cfg, params, h, positions, cache, pos):
+def _run_layers(cfg, params, h, positions, cache, pos, mrope=None):
     """Runs every layer; returns ``(h, cache)`` with each layer's entry
     as :func:`apply_layer` returns it."""
     new_cache = []
     for kind, p, c in zip(layer_kinds(cfg), params.layers, cache):
         h, c = apply_layer(cfg, kind, p, h, positions, cache=c,
-                           cache_pos=pos)
+                           cache_pos=pos, mrope_positions=mrope)
         new_cache.append(c)
     return h, new_cache
 
 
 def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
             max_len: int | None = None):
-    """Forward over the prompt ``batch["tokens"]`` (B, S); returns
-    ``(cache, logits)`` with a cache of capacity ``max(max_len, S)``
-    (a local layer's ring ``min`` of that and its window) holding the
-    prompt's K/V (a ring its last rows), the recurrent layers' states
-    after the prompt, and the last token's logits (B, 1, V).
+    """Forward over the prompt ``batch["tokens"]`` (B, S) (or (B, K, S)
+    with K audio codebooks); returns ``(cache, logits)`` with a cache of
+    capacity ``max(max_len, S)`` (a local layer's ring ``min`` of that and
+    its window) holding the prompt's K/V (a ring its last rows; an int8
+    cache quantized), the recurrent layers' states after the prompt, and
+    the last token's logits (B, 1, V) (or (B, K, 1, V)).  A VLM's batch
+    also carries ``vision_embeds`` and ``mrope_positions`` (3, B, S), as
+    the reference's.
 
-    Each layer computes its K/V once and writes them to the cache; a
-    global layer attends to them there, a local one to the K/V it
-    computed (the reference computes them twice, for the cache and for
-    attention; the numbers are the same)."""
+    Each layer computes its K/V once, writes them to the cache and
+    attends to them as computed (the reference computes them twice, for
+    the cache and for attention; the numbers are the same)."""
     check_supported(cfg)
     tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = embed_tokens(cfg, params, tokens)
+    b, s = tokens.shape[0], tokens.shape[-1]
+    h = embed_tokens(cfg, params, tokens,
+                     vision_embeds=batch.get("vision_embeds"))
     positions = torch.arange(s, device=h.device)[None, :]
     cache = init_cache(cfg, b, max(max_len or s, s, 1), h.device)
-    h, cache = _run_layers(cfg, params, h, positions, cache, 0)
+    h, cache = _run_layers(cfg, params, h, positions, cache, 0,
+                           batch.get("mrope_positions"))
     return cache, lm_logits(cfg, params, h[:, -1:, :])
 
 
 def decode_step(cfg: ArchConfig, params: Transformer, cache: list,
                 batch: dict, pos: int):
-    """One-token decode: ``batch["tokens"]`` (B, 1) at absolute position
-    ``pos``.  Writes the token's K/V into ``cache`` in place and returns
-    ``(cache, logits)`` with logits (B, 1, V) and the recurrent layers'
-    new states in the returned cache."""
+    """One-token decode: ``batch["tokens"]`` (B, 1) (or (B, K, 1)) at
+    absolute position ``pos``, with a VLM's ``mrope_positions`` (3, B, 1)
+    where the batch has them.  Writes the token's K/V into ``cache`` in
+    place and returns ``(cache, logits)`` with logits (B, 1, V) (or (B,
+    K, 1, V)) and the recurrent layers' new states in the returned
+    cache."""
     check_supported(cfg)
-    h = embed_tokens(cfg, params, batch["tokens"])
-    positions = torch.full((h.shape[0], 1), pos, device=h.device)
-    h, cache = _run_layers(cfg, params, h, positions, cache, pos)
+    tokens = batch["tokens"]
+    positions = torch.full((tokens.shape[0], 1), pos, device=tokens.device)
+    h = embed_tokens(cfg, params, tokens, positions=positions)
+    h, cache = _run_layers(cfg, params, h, positions, cache, pos,
+                           batch.get("mrope_positions"))
     return cache, lm_logits(cfg, params, h)

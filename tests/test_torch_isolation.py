@@ -82,9 +82,11 @@ def test_new_subpackages_are_covered():
 def test_chip_smoke_and_port_drivers_load_no_jax():
     """chip_smoke.py and the port drivers it runs import neither JAX nor
     repro, at import and on the port's path (Fig. 10, Fig. 11's DES
-    cross-check, Fig. 12 and Fig. 13 at a tiny size, and the Qwen3,
-    rwkv6, granite and recurrentgemma smoke serves); nor do the throughput
-    and overhead drivers and ``soc.shard``."""
+    cross-check, Fig. 12 and Fig. 13 at a tiny size, Fig. 6's fidelity
+    path on one weighting and Fig. 9's cross-check on one lane, and the
+    Qwen3, rwkv6, granite, recurrentgemma, arctic, musicgen, qwen2-vl and
+    int8-cache smoke serves); nor do the throughput and overhead drivers
+    and ``soc.shard``."""
     root = SRC.parent
     code = (
         "import sys\n"
@@ -94,6 +96,10 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "from benchmarks import torch_fig10_faults as f10\n"
         "from benchmarks import torch_fig12_dse as f12\n"
         "from benchmarks import torch_fig13_generalize as f13\n"
+        "from benchmarks import torch_fig6_reward_dse as f6\n"
+        "f6.des_points(f6.WEIGHTS[:1], 1, 'cpu')\n"
+        "assert torch_fig9_socs.crosscheck_port('cpu', [('SoC1', 'mixed')])"
+        "['agree']\n"
         "from repro_torch.soc import shard\n"
         "assert torch_fig11_serving.des_crosscheck('cpu', n=32)['agree']\n"
         "assert f12.run_port('cpu', n=4)['_engine']['calls_ok']\n"
@@ -114,6 +120,15 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "assert out['generated'].shape == (2, 2)\n"
         "out = serve.serve(smoke_config('recurrentgemma-9b'), 2, 11, 2, "
         "device='cpu')\n"
+        "assert out['generated'].shape == (2, 2)\n"
+        "for arch in ('arctic-480b', 'qwen2-vl-2b'):\n"
+        "    out = serve.serve(smoke_config(arch), 2, 8, 2, device='cpu')\n"
+        "    assert out['generated'].shape == (2, 2)\n"
+        "out = serve.serve(smoke_config('musicgen-large'), 2, 8, 2, "
+        "device='cpu')\n"
+        "assert out['generated'].shape == (2, 2, 2, 1)\n"
+        "out = serve.serve(smoke_config('qwen3-8b').replace("
+        "kv_cache_dtype='int8'), 2, 8, 2, device='cpu')\n"
         "assert out['generated'].shape == (2, 2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' "

@@ -198,20 +198,32 @@ def test_compute_copy_computes_the_same_numbers():
 @pytest.mark.parametrize("arch", ["gemma2-9b", "arctic-480b",
                                   "qwen2-vl-2b", "musicgen-large"])
 def test_unported_features_raise(arch):
-    """Each config's feature the port lacks raises.  Gemma-2's serving
-    features are ported (``tests/test_torch_gemma2.py``); its config with
-    the int8 KV cache still raises."""
+    """No feature of these configs is left unported any more: each one's
+    smoke config (gemma2-9b's with the int8 KV cache) builds its
+    parameters and passes ``check_supported``, which now raises only for
+    configs no model runs (``tests/test_torch_lm_configs.py`` serves them
+    against the reference)."""
     cfg = smoke_config(arch)
     if arch == "gemma2-9b":
         cfg = cfg.replace(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tt.check_supported(cfg)
+    tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        tt.check_supported(cfg.replace(kv_cache_dtype="fp8"))
 
 
 def test_int8_cache_raises():
+    """The int8 cache is ported: ``init_cache`` makes each attention
+    layer's entries (int8 zeros, float32 unit scales), as the reference's
+    ``_init_layer_cache``; an unknown cache type raises."""
     cfg = smoke_config("qwen3-8b").replace(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tt.init_cache(cfg, 1, 8, "cpu")
+    cache = tt.init_cache(cfg, 1, 8, "cpu")
+    (kq, ks), (vq, vs) = cache[0]
+    assert kq.dtype == vq.dtype == torch.int8 and kq.shape == (1, 8, 2, 16)
+    assert ks.dtype == torch.float32 and ks.shape == (1, 8, 2, 1)
+    assert bool((ks == 1).all()) and not bool(kq.any())
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        tt.init_cache(cfg.replace(kv_cache_dtype="fp8"), 1, 8, "cpu")
 
 
 def test_full_width_config_is_qwen3_8b():
