@@ -2,7 +2,8 @@
 Overhead") through the PyTorch/CUDA port, beside the JAX reference.
 
     PYTHONPATH=src python -m benchmarks.torch_overhead \
-        [--devices cuda,cpu] [--out port.json] [--reference]
+        [--devices cuda,cpu] [--out port.json] [--reference] \
+        [--autotune-steps N]
 
 As ``benchmarks/overhead.py`` does, on each device: a Q agent trained
 for 2 iterations of a 4-phase SOC_MOTIV_PAR app on the event-driven
@@ -13,8 +14,14 @@ compared with the simulated execution time (10 ns cycles) of its small
 3-6% for small workloads and < 0.1% for large ones.  ``--devices``
 defaults to the card and the machine's CPU; without a card the run
 raises, and ``--devices cpu`` measures the CPU alone.  ``--reference`` also runs the reference's ``overhead.run`` on the
-CPU, its report written to a temporary directory.  The port side imports
-no JAX.
+CPU, its report written to a temporary directory.
+
+Then the memory-mode autotuner's decide path (``core.autotune``, the
+beyond-paper use the reference's ``overhead.py`` names): ``N`` train
+steps (default 40) of Qwen3-8B's smoke configuration (B 8, seq 64) under
+``MemoryModeOrchestrator`` on each device; ``decide_overhead_s`` is the
+mean host seconds of sensing and selecting per step, beside the mean
+step.  The port side imports no JAX.
 """
 from __future__ import annotations
 
@@ -71,6 +78,33 @@ def run_port(device=None) -> dict:
     }
 
 
+def run_autotune(device=None, steps: int = 40) -> dict:
+    from repro_torch import resolve_device
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.autotune import MemoryModeOrchestrator
+    from repro_torch.data.synthetic import DataConfig, host_batch
+    from repro_torch.launch import steps as steps_lib
+
+    dev = resolve_device(device)
+    cfg = smoke_config("qwen3-8b")
+    orch = MemoryModeOrchestrator(cfg, ShapeSpec("overhead", "train", 64, 8),
+                                  seed=0, total_steps=steps)
+    state = steps_lib.make_train_state(cfg, 0, dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in host_batch(
+        cfg, DataConfig(64, 8, seed=i), i).items()} for i in range(steps)]
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, _ = orch.step(state, batch)
+    wall = time.perf_counter() - t0
+    d = orch.decide_overhead_s()
+    return {"decide_overhead_us": d * 1e6, "step_s": wall / steps,
+            "frac_step": d / (wall / steps), "steps": steps,
+            "decisions": orch.decision_counts(),
+            "_engine": {"device": (torch.cuda.get_device_name(dev)
+                                   if dev.type == "cuda" else "cpu")}}
+
+
 def run_reference() -> dict:
     from benchmarks import common, overhead
     saved = common.REPORT_DIR
@@ -95,6 +129,7 @@ def main():
                          "without a card pass --devices cpu)")
     ap.add_argument("--out")
     ap.add_argument("--reference", action="store_true")
+    ap.add_argument("--autotune-steps", type=int, default=40)
     args = ap.parse_args()
     devices = args.devices.split(",")
     out = {}
@@ -109,6 +144,13 @@ def main():
               f"{_fmt(r['large_invocation_s'], '.4g')} s -> "
               f"{_fmt(r['frac_large'], '.5f')}; run {e['run_s']:.3f} s "
               f"({e['invocations_per_s']:.1f} invocations a second)")
+        if args.autotune_steps:
+            a = run_autotune(d, args.autotune_steps)
+            r["autotune"] = a
+            print(f"port {d} autotuner ({a['_engine']['device']}): decide "
+                  f"{a['decide_overhead_us']:.1f} us a step of "
+                  f"{a['step_s'] * 1e3:.2f} ms ({a['frac_step']:.4f}); "
+                  f"decisions {a['decisions']}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -228,6 +228,46 @@ after:
   * Fig. 9 ``--fidelity`` (``torch_fig9_socs.run_des``) on SoC1-mixed, 1
     of 8 lanes, x 2 of 10 iterations: no launch.
 
+Then LM training.  It holds the gradient of each kernel's autograd
+wrapper (the kernel forward, autodiff of its plain version backward)
+against autodiff through the plain version on the same inputs (the
+forward bound checks the kernel; the gradient bound only the wrapper's
+wiring, as both sides are autodiff of the same plain version): K3 at
+qwen2-vl-2b's training shape (B 4, S 2,048, H 12, Hkv 2, hd 128, bf16,
+causal), K4 at granite's prefill gate/up shape, K5 at rwkv6-3b's prefill
+shape cut to T 512 (the plain recompute steps T times), K6 at
+recurrentgemma-9b's prefill shape; it holds the card against the CPU at
+smoke width (float32, B 2, seq 16: one step's loss and every gradient,
+the parameters after 5 train steps) on granite (K3, K4), rwkv6 (K5),
+recurrentgemma (K6, K3), qwen2-vl-2b (K3), Qwen3 with int8 gradient
+compression and arctic-480b (Adafactor, remat "full": every kernel
+launched again in the backward pass), each run's launches asserted; and
+drives, each with the counts set to 0 before it and read after:
+
+  * qwen2-vl-2b training at full width through ``repro_torch.launch.
+    train``: random float32 weights from seed 0 made on the card, bf16
+    compute, AdamW with float32 moments, 4 synthetic sequences of 2,048
+    tokens for 6 steps; a finite gradient for every parameter at step 1,
+    a finite loss at every step, 28 ``tc_prefill`` K3 launches a step
+    (asserted); the step time (median of steps 2-6) split into forward,
+    backward and optimizer, tokens a second and the peak memory above
+    what the script held;
+  * the same for 2 steps under each remat arm (``none``, ``dots``,
+    ``full``: 28, 56 and 56 K3 launches a step), the second step timed,
+    the ``dots`` and ``full`` arms' step-1 loss and gradient norm within
+    1e-6 (relative) of ``none``'s: the selective-checkpoint policy, the
+    kernels and their wrappers' recomputing backward held together;
+  * the memory-mode autotuner (``core.autotune``) for 40 steps of
+    Qwen3-8B's smoke config: the top arm at least half the decisions, a
+    decide overhead under 0.1 s;
+  * a smoke ``launch.train`` run with checkpoints every 2 steps, killed
+    in step 4 and resumed, bitwise the uninterrupted run (losses and
+    every checkpoint leaf; PyTorch's deterministic algorithms on, as the
+    card's scatter-adds otherwise add in any order).
+
+``chiprun_out/lm_training_port.json`` keeps these numbers; the
+``kernels`` line gives K3-K6 their training launches by path.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -268,6 +308,7 @@ every ported kernel with its numbers.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import shutil
@@ -387,6 +428,26 @@ BF16_PROMPT, BF16_GEN, BF16_TOL = 80, 8, 2e-2
 # of 8 lanes x 2 of 10 iterations; Fig. 9's cross-check on all 8 lanes
 FID6_WEIGHTS, FID6_ITERS = 2, 2
 FID9_LANE, FID9_ITERS = ("SoC1", "mixed"), 2
+# LM training: qwen2-vl-2b at full width, 4 sequences of 2,048 tokens for
+# 6 steps; K3's gradient check at that training shape (B, S, H, Hkv, hd),
+# K5's at rwkv6-3b's prefill cut to T 512 (the plain recompute steps T
+# times); the gradients of each kernel's wrapper within 1e-6 of their
+# largest magnitude of autodiff through its plain version (the backward
+# recomputes it); card against CPU at smoke width (float32, seq 16): one
+# step's loss (LM_TOL), every gradient within 1e-4 of each tensor's
+# largest magnitude and the parameters after 5 steps within 1e-4 of it
+# (at least 1e-2); each remat arm runs 2 steps, the second one timed,
+# from the same weights on the same batches: its step-1 loss and gradient
+# norm within 1e-6 (relative) of remat "none"'s (the card's scatter-adds
+# add in any order, so not bitwise)
+VL_SEQ, VL_STEPS, VL_ARM_STEPS = 2048, 6, 2
+REMAT_TOL = 1e-6
+FA_VL_TRAIN = (QWEN_BATCH, 12, 2, VL_SEQ, 128)
+RWKV_TRAIN = (QWEN_BATCH, 40, 512, 64)
+GRAD_CHECK_TOL = 1e-6
+SMOKE_SEQ, SMOKE_STEPS = 16, 5
+SMOKE_GRAD_TOL, SMOKE_PARAM_TOL = 1e-4, 1e-4
+TRAIN_KERNELS = ("flash_attention", "moe_gmm", "rwkv6_scan", "rglru_scan")
 
 
 def fail(msg: str, code: int = 1):
@@ -3261,6 +3322,387 @@ def main() -> None:
         f"{k} {v:.3f} s" for k, v in fid_s.items())
           + f"; {sum(fid_s.values()):.3f} s in all")
 
+    # ---- 9y. LM training: each kernel's gradient against autodiff of its
+    # plain version, card against CPU at smoke width, qwen2-vl-2b at full
+    # width through the launcher and under each remat arm, the autotuner,
+    # and a killed and resumed checkpointed run ----------------------------
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import autotune as lm_autotune
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train as lm_train
+    from repro_torch.optim import compress as lm_compress
+    train_s, train_rows = {}, {}
+    torch.cuda.empty_cache()
+
+    def grad_check(what, fn, plain, inputs, fwd_tol):
+        """``fn`` (the kernel's wrapper) against ``plain`` on the same
+        inputs: the forward within ``fwd_tol``, the gradients of a random
+        projection of the outputs within GRAD_CHECK_TOL of each input's
+        largest gradient.  The wrapper's backward is autodiff of the same
+        plain version on the same saved inputs, so the gradient half
+        checks only its wiring (which inputs get gradients, and in which
+        order); the forward bound is the check of the kernel.  Returns
+        (forward error, gradient error)."""
+        diff = [x for x in inputs if x is not None and x.requires_grad]
+        gen = torch.Generator(device=dev).manual_seed(5)
+
+        def grads(f):
+            out = f(*inputs)
+            outs = out if isinstance(out, tuple) else (out,)
+            loss = sum((o.float() * torch.randn(o.shape, generator=gen,
+                                                device=dev)).sum()
+                       for o in outs)
+            return [o.detach() for o in outs], torch.autograd.grad(loss,
+                                                                   diff)
+        gen.manual_seed(5)
+        outs, got = grads(fn)
+        gen.manual_seed(5)
+        pouts, want = grads(plain)
+        fwd = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(outs, pouts))
+        err = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(got, want))
+        if not (fwd <= fwd_tol and err <= GRAD_CHECK_TOL):
+            fail(f"{what}: forward {fwd} (bound {fwd_tol}), gradients "
+                 f"{err} of their largest (bound {GRAD_CHECK_TOL})")
+        print(f"gradient check {what} on {card}: forward within {fwd:.3e} "
+              f"of the plain version, gradients within {err:.3e} of their "
+              f"largest magnitude of autodiff through it")
+        return fwd, err
+
+    g_gen = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *s, dt=torch.float32: torch.randn(
+        *s, generator=g_gen, device=dev).to(dt).requires_grad_(True)
+    grad_errs = {}
+    b_, h_, hkv_, s_, hd_ = FA_VL_TRAIN
+    grad_errs["flash_attention"] = grad_check(
+        f"K3 at qwen2-vl-2b's training shape (B, S, H, Hkv, hd) "
+        f"{(b_, s_, h_, hkv_, hd_)} bf16 causal",
+        lambda q, k, v: fa_ops.flash_attention(q, k, v, causal=True),
+        lambda q, k, v: fa_ops._plain(q, k, v, causal=True, window=0,
+                                      softcap=0.0),
+        [rnd(b_, s_, h_, hd_, dt=torch.bfloat16),
+         rnd(b_, s_, hkv_, hd_, dt=torch.bfloat16),
+         rnd(b_, s_, hkv_, hd_, dt=torch.bfloat16)], BF16_TOL)
+    torch.cuda.empty_cache()
+    lead, e_, c_, d_, f_ = GMM_PREFILL[0], *GMM_PREFILL[1:]
+    sizes_t = torch.randint(0, c_ + 1, (lead, e_), generator=g_gen,
+                            device=dev, dtype=torch.int32)
+    sizes_t[:, GMM_REAL:] = 0
+    grad_errs["moe_gmm"] = grad_check(
+        f"K4 at granite's prefill gate/up (B, E, C, D, F) {GMM_PREFILL} "
+        f"bf16", gmm_ops.moe_gmm, gmm_ref.gmm_ref,
+        [rnd(lead, e_, c_, d_, dt=torch.bfloat16),
+         (rnd(e_, d_, f_) / d_ ** 0.5).to(torch.bfloat16).detach()
+         .requires_grad_(True), sizes_t], GMM_BF16_TOL["atol"])
+    torch.cuda.empty_cache()
+    rb, rh, rt, rk = RWKV_TRAIN
+    logw = (-torch.exp(torch.randn(rb, rh, rt, rk, generator=g_gen,
+                                   device=dev) * 0.5 - 0.7)
+            ).requires_grad_(True)
+    grad_errs["rwkv6_scan"] = grad_check(
+        f"K5 at (B, H, T, K) {RWKV_TRAIN} from a random state (rwkv6-3b's "
+        f"prefill at T {rt} of 2,048: the plain recompute steps T times)",
+        rw_ops.rwkv6_scan,
+        lambda r, k, v, lw, u, s0: rw_ops._plain(
+            r, k, v, torch.clamp(lw, min=rw_ops.LOGW_MIN), u, s0),
+        [rnd(rb, rh, rt, rk) * 0.5, rnd(rb, rh, rt, rk) * 0.5,
+         rnd(rb, rh, rt, rk), logw, rnd(rh, rk) * 0.5,
+         rnd(rb, rh, rk, rk) * 0.1], TOL)
+    torch.cuda.empty_cache()
+    gb, gt, gw = RG_SCAN
+    log_a = (-torch.rand(gb, gt, gw, generator=g_gen, device=dev) * 0.5
+             ).requires_grad_(True)
+    grad_errs["rglru_scan"] = grad_check(
+        f"K6 at recurrentgemma-9b's prefill (B, T, W) {RG_SCAN}",
+        rg_ops.rglru_scan, lambda a, b: rg_ops._plain(a, b),
+        [log_a, rnd(gb, gt, gw)], RG_TOL)
+    del logw, log_a, sizes_t
+    torch.cuda.empty_cache()
+
+    # card against CPU at smoke width: the loss and every gradient of one
+    # step, then the parameters after 5 train steps (AdamW; arctic's
+    # Adafactor with remat="full"; Qwen3 with int8 compression)
+    def state_to(state, device):
+        """A copy of a train state on ``device``, its parameters a
+        trainable copy of the module."""
+        def move(x):
+            if torch.is_tensor(x):
+                return x.detach().to(device, copy=True)
+            if isinstance(x, dict):
+                return {k: move(v) for k, v in x.items()}
+            if isinstance(x, tuple):
+                return type(x)(*map(move, x))
+            return x
+        out = {k: move(v) for k, v in state.items() if k != "params"}
+        out["params"] = lm.trainable(copy.deepcopy(state["params"]).to(device))
+        return out
+
+    def smoke_train(path, arch, compress=False):
+        cfg = smoke_config(arch)
+        cpu = lm_steps.make_train_state(cfg, 0, "cpu")
+        if compress:
+            cpu["ef"] = lm_compress.init_ef(dict(
+                cpu["params"].named_parameters()))
+        card_state = state_to(cpu, dev)
+        batches = [host_batch(cfg, DataConfig(SMOKE_SEQ, 2, seed=0), i)
+                   for i in range(SMOKE_STEPS)]
+        to = lambda b, d: {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+
+        def run(state, d):
+            named = dict(state["params"].named_parameters())
+            loss, _ = lm.loss_fn(cfg, state["params"], to(batches[0], d))
+            g = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True)
+            step = lm_steps.make_train_step(cfg, grad_compress=compress,
+                                            total_steps=SMOKE_STEPS)
+            for b in batches:
+                state, _ = step(state, to(b, d))
+            return float(loss.detach()), dict(zip(named, g)), state
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t_p = time.perf_counter()
+        c_loss, c_g, card_state = run(card_state, dev)
+        torch.cuda.synchronize()
+        train_s[path] = time.perf_counter() - t_p
+        counts[path] = read()
+        p_loss, p_g, cpu = run(cpu, "cpu")
+        loss_err = abs(c_loss - p_loss)
+        g_err = max(((c_g[k].cpu() - p_g[k]).abs().max()
+                     / p_g[k].abs().max().clamp_min(1e-30)).item()
+                    for k in p_g if p_g[k] is not None and p_g[k].numel())
+        if any((c_g[k] is None) != (p_g[k] is None) for k in p_g):
+            fail(f"{path}: gradients missing on one side only")
+        # a zero-initialised tensor has moved ~1e-5 after 5 warmup steps:
+        # its errors are taken against 1e-2
+        cp = dict(card_state["params"].named_parameters())
+        p_err = max(((cp[k].detach().cpu() - p).abs().max()
+                     / p.abs().max().clamp_min(1e-2)).item()
+                    for k, p in cpu["params"].named_parameters()
+                    if p.numel())
+        if not (loss_err <= LM_TOL * max(1.0, abs(p_loss))
+                and g_err <= SMOKE_GRAD_TOL and p_err <= SMOKE_PARAM_TOL):
+            fail(f"{path}: card vs CPU loss {loss_err}, gradients {g_err}, "
+                 f"parameters {p_err}")
+        kinds = lm.layer_kinds(cfg)
+        fwd = 1 + SMOKE_STEPS
+        again = 2 if cfg.remat in ("full", "dots") else 1
+        n_attn = sum(k.startswith("attn") for k in kinds)
+        want = launches(
+            flash_attention=fwd * again * n_attn,
+            moe_gmm=fwd * again * 3 * n_attn if cfg.n_experts else 0,
+            rwkv6_scan=fwd * again * kinds.count("rwkv"),
+            rglru_scan=fwd * again * kinds.count("rg"))
+        if counts[path] != want:
+            fail(f"{path} launched {dict(zip(KERNELS, counts[path]))}, "
+                 f"expected {dict(zip(KERNELS, want))}")
+        train_rows[path] = dict(loss_err=loss_err, grad_err=g_err,
+                                param_err=p_err, wall_s=train_s[path])
+        print(f"{path} ({cfg.name}, {cfg.optimizer}, remat {cfg.remat}"
+              f"{', int8 compression' if compress else ''}, B=2, seq "
+              f"{SMOKE_SEQ}, float32) on {card} against the CPU: loss "
+              f"within {loss_err:.3e}, every gradient within {g_err:.3e} "
+              f"of its largest (bound {SMOKE_GRAD_TOL}), parameters after "
+              f"{SMOKE_STEPS} steps within {p_err:.3e} (bound "
+              f"{SMOKE_PARAM_TOL}); launches "
+              f"{dict(zip(KERNELS, counts[path]))}")
+
+    for path, arch, comp in (
+            ("granite_smoke_train", "granite-moe-3b-a800m", False),
+            ("rwkv6_smoke_train", "rwkv6-3b", False),
+            ("recurrentgemma_smoke_train", "recurrentgemma-9b", False),
+            ("qwen2vl_smoke_train", "qwen2-vl-2b", False),
+            ("qwen3_smoke_train_compress", "qwen3-8b", True),
+            ("arctic_smoke_train", "arctic-480b", False)):
+        smoke_train(path, arch, comp)
+
+    # qwen2-vl-2b at full width through the launcher: 6 steps, then one
+    # step under each remat arm
+    vl = get_arch("qwen2-vl-2b")
+
+    def vl_train(path, cfg, steps, batch, per_forward):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        finite = []
+
+        def hook(grads):
+            if not finite:
+                finite.append(bool(torch.stack([torch.isfinite(g).all()
+                                                for g in grads.values()
+                                                ]).all()))
+        reset_counts()
+        t_v = time.perf_counter()
+        out = lm_train.run(cfg, steps=steps, batch=batch, seq=VL_SEQ,
+                           log_every=1, device=dev, timed=True,
+                           grads_hook=hook)
+        torch.cuda.synchronize()
+        train_s[path] = time.perf_counter() - t_v
+        counts[path] = read()
+        bodies = dict(fa_ops.body_launches)
+        want_k3 = steps * per_forward
+        if (counts[path] != launches(flash_attention=want_k3)
+                or bodies["tc_prefill"] != want_k3):
+            fail(f"{path} launched {dict(zip(KERNELS, counts[path]))}, K3 "
+                 f"bodies {bodies}; expected {want_k3} tc_prefill")
+        if not finite or not finite[0]:
+            fail(f"{path}: a non-finite gradient at step 1")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            fail(f"{path}: non-finite loss {out['losses']}")
+        mem = torch.cuda.max_memory_allocated()
+        timed = out["phases"][1:] or out["phases"]
+        step_s = out["step_s"][1:] or out["step_s"]
+        med = lambda xs: float(np.median(xs))
+        row = dict(batch=batch, seq=VL_SEQ, remat=cfg.remat, steps=steps,
+                   losses=out["losses"], grad_norms=out["grad_norms"],
+                   step_s=med(step_s),
+                   forward_s=med([p["forward"] for p in timed]),
+                   backward_s=med([p["backward"] for p in timed]),
+                   optimizer_s=med([p["optimizer"] for p in timed]),
+                   tok_s=batch * VL_SEQ / med(step_s),
+                   own_peak_gib=(mem - base) / 2**30, peak_gib=mem / 2**30,
+                   k3_per_step=want_k3 // steps, wall_s=train_s[path],
+                   params=cfg.param_count())
+        train_rows[path] = row
+        print(f"{path} ({cfg.name}, {row['params']:,} parameters, B={batch}"
+              f", seq {VL_SEQ}, bf16 compute, float32 weights and AdamW "
+              f"moments, remat {cfg.remat}, {steps} step(s)) on {card}: "
+              f"step {row['step_s']:.4f} s (median of steps "
+              f"{'2-' + str(steps) if steps > 2 else steps}: forward "
+              f"{row['forward_s']:.4f}, backward {row['backward_s']:.4f}, "
+              f"optimizer {row['optimizer_s']:.4f}), {row['tok_s']:.0f} "
+              f"tokens a second, peak {row['own_peak_gib']:.2f} GiB above "
+              f"what the script held ({row['peak_gib']:.2f} in all); losses "
+              f"{[round(x, 4) for x in out['losses']]}; K3 "
+              f"{row['k3_per_step']} tc_prefill launches a step")
+        return row
+
+    vl_train("qwen2vl_train", vl, VL_STEPS, QWEN_BATCH, vl.n_layers)
+    arms = {remat: vl_train(f"qwen2vl_train_remat_{remat}",
+                            vl.replace(remat=remat), VL_ARM_STEPS,
+                            QWEN_BATCH,
+                            (1 if remat == "none" else 2) * vl.n_layers)
+            for remat in ("none", "dots", "full")}
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    for remat in ("dots", "full"):
+        got, want = arms[remat], arms["none"]
+        d_loss = rel(got["losses"][0], want["losses"][0])
+        d_norm = rel(got["grad_norms"][0], want["grad_norms"][0])
+        got["step1_vs_none"] = dict(loss=d_loss, grad_norm=d_norm)
+        if not (d_loss <= REMAT_TOL and d_norm <= REMAT_TOL):
+            fail(f"qwen2vl_train_remat_{remat}: step 1 loss "
+                 f"{got['losses'][0]!r} and gradient norm "
+                 f"{got['grad_norms'][0]!r} against remat none's "
+                 f"{want['losses'][0]!r} and {want['grad_norms'][0]!r}")
+        print(f"qwen2vl_train_remat_{remat} on {card}: step 1 loss within "
+              f"{d_loss:.3e} and gradient norm within {d_norm:.3e} of remat "
+              f"none's (relative; bound {REMAT_TOL})")
+
+    # the autotuner: 40 steps of Qwen3-8B's smoke config
+    acfg_t = smoke_config("qwen3-8b")
+    orch_t = lm_autotune.MemoryModeOrchestrator(
+        acfg_t, ShapeSpec("t", "train", 64, 8), seed=0, total_steps=40)
+    a_state = lm_steps.make_train_state(acfg_t, 0, dev)
+    a_batches = [{k: torch.from_numpy(v).to(dev) for k, v in host_batch(
+        acfg_t, DataConfig(64, 8, seed=i), i).items()} for i in range(40)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t_at = time.perf_counter()
+    for b in a_batches:
+        a_state, a_m = orch_t.step(a_state, b)
+    torch.cuda.synchronize()
+    train_s["autotune_smoke"] = time.perf_counter() - t_at
+    counts["autotune_smoke"] = read()
+    a_counts = orch_t.decision_counts()
+    a_over = orch_t.decide_overhead_s()
+    if not (max(a_counts.values()) >= 20 and a_over < 0.1
+            and math.isfinite(float(a_m["loss"]))):
+        fail(f"autotuner: decisions {a_counts}, decide overhead {a_over} s")
+    train_rows["autotune_smoke"] = dict(decisions=a_counts,
+                                        decide_overhead_s=a_over,
+                                        wall_s=train_s["autotune_smoke"])
+    print(f"autotune_smoke (Qwen3-8B smoke, B=8, seq 64, 40 steps) on "
+          f"{card}: decisions {a_counts}, decide overhead "
+          f"{a_over * 1e3:.3f} ms a step, {train_s['autotune_smoke']:.3f} s "
+          f"wall; launches {dict(zip(KERNELS, counts['autotune_smoke']))}")
+    del a_state, a_batches
+
+    # a killed and resumed checkpointed smoke run against an uninterrupted
+    # one, with PyTorch's deterministic algorithms (the embedding's and the
+    # loss's scatter-adds otherwise add in any order on the card)
+    ck_train = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ck_train, ignore_errors=True)
+    kcfg = smoke_config("qwen3-8b")
+    k_args = dict(steps=6, batch=2, seq=16, ckpt_every=2, log_every=6,
+                  device=dev)
+
+    class Killed(Exception):
+        pass
+
+    real_step = lm_steps.make_train_step
+
+    def dying(*a, **kw):
+        step, calls = real_step(*a, **kw), [0]
+
+        def run_(state, batch, *hooks):
+            calls[0] += 1
+            if calls[0] == 4:
+                raise Killed()
+            return step(state, batch, *hooks)
+        return run_
+
+    def final_ckpt(d):
+        step = CheckpointManager(str(d)).latest_step()
+        sd = d / f"step_{step:08d}"
+        return step, {f.name: np.load(f) for f in sorted(sd.glob("*.npy"))}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t_k = time.perf_counter()
+        whole = lm_train.run(kcfg, ckpt_dir=str(ck_train / "whole"),
+                             **k_args)["losses"]
+        # the killed run writes its checkpoints before it goes on
+        real_manager = lm_train.CheckpointManager
+        lm_train.steps_lib.make_train_step = dying
+        lm_train.CheckpointManager = lambda d, keep: real_manager(
+            d, keep, async_write=False)
+        try:
+            lm_train.run(kcfg, ckpt_dir=str(ck_train / "cut"), **k_args)
+            fail("checkpointed training: the run was not killed")
+        except Killed:
+            pass
+        finally:
+            lm_train.steps_lib.make_train_step = real_step
+            lm_train.CheckpointManager = real_manager
+        resumed = lm_train.run(kcfg, ckpt_dir=str(ck_train / "cut"),
+                               resume=True, **k_args)
+        torch.cuda.synchronize()
+        train_s["ckpt_train"] = time.perf_counter() - t_k
+        counts["ckpt_train"] = read()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sa, fa_ck = final_ckpt(ck_train / "whole")
+    sb, fb_ck = final_ckpt(ck_train / "cut")
+    if not (resumed["start_step"] == 2 and resumed["losses"] == whole[2:]
+            and sa == sb == 6 and sorted(fa_ck) == sorted(fb_ck)
+            and all(np.array_equal(fa_ck[k], fb_ck[k]) for k in fa_ck)):
+        fail(f"checkpointed training: the resumed run differs (losses "
+             f"{resumed['losses']} vs {whole[2:]})")
+    print(f"ckpt_train (Qwen3-8B smoke, 6 steps, checkpoints every 2, "
+          f"killed in step 4, resumed from step 2; deterministic "
+          f"algorithms) on {card}: losses and all {len(fa_ck)} checkpoint "
+          f"leaves bitwise the uninterrupted run's; "
+          f"{train_s['ckpt_train']:.3f} s wall")
+    (ROOT / "chiprun_out" / "lm_training_port.json").write_text(json.dumps(
+        {"card": card, "rows": train_rows, "grad_checks": grad_errs},
+        indent=1))
+    torch.cuda.empty_cache()
+
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):
         for _ in range(3):
@@ -3736,7 +4178,7 @@ def main() -> None:
                "arctic_smoke_serve": arctic_smoke_s,
                "qwen2vl_serve": qwen2vl_s, "musicgen_serve": musicgen_s,
                "qwen3_int8_serve": qwen_int8_s,
-               "qwen3_serve_beside_int8": qwen_again_s, **fid_s,
+               "qwen3_serve_beside_int8": qwen_again_s, **fid_s, **train_s,
                "des_vs_vecenv": des_vs_vec_s, **des_paths,
                **soc_layer_paths}
     print(f"paths on {card}: " + ", ".join(f"{p} {t:.3f} s"
@@ -3922,6 +4364,16 @@ def main() -> None:
         "library_ms": None, "main_path_s": on_paths(j),
         "shape": f"(B, T, W) {RG_SCAN}", "card": card})
     for k in kernels["kernels"]:
+        if k["name"] in TRAIN_KERNELS:
+            j = KERNELS.index(k["name"])
+            k["training_launches"] = sum(counts[p][j] for p in train_s)
+            k["training_launches_by_path"] = {p: counts[p][j]
+                                              for p in train_s}
+            k["backward"] = ("autodiff of the plain version, recomputed "
+                             "from the saved inputs (no backward kernel)")
+            k["grad_check"] = grad_errs[k["name"]]
+            if k["training_launches"] == 0:
+                fail(f"{k['name']}: no launch on the training paths")
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")
                    if k[f] is not None):

@@ -8,7 +8,9 @@ are tensors, numpy arrays or Python numbers; ``None`` is an empty
 subtree.  Writes are atomic (a temporary directory renamed into place),
 so a crash mid-write leaves no partial checkpoint behind.  ``restore``
 rebuilds the structure of a target tree and places each tensor on the
-device of the target's leaf.
+device of the target's leaf.  A bfloat16 tensor is stored bit-cast to
+``uint16`` with ``"dtype": "bfloat16"`` in the manifest (numpy has no
+bfloat16), as the reference stores it, and restored bit for bit.
 """
 from __future__ import annotations
 
@@ -68,18 +70,24 @@ def _fname(key: str) -> str:
 
 
 def host_leaves(tree) -> list:
-    """``(path, numpy array)`` copies of every leaf, taken now: the tree
-    may change after this returns without changing what is written."""
+    """``(path, numpy array, dtype name)`` copies of every leaf, taken now:
+    the tree may change after this returns without changing what is
+    written.  A bfloat16 tensor's array holds its bits as ``uint16``."""
     out = []
     for key, leaf in flatten(tree):
         if torch.is_tensor(leaf):
-            arr = leaf.detach().cpu().numpy()
+            t = leaf.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                arr = t.view(torch.int16).numpy().view(np.uint16)
+                out.append((key, np.array(arr, copy=True), "bfloat16"))
+                continue
+            arr = t.numpy()
         elif isinstance(leaf, (np.ndarray, np.generic) + _NUMBERS):
             arr = np.asarray(leaf)
         else:
             raise TypeError(f"checkpoint leaf {key!r} is a "
                             f"{type(leaf).__name__}")
-        out.append((key, np.array(arr, copy=True)))
+        out.append((key, np.array(arr, copy=True), str(arr.dtype)))
     return out
 
 
@@ -89,8 +97,8 @@ def write(path: str, leaves) -> None:
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=parent, prefix=".ckpt-tmp-")
     manifest = {"leaves": []}
-    for key, arr in leaves:
-        entry = {"key": key, "file": _fname(key), "dtype": str(arr.dtype)}
+    for key, arr, dtype in leaves:
+        entry = {"key": key, "file": _fname(key), "dtype": dtype}
         np.save(os.path.join(tmp, entry["file"]), arr, allow_pickle=False)
         manifest["leaves"].append(entry)
     with open(os.path.join(tmp, MANIFEST), "w") as f:
@@ -124,6 +132,8 @@ def restore(path: str, target):
                       allow_pickle=False)
         if torch.is_tensor(leaf):
             t = torch.from_numpy(arr)
+            if by_key[key]["dtype"] == "bfloat16":
+                t = t.view(torch.int16).view(torch.bfloat16)
             if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
                 raise ValueError(
                     f"leaf {key}: checkpoint {t.dtype}{tuple(t.shape)} vs "

@@ -7,12 +7,15 @@ names the body), CPU tensors take the plain version
 between them: a CUDA call that cannot build or launch raises.
 :data:`launches` counts the kernels' launches and :data:`body_launches`
 the same per body, so a run can show that it went through the kernels,
-and through which.
+and through which.  On a tensor that needs a gradient the kernel's
+backward is autodiff of the plain version
+(:func:`~repro_torch.kernels.autograd.with_ref_grad`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import with_ref_grad
 from repro_torch.kernels.moe_gmm import kernel as _kernel
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
@@ -27,15 +30,19 @@ def reset_launches() -> None:
         body_launches[body] = 0
 
 
+def _launch(x, w, group_sizes):
+    global launches
+    out, plan = _kernel.launch(x, w, group_sizes)
+    launches += 1
+    body_launches[plan.body] += 1
+    return out
+
+
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,
             group_sizes: torch.Tensor) -> torch.Tensor:
     """x: (E, C, D) or (B, E, C, D); w: (E, D, F); group_sizes: (E,) or
     (B, E) int32.  Returns ``x[..., e, :, :] @ w[e]`` per group with rows
     >= the group's size zero, in x's type (float32 sums)."""
-    global launches
     if x.device.type != "cuda":
         return gmm_ref(x, w, group_sizes)
-    out, plan = _kernel.launch(x, w, group_sizes)
-    launches += 1
-    body_launches[plan.body] += 1
-    return out
+    return with_ref_grad(_launch, gmm_ref, x, w, group_sizes)

@@ -7,12 +7,15 @@ where the tensors lie: CUDA tensors launch the hand-written kernel
 (:func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref`).  There is no
 fallback between them: a CUDA call that cannot build or launch raises.
 :data:`launches` counts the kernel's launches, so a run can show that it
-went through the kernel.
+went through the kernel.  On a tensor that needs a gradient the kernel's
+backward is autodiff of the plain version
+(:func:`~repro_torch.kernels.autograd.with_ref_grad`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import with_ref_grad
 from repro_torch.kernels.rglru_scan import kernel as _kernel
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
 
@@ -29,15 +32,23 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     """log_a/b: (B, T, W); h0: (B, W) or None (zeros), folded into the
     first step: ``b[:, 0] += exp(log_a[:, 0]) * h0``.  Returns (h (B, T, W),
     h_final (B, W)), float32."""
-    global launches
     if h0 is not None:
         b = b.clone()
         b[:, 0] = b[:, 0] + torch.exp(log_a[:, 0]) * h0
     log_a, b = log_a.to(torch.float32), b.to(torch.float32)
     if log_a.device.type != "cuda":
-        zeros = torch.zeros((b.shape[0], b.shape[2]), dtype=torch.float32,
-                            device=b.device)
-        return rglru_ref(log_a, b, zeros)
+        return _plain(log_a, b)
+    return with_ref_grad(_launch, _plain, log_a, b)
+
+
+def _launch(log_a, b):
+    global launches
     out = _kernel.rglru_scan(log_a, b)
     launches += 1
     return out
+
+
+def _plain(log_a, b):
+    zeros = torch.zeros((b.shape[0], b.shape[2]), dtype=torch.float32,
+                        device=b.device)
+    return rglru_ref(log_a, b, zeros)

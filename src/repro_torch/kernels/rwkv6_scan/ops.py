@@ -7,12 +7,15 @@ kernel (:mod:`.kernel`), CPU tensors take the plain step-by-step version
 (:func:`~repro_torch.kernels.rwkv6_scan.ref.wkv_ref`).  There is no
 fallback between them: a CUDA call that cannot build or launch raises.
 :data:`launches` counts the kernel's launches, so a run can show that it
-went through the kernel.
+went through the kernel.  On a tensor that needs a gradient the kernel's
+backward is autodiff of the plain version
+(:func:`~repro_torch.kernels.autograd.with_ref_grad`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import with_ref_grad
 from repro_torch.kernels.rwkv6_scan import kernel as _kernel
 from repro_torch.kernels.rwkv6_scan.ref import wkv_ref
 
@@ -26,22 +29,30 @@ def reset_launches() -> None:
     launches = 0
 
 
+def _launch(r, k, v, logw, u, s0):
+    global launches
+    out = _kernel.rwkv6_scan(r, k, v, logw, u, s0)
+    launches += 1
+    return out
+
+
+def _plain(r, k, v, logw, u, s0):
+    if s0 is None:
+        b, h, _, kd = r.shape
+        s0 = torch.zeros((b, h, kd, kd), dtype=torch.float32,
+                         device=r.device)
+    return wkv_ref(r, k, v, logw, u, s0)
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor,
                s0: torch.Tensor | None = None):
     """r/k/v/logw: (B, H, T, K) with T a multiple of 16; u: (H, K); s0:
     (B, H, K, K) or None (zeros).  Returns (y (B, H, T, K), s_final
     (B, H, K, K)), float32."""
-    global launches
     logw = torch.clamp(logw.to(torch.float32), min=LOGW_MIN)
     if r.device.type != "cuda":
-        b, h, _, kd = r.shape
-        if s0 is None:
-            s0 = torch.zeros((b, h, kd, kd), dtype=torch.float32,
-                             device=r.device)
-        return wkv_ref(r, k, v, logw, u, s0)
-    f32 = lambda x: x.to(torch.float32)
-    out = _kernel.rwkv6_scan(f32(r), f32(k), f32(v), logw, f32(u),
-                             None if s0 is None else f32(s0))
-    launches += 1
-    return out
+        return _plain(r, k, v, logw, u, s0)
+    f32 = lambda x: None if x is None else x.to(torch.float32)
+    return with_ref_grad(_launch, _plain, f32(r), f32(k), f32(v), logw,
+                         f32(u), f32(s0))

@@ -4,14 +4,16 @@ helpers.
 The same semantics as ``repro.models.common``: RMSNorm in float32 with a
 ``(1 + w)`` scale, rotary embeddings (and qwen2-vl's M-RoPE) from the same
 float32 frequency table, musicgen's sinusoidal positions, tanh
-soft-capping, and the same init distributions (a truncated
-normal on [-2, 2] scaled by fan-in^-1/2, and N(0, 0.02)) drawn from a
-``torch.Generator``, so the numbers differ from ``jax.random``'s.
+soft-capping, the mean token cross-entropy of training, and the same
+init distributions (a truncated normal on [-2, 2] scaled by
+fan-in^-1/2, and N(0, 0.02)) drawn from a ``torch.Generator``, so the
+numbers differ from ``jax.random``'s.
 """
 from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -27,8 +29,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 class FrozenParams(nn.Module):
-    """Frozen float32 parameters named by ``FIELDS``, given in that
-    order."""
+    """Parameters named by ``FIELDS``, given in that order; frozen until
+    ``transformer.trainable`` turns their gradients on."""
 
     FIELDS: tuple = ()
 
@@ -37,6 +39,14 @@ class FrozenParams(nn.Module):
         for name, t in zip(self.FIELDS, args, strict=True):
             setattr(self, name, nn.Parameter(t.detach(),
                                              requires_grad=False))
+
+    def as_float32(self) -> SimpleNamespace:
+        """The fields in float32 (the same tensors where they are float32
+        already): the RWKV and RG-LRU blocks compute against float32
+        weights, as the reference's float32 activations promote a
+        bfloat16 ``param_dtype`` weight."""
+        return SimpleNamespace(**{n: getattr(self, n).to(torch.float32)
+                                  for n in self.FIELDS})
 
 
 # ----------------------------------------------------------------- init ----
@@ -152,3 +162,17 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap and cap > 0.0:
         return cap * torch.tanh(x / cap)
     return x
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy in float32: logits (..., V), labels (...);
+    labels equal to ``ignore_index`` are masked out, and the sum is divided
+    by ``max(sum(mask), 1)``."""
+    logits = logits.to(torch.float32)
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None]).squeeze(-1)
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

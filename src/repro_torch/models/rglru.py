@@ -116,6 +116,7 @@ def recurrent_block(cfg: ArchConfig, p: RGLRUParams, x: torch.Tensor,
     """Griffin recurrent block.  x: (B, S, D); returns (out in x's dtype,
     the new state or None)."""
     b, s, _ = x.shape
+    p = p.as_float32()
     x32 = x.to(torch.float32)
     u = x32 @ p.w_in
     w = u.shape[-1]

@@ -134,6 +134,7 @@ def time_mix(cfg: ArchConfig, p: TimeMixParams, x: torch.Tensor,
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
+    p = p.as_float32()
     x32 = x.to(torch.float32)
     prev = (state.tm_shift.to(torch.float32) if state is not None
             else torch.zeros((b, d), dtype=torch.float32, device=x.device))
@@ -173,6 +174,7 @@ def channel_mix(cfg: ArchConfig, p: ChannelMixParams, x: torch.Tensor,
     """Squared-ReLU channel mixing.  x: (B, S, D); returns (out in x's
     dtype, the new state or None)."""
     b, s, d = x.shape
+    p = p.as_float32()
     x32 = x.to(torch.float32)
     prev = (state.cm_shift.to(torch.float32) if state is not None
             else torch.zeros((b, d), dtype=torch.float32, device=x.device))

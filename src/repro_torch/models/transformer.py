@@ -1,7 +1,7 @@
 """Model assembly for every family of the reference's configs (dense,
 Mixture-of-Experts, RWKV-6, the RecurrentGemma hybrid, the vision-language
-and audio models): prefill and greedy decode with a KV cache or recurrent
-states.
+and audio models): the training forward and loss, prefill and greedy
+decode with a KV cache or recurrent states.
 
 The same semantics as ``repro.models.transformer`` for layers of the
 attention (global and local), RWKV and RG-LRU kinds, with a gated MLP, an
@@ -35,11 +35,25 @@ float32 scale)`` pair: :mod:`repro_torch.models.attention`), one
 :class:`~repro_torch.models.rwkv6.RwkvState` per RWKV layer and one
 float32 :class:`~repro_torch.models.rglru.RGLRUState` per RG-LRU layer,
 replaced by each step's new state.
+
+Training (:func:`forward`, :func:`loss_fn`) runs under autograd on the
+float32 (or ``param_dtype``) parameters themselves, after
+:func:`trainable` turns their gradients on; every attention, expert
+product and scan still goes through its kernel, whose backward is
+autodiff of its plain version (:mod:`repro_torch.kernels.autograd`).
+``cfg.remat`` checkpoints each superblock's layers as the reference's
+``_remat_wrap`` does: ``"full"`` keeps only the superblock's input,
+``"dots"`` also the outputs of products without batch dimensions
+(``aten.mm`` / ``aten.addmm``, the counterpart of
+``checkpoint_dots_with_no_batch_dims``); the tail is not checkpointed.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, mlp, rglru, rwkv6
@@ -213,6 +227,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return Transformer(layers, embed, lm_head, zeros(), vision)
 
 
+def trainable(params: Transformer, on: bool = True) -> Transformer:
+    """Turn the gradients of every floating-point parameter on (or off);
+    returns ``params``.  Serving leaves them off."""
+    for p in params.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(on)
+    return params
+
+
 def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
     """``params`` with every attention, MLP and expert matmul weight, the
     head and a VLM's vision projection cast once to the compute dtype (the
@@ -262,13 +285,15 @@ def compute_copy(cfg: ArchConfig, params: Transformer) -> Transformer:
 # --------------------------------------------------------------------------
 def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
-                cache_pos: int | None = None, mrope_positions=None):
+                cache_pos: int | None = None, mrope_positions=None,
+                aux: list | None = None):
     """One residual layer; returns ``(x, cache)``: an attention layer's
     cache written in place, an RWKV or RG-LRU layer's new state (None
     without one).  Where the config has ``post_norms`` (Gemma-2), each
     branch's output is normalized before it joins the residual; with
     ``moe_dense_residual`` (arctic) the dense MLP's output is added to the
-    MoE's."""
+    MoE's.  An MoE layer appends its load-balancing loss to ``aux`` where
+    one is given."""
     post = lambda y, w: (y if w is None
                          else common.rms_norm(y, w, cfg.norm_eps))
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
@@ -288,7 +313,9 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
     x = x + post(out, p.post_ln1)
     h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
-        out2 = mlp.moe(cfg, p.moe, h2)[0]
+        out2, moe_aux = mlp.moe(cfg, p.moe, h2)
+        if aux is not None:
+            aux.append(moe_aux["aux_loss"])
         if cfg.moe_dense_residual:
             out2 = out2 + mlp.mlp(cfg, p.mlp, h2)
     else:
@@ -342,6 +369,93 @@ def lm_logits(cfg: ArchConfig, params: Transformer,
     else:
         logits = h @ head.to(dt)
     return common.softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+# --------------------------------------------------------------------------
+# Training forward and loss
+# --------------------------------------------------------------------------
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of products without batch dimensions; recompute
+    the rest."""
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ArchConfig, fn):
+    """``fn(x)`` checkpointed as ``cfg.remat`` says (non-reentrant)."""
+    if cfg.remat == "full":
+        return lambda x: ckpt.checkpoint(fn, x, use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda x: ckpt.checkpoint(fn, x, use_reentrant=False,
+                                         context_fn=ctx)
+    if cfg.remat != "none":
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    return fn
+
+
+def forward(cfg: ArchConfig, params: Transformer, batch: dict):
+    """The training forward without caches: ``batch["tokens"]`` (B, S) (or
+    (B, K, S)), with a VLM's ``vision_embeds`` and ``mrope_positions`` and
+    optional ``positions`` (default ``0 .. S - 1``).  Returns the final
+    hidden states (B, S, D) in the compute dtype and ``{"moe_aux_loss"}``,
+    the MoE layers' load-balancing losses summed (a float32 0 without
+    experts): each superblock's in layer order, then the superblocks', then
+    the tail's, as the reference adds them."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    h = embed_tokens(cfg, params, tokens, positions=positions,
+                     vision_embeds=batch.get("vision_embeds"))
+    if positions is None:
+        positions = torch.arange(tokens.shape[-1], device=h.device)[None, :]
+    mrope = batch.get("mrope_positions")
+    pattern, n_super, tail = superblock_layout(cfg)
+    span = len(pattern)
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def layers(x, ps, kinds):
+        aux = []
+        for kind, p in zip(kinds, ps):
+            x, _ = apply_layer(cfg, kind, p, x, positions,
+                               mrope_positions=mrope, aux=aux)
+        total = zero()
+        for a in aux:
+            total = total + a
+        return x, total
+
+    total_aux = zero()
+    for s in range(n_super):
+        block = params.layers[s * span:(s + 1) * span]
+        # the block bound now: a checkpoint replays it in the backward pass
+        run = _remat_wrap(cfg, lambda x, ps=block: layers(x, ps, pattern))
+        h, aux_s = run(h)
+        total_aux = total_aux + aux_s
+    for i in range(tail):
+        aux = []
+        h, _ = apply_layer(cfg, pattern[i], params.layers[n_super * span + i],
+                           h, positions, mrope_positions=mrope, aux=aux)
+        for a in aux:
+            total_aux = total_aux + a
+    return h, {"moe_aux_loss": total_aux}
+
+
+def loss_fn(cfg: ArchConfig, params: Transformer, batch: dict):
+    """The mean token cross-entropy of :func:`forward`'s logits against
+    ``batch["labels"]``, plus ``router_aux_coef * moe_aux_loss /
+    n_layers`` with experts.  Returns ``(loss, {"ce", "moe_aux_loss"})``."""
+    h, aux = forward(cfg, params, batch)
+    logits = lm_logits(cfg, params, h)
+    ce = common.cross_entropy_loss(logits, batch["labels"])
+    loss = ce
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux["moe_aux_loss"] / cfg.n_layers
+    return loss, {"ce": ce, **aux}
 
 
 # --------------------------------------------------------------------------

@@ -49,10 +49,12 @@ def test_sources_name_no_jax_or_repro_import():
 
 def test_new_subpackages_are_covered():
     """The fault model, the checkpoint package, the neural agent, the
-    design-space sampler, XLA's float32 functions and the LM stack
-    (configs, synthetic data, models, launch, the flash-attention, RWKV-6
-    scan, grouped expert-matmul and RG-LRU scan kernels) are among the
-    modules the import check above loads."""
+    design-space sampler, XLA's float32 functions, the LM stack (configs,
+    synthetic data, models, launch, the flash-attention, RWKV-6 scan,
+    grouped expert-matmul and RG-LRU scan kernels) and LM training (the
+    kernels' gradient wrapper, the optimizers, the prefetch pipeline, the
+    fault helpers, the train step and launcher, the memory-mode
+    autotuner) are among the modules the import check above loads."""
     mods = _modules()
     for m in ("repro_torch.soc.faults", "repro_torch.checkpoint",
               "repro_torch.checkpoint.ckpt",
@@ -75,7 +77,13 @@ def test_new_subpackages_are_covered():
               "repro_torch.models.rglru",
               "repro_torch.kernels.rglru_scan.kernel",
               "repro_torch.kernels.rglru_scan.ops",
-              "repro_torch.kernels.rglru_scan.ref"):
+              "repro_torch.kernels.rglru_scan.ref",
+              "repro_torch.kernels.autograd", "repro_torch.optim",
+              "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+              "repro_torch.optim.compress", "repro_torch.optim.schedule",
+              "repro_torch.data.pipeline",
+              "repro_torch.distributed.fault", "repro_torch.launch.steps",
+              "repro_torch.launch.train", "repro_torch.core.autotune"):
         assert m in mods, m
 
 
@@ -85,8 +93,9 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
     cross-check, Fig. 12 and Fig. 13 at a tiny size, Fig. 6's fidelity
     path on one weighting and Fig. 9's cross-check on one lane, and the
     Qwen3, rwkv6, granite, recurrentgemma, arctic, musicgen, qwen2-vl and
-    int8-cache smoke serves); nor do the throughput and overhead drivers
-    and ``soc.shard``."""
+    int8-cache smoke serves, smoke training with checkpoints, compression
+    and the autotuner); nor do the throughput and overhead drivers and
+    ``soc.shard``."""
     root = SRC.parent
     code = (
         "import sys\n"
@@ -130,6 +139,14 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "out = serve.serve(smoke_config('qwen3-8b').replace("
         "kv_cache_dtype='int8'), 2, 8, 2, device='cpu')\n"
         "assert out['generated'].shape == (2, 2)\n"
+        "import tempfile\n"
+        "from repro_torch.launch import train\n"
+        "for arch, extra in (('qwen2-vl-2b', ['--compress']), "
+        "('qwen3-8b', ['--autotune'])):\n"
+        "    losses = train.main(['--arch', arch, '--smoke', "
+        "'--device', 'cpu', '--steps', '2', '--batch', '2', '--seq', '16', "
+        "'--ckpt-dir', tempfile.mkdtemp(), '--ckpt-every', '1'] + extra)\n"
+        "    assert len(losses) == 2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -159,9 +176,14 @@ def test_entry_points_default_to_the_card():
         for make in makers:
             assert make().type == "cuda"
         return
+    from repro_torch.launch import steps, train
     for make in makers + [lambda: torch_fig10_faults.run_port(),
                           lambda: torch_fig13_generalize.run_port(),
                           lambda: serve.serve(smoke_config("qwen3-8b"), 1,
-                                              4, 1)]:
+                                              4, 1),
+                          lambda: steps.make_train_state(
+                              smoke_config("qwen3-8b")),
+                          lambda: train.main(["--arch", "qwen3-8b",
+                                              "--smoke", "--steps", "1"])]:
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
