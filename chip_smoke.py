@@ -268,6 +268,27 @@ drives, each with the counts set to 0 before it and read after:
 ``chiprun_out/lm_training_port.json`` keeps these numbers; the
 ``kernels`` line gives K3-K6 their training launches by path.
 
+Then the distributed layer (``# ---- 9z.``): a probe
+(``benchmarks/torch_mesh_probe.py``) starts two ranks on the one card
+over gloo and tries, on CUDA tensors, the collectives a DTensor program
+issues, then a one-rank NCCL DTensor round trip, which must succeed.
+The probe's first reading decided how the mesh phases run on the card:
+gloo aborts a process handed CUDA memory and NCCL refuses two ranks on
+one device, so no phase runs two ranks here (the script does not switch
+on the probe's answer; the sharded arithmetic is held against the
+reference on 4 CPU ranks, ``tests/test_torch_mesh_*.py``).  It drives,
+with the counts set to 0 before and read after:
+
+  * qwen2-vl-2b training at full width through ``launch.train
+    --data-mesh 1 --model-mesh 1``: the same seed-0 weights, batches and
+    4 x 2,048 tokens as the plain run above, the state placed by
+    ``train_shardings`` as DTensors on a one-rank NCCL mesh, 3 steps; 28
+    ``tc_prefill`` K3 launches a step, each through ``local_map`` (the
+    wrapper's ``shard_calls``), step 1's loss and gradient norm within
+    1e-6 (relative) of the plain run's; the step time (median of steps
+    2-3, DTensor's host dispatch included) beside the plain step's, and
+    the peak memory.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -547,6 +568,93 @@ def sm_clock_mhz() -> float:
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return float(out.stdout.strip().splitlines()[0])
+
+
+MESH_STEPS = 3
+MESH_TOL = 1e-6       # step 1 at (1, 1) against the plain step, relative
+
+
+def mesh_phase(torch, np, card, vl, plain_row, lm_train, fa_ops,
+               reset_counts, read, counts) -> dict:
+    """Section 9z: the two-rank probe, then qwen2-vl-2b (``vl``) trained
+    at full width on a (1, 1) mesh, held against ``plain_row``, the plain
+    run's numbers on the same weights and batches."""
+    import torch.distributed as dist
+    from benchmarks import torch_mesh_probe
+    torch.cuda.empty_cache()      # room for the probe's two processes
+    t_p = time.perf_counter()
+    probe = torch_mesh_probe.probe()
+    probe_s = time.perf_counter() - t_p
+    print(f"mesh probe on {card} ({probe_s:.1f} s): {json.dumps(probe)}")
+    if probe["nccl_one_rank"].get("dtensor_1x1") != "ok":
+        fail(f"mesh probe: the one-rank NCCL round trip failed: "
+             f"{probe['nccl_one_rank']}")
+    # decided from the probe's first reading (PERF.md §6): no phase
+    # runs two ranks on the one card
+    print(f"mesh phases on {card}: (1, 1) only; two ranks on one card "
+          f"{'would' if probe['two_ranks_on_one_card'] else 'do not'} "
+          f"pass the probe")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t_m = time.perf_counter()
+    out = lm_train.run(vl, steps=MESH_STEPS, batch=QWEN_BATCH, seq=VL_SEQ,
+                       log_every=1, device="cuda", timed=True,
+                       data_mesh=1, model_mesh=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_m
+    path = "qwen2vl_train_mesh_1x1"
+    counts[path] = read()
+    want = MESH_STEPS * vl.n_layers
+    bodies, through = dict(fa_ops.body_launches), fa_ops.shard_calls
+    if (counts[path] != launches(flash_attention=want)
+            or bodies["tc_prefill"] != want or through != want):
+        fail(f"{path} launched {dict(zip(KERNELS, counts[path]))}, K3 "
+             f"bodies {bodies}, {through} through local_map; expected "
+             f"{want} tc_prefill, each through local_map")
+    mesh = out["mesh"]
+    if mesh is None or tuple(mesh.shape) != (1, 1):
+        fail(f"{path}: no (1, 1) mesh ({mesh})")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    d_loss = rel(out["losses"][0], plain_row["losses"][0])
+    d_norm = rel(out["grad_norms"][0], plain_row["grad_norms"][0])
+    if not (d_loss <= MESH_TOL and d_norm <= MESH_TOL
+            and all(math.isfinite(x) for x in out["losses"])):
+        fail(f"{path}: step 1 loss {out['losses'][0]!r} and gradient norm "
+             f"{out['grad_norms'][0]!r} against the plain step's "
+             f"{plain_row['losses'][0]!r} and {plain_row['grad_norms'][0]!r}"
+             f"; losses {out['losses']}")
+    mem = torch.cuda.max_memory_allocated()
+    med = lambda xs: float(np.median(xs))
+    timed = out["phases"][1:] or out["phases"]
+    row = dict(
+        probe=probe, probe_s=probe_s, steps=MESH_STEPS, batch=QWEN_BATCH,
+        seq=VL_SEQ, losses=out["losses"], grad_norms=out["grad_norms"],
+        step1_vs_plain=dict(loss=d_loss, grad_norm=d_norm),
+        step_s=med(out["step_s"][1:]), plain_step_s=plain_row["step_s"],
+        forward_s=med([p["forward"] for p in timed]),
+        backward_s=med([p["backward"] for p in timed]),
+        optimizer_s=med([p["optimizer"] for p in timed]),
+        own_peak_gib=(mem - base) / 2**30, peak_gib=mem / 2**30,
+        plain_own_peak_gib=plain_row["own_peak_gib"],
+        k3_per_step=want // MESH_STEPS, shard_calls=through, wall_s=wall)
+    print(f"{path} ({vl.name}, B={QWEN_BATCH}, seq {VL_SEQ}, bf16 compute, "
+          f"the state as DTensors on a one-rank NCCL mesh, {MESH_STEPS} "
+          f"steps) on {card}: step 1 loss within {d_loss:.3e} and gradient "
+          f"norm within {d_norm:.3e} of the plain step's (relative; bound "
+          f"{MESH_TOL}); step {row['step_s']:.4f} s (median of steps 2-"
+          f"{MESH_STEPS}: forward {row['forward_s']:.4f}, backward "
+          f"{row['backward_s']:.4f}, optimizer {row['optimizer_s']:.4f}) "
+          f"against the plain step's {plain_row['step_s']:.4f} s; peak "
+          f"{row['own_peak_gib']:.2f} GiB above what the script held "
+          f"(plain {plain_row['own_peak_gib']:.2f}); K3 "
+          f"{row['k3_per_step']} tc_prefill launches a step, every one "
+          f"through local_map; {wall:.1f} s wall")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return row
 
 
 def main() -> None:
@@ -3701,6 +3809,15 @@ def main() -> None:
     (ROOT / "chiprun_out" / "lm_training_port.json").write_text(json.dumps(
         {"card": card, "rows": train_rows, "grad_checks": grad_errs},
         indent=1))
+    torch.cuda.empty_cache()
+
+    # ---- 9z. the distributed layer: the probe of two ranks on one card,
+    # then qwen2-vl-2b at full width through the (1, 1) mesh path ---------
+    mesh_row = mesh_phase(torch, np, card, vl, train_rows["qwen2vl_train"],
+                          lm_train, fa_ops, reset_counts, read, counts)
+    train_s["qwen2vl_train_mesh_1x1"] = mesh_row["wall_s"]
+    (ROOT / "chiprun_out" / "mesh_port.json").write_text(json.dumps(
+        {"card": card, **mesh_row}, indent=1))
     torch.cuda.empty_cache()
 
     # ---- 10. times and bounds ---------------------------------------------

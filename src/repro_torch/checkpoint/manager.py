@@ -9,6 +9,11 @@ The contract of ``repro.checkpoint.manager``:
   * ``latest_step()`` scans the directory, so a restarted job resumes
     from the newest complete checkpoint, and ``restore`` walks past a
     damaged newest one.
+
+A tree of DTensors is gathered by every rank of its mesh in ``save``
+and written by the mesh's first rank; ``wait`` returns on no rank of
+that mesh before the write is on disk, so any rank may then restore it,
+on any mesh (``shardings=``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._pending: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._mesh = None      # the mesh of the last tree saved
         # a writer that died mid-write leaves an orphaned temporary dir
         for name in os.listdir(directory):
             if name.startswith(".ckpt-tmp-"):
@@ -70,12 +76,15 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        mesh, self._mesh = self._mesh, None
+        ckpt.mesh_barrier(mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def save(self, step: int, tree) -> None:
         self.wait()   # one outstanding write at a time
+        self._mesh = ckpt.dtensor_mesh(tree)
         leaves = ckpt.host_leaves(tree)
 
         def write():
@@ -85,26 +94,30 @@ class CheckpointManager:
             except Exception as e:   # re-raised by wait()
                 self._error = e
 
-        if self.async_write:
-            self._pending = threading.Thread(target=write, daemon=True)
-            self._pending.start()
-        else:
+        if ckpt.writes_here(self._mesh):
+            if self.async_write:
+                self._pending = threading.Thread(target=write, daemon=True)
+                self._pending.start()
+                return
             write()
+        if not self.async_write:
             self.wait()
 
-    def restore(self, target, step: int | None = None):
+    def restore(self, target, step: int | None = None, shardings=None):
         """Restore ``step`` (explicit: a damaged one raises) or the newest
-        restorable checkpoint, walking past damaged newer ones."""
+        restorable checkpoint, walking past damaged newer ones; placed by
+        ``shardings`` as :func:`~repro_torch.checkpoint.ckpt.restore`
+        places them."""
         self.wait()
         if step is not None:
-            return ckpt.restore(self._step_dir(step), target)
+            return ckpt.restore(self._step_dir(step), target, shardings)
         steps = self.all_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         err: Exception | None = None
         for s in reversed(steps):
             try:
-                return ckpt.restore(self._step_dir(s), target)
+                return ckpt.restore(self._step_dir(s), target, shardings)
             except _DAMAGE as e:
                 err = e
         raise FileNotFoundError(

@@ -71,8 +71,8 @@ def _halves(batch: dict):
     inconsistent and its step fail while tracing (ROADMAP C11); the port
     raises the same ``TypeError`` before it runs anything."""
     b = batch["tokens"].shape[0]
-    h1 = {k: v[: v.shape[0] // 2] for k, v in batch.items()}
-    h2 = {k: v[v.shape[0] // 2:] for k, v in batch.items()}
+    h1 = {k: _rows(v, 0) for k, v in batch.items()}
+    h2 = {k: _rows(v, 1) for k, v in batch.items()}
     for h, want in ((h1, b // 2), (h2, b - b // 2)):
         bad = {k: tuple(v.shape) for k, v in h.items()
                if v.shape[0] != want}
@@ -82,14 +82,35 @@ def _halves(batch: dict):
     return h1, h2
 
 
+def _rows(v, half: int):
+    """The first or second half of ``v`` along axis 0; a DTensor split
+    over data along axis 0 gives each rank's own half, so the halves stay
+    split as the batch is (a global half would be one rank's rows)."""
+    from repro_torch.distributed import sharding as shd
+    if shd.is_dtensor(v) and any(p.is_shard(0) for p in v.placements):
+        from torch.distributed.tensor import DTensor
+        loc = v.to_local()
+        n = loc.shape[0] // 2
+        part = loc[:n] if half == 0 else loc[n:]
+        return DTensor.from_local(part, v.device_mesh, v.placements,
+                                  run_check=False)
+    n = v.shape[0] // 2
+    return v[:n] if half == 0 else v[n:]
+
+
 class MemoryModeOrchestrator:
     """Per-step memory-mode selection for the train step."""
 
-    def __init__(self, cfg, spec, seed: int = 0,
+    def __init__(self, cfg, spec, mesh=None, seed: int = 0,
                  weights: RewardWeights = PAPER_DEFAULT_WEIGHTS,
                  total_steps: int = 1000, decay_frac: float = 0.5):
+        """``mesh``: the (data, model) mesh the train state is placed on
+        (None: one device).  The arms are the same step functions, which
+        run as DTensor programs on a placed state; ``microbatch2``'s
+        halves are taken from each rank's own rows."""
         self.cfg = cfg
         self.spec = spec
+        self.mesh = mesh
         self.weights = weights
         self._variants = {m: self._build(m, total_steps) for m in MODES}
         self.qcfg = qlearn.QConfig(

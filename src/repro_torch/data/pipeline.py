@@ -4,7 +4,11 @@
 A producer thread keeps a small bounded queue of ready host batches
 (numpy), overlapping data generation with the train step; the consumer
 moves each batch to the device, from pinned host memory with a
-non-blocking copy where the device is the card.
+non-blocking copy where the device is the card.  With ``sharding`` (the
+batch's :class:`~repro_torch.distributed.sharding.NamedSharding` by key)
+each rank's iterator yields only its own rows (``host_batch(host,
+n_hosts)``) and ``next`` returns them as the pieces of the global batch's
+DTensors.
 """
 from __future__ import annotations
 
@@ -21,8 +25,13 @@ class PrefetchIterator:
     prefetch thread; ``next`` returns the batch as tensors on
     ``device`` (None: leave them on the host as tensors)."""
 
-    def __init__(self, it: Iterator[dict], depth: int = 2, device=None):
+    def __init__(self, it: Iterator[dict], depth: int = 2, device=None,
+                 sharding: dict | None = None):
         self._it = it
+        self._sharding = sharding
+        if sharding:
+            from repro_torch.launch.mesh import mesh_device
+            device = mesh_device(next(iter(sharding.values())).mesh)
         self._device = None if device is None else torch.device(device)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err: BaseException | None = None
@@ -51,4 +60,11 @@ class PrefetchIterator:
         if item is None:
             self._q.put(None)
             raise (self._err or StopIteration)
-        return {k: self._to_device(v) for k, v in item.items()}
+        out = {k: self._to_device(v) for k, v in item.items()}
+        if self._sharding:
+            from torch.distributed.tensor import DTensor
+            out = {k: DTensor.from_local(v, self._sharding[k].mesh,
+                                         self._sharding[k].placements(),
+                                         run_check=False)
+                   for k, v in out.items()}
+        return out

@@ -9,12 +9,15 @@ fallback between them: a CUDA call that cannot build or launch raises.
 :data:`launches` counts the kernel's launches, so a run can show that it
 went through the kernel.  On a tensor that needs a gradient the kernel's
 backward is autodiff of the plain version
-(:func:`~repro_torch.kernels.autograd.with_ref_grad`).
+(:func:`~repro_torch.kernels.autograd.with_ref_grad`).  On DTensors (a
+train step under a mesh) it runs on each rank's batch rows and
+channels.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.autograd import with_ref_grad
 from repro_torch.kernels.rglru_scan import kernel as _kernel
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
@@ -32,6 +35,8 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     """log_a/b: (B, T, W); h0: (B, W) or None (zeros), folded into the
     first step: ``b[:, 0] += exp(log_a[:, 0]) * h0``.  Returns (h (B, T, W),
     h_final (B, W)), float32."""
+    if shd.is_dtensor(log_a):
+        return _on_shards(log_a, b, h0)
     if h0 is not None:
         b = b.clone()
         b[:, 0] = b[:, 0] + torch.exp(log_a[:, 0]) * h0
@@ -52,3 +57,15 @@ def _plain(log_a, b):
     zeros = torch.zeros((b.shape[0], b.shape[2]), dtype=torch.float32,
                         device=b.device)
     return rglru_ref(log_a, b, zeros)
+
+
+def _on_shards(log_a, b, h0):
+    """DTensor operands: the batch over (pod, data), the channels over
+    model where they divide evenly; ``h0`` (B, W) split as its rows and
+    channels are."""
+    mesh = log_a.device_mesh
+    p = shd.kernel_placements(mesh, log_a.shape, batch_dim=0, head_dim=2)
+    hp = shd.sharded_like(p, {0: 0, 2: 1})
+    args, pls = ([log_a, b], [p, p]) if h0 is None else (
+        [log_a, b, h0], [p, p, hp])
+    return shd.local_call(rglru_scan, args, pls, (p, hp), mesh)

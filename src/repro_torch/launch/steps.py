@@ -1,6 +1,5 @@
-"""The train state and train step (``repro.launch.steps``:
-``make_train_state``, ``make_train_step``; the sharding and spec
-functions are not ported yet).
+"""The train state, the step functions, their abstract inputs and their
+shardings (``repro.launch.steps``).
 
 A train state is ``{"params": Transformer, "opt": AdamWState or
 AdafactorState}`` plus ``"ef"`` (an ``EFState``) under gradient
@@ -14,12 +13,15 @@ state).  Its optimizer statistics span the reference's stacked leaves
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common, convert, transformer
 from repro_torch.optim import adafactor, adamw, compress, schedule
 
@@ -29,7 +31,8 @@ def make_train_state(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     device (the reference's distributions, not its numbers), cast to
     ``cfg.param_dtype``, trainable, and the config's optimizer state."""
     dev = resolve_device(device)
-    rng = torch.Generator(device=dev).manual_seed(seed)
+    rng = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    rng.manual_seed(seed)
     params = transformer.init_params(cfg, rng, dev)
     if cfg.param_dtype != "float32":
         params = params.to(common.dtype_of(cfg.param_dtype))
@@ -92,9 +95,13 @@ def make_train_step(cfg: ArchConfig, *, grad_compress: bool = False,
         named = dict(params.named_parameters())
         if not leaves:
             leaves.extend(convert.leaf_groups(cfg, list(named)).values())
+        with _on_mesh(mesh_of(named)):
+            return step(state, params, named, batch, phases, grads_hook)
+
+    def step(state, params, named, batch, phases, grads_hook):
         mark = _clock(phases, next(iter(named.values())).device)
         mark("start")
-        loss, aux = transformer.loss_fn(cfg, params, batch)
+        loss, aux = _loss(cfg, params, named, batch)
         mark("forward")
         got = torch.autograd.grad(loss, list(named.values()),
                                   allow_unused=True)
@@ -117,6 +124,186 @@ def make_train_step(cfg: ArchConfig, *, grad_compress: bool = False,
         new_state.update(params=params, opt=opt)
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in aux.items()}, **om}
-        return new_state, metrics
+        return new_state, {k: _whole(v) for k, v in metrics.items()}
 
     return train_step
+
+
+def mesh_of(named: dict):
+    """The mesh of the first DTensor among ``named``'s values, or None."""
+    for t in named.values():
+        if shd.is_dtensor(t):
+            return t.device_mesh
+    return None
+
+
+@contextlib.contextmanager
+def _on_mesh(mesh):
+    """Outside a mesh nothing; under one the activation constraints'
+    mesh, and plain tensors (constants the model makes: positions, zero
+    states) taken as replicated where they meet DTensors."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with shd.activation_mesh(mesh), implicit_replication():
+        yield
+
+
+def _whole(x):
+    """A DTensor metric as the plain tensor of its full value."""
+    return x.full_tensor() if shd.is_dtensor(x) else x
+
+
+class _Loss(torch.nn.Module):
+    def __init__(self, cfg, params):
+        super().__init__()
+        self.cfg = cfg
+        self.params = params
+
+    def forward(self, batch):
+        return transformer.loss_fn(self.cfg, self.params, batch)
+
+
+def gathered(p):
+    """A DTensor parameter as the forward uses it: replicated over data
+    (and pod), the FSDP all-gather, its model split kept; its gradient
+    comes back through the matching reduce-scatter."""
+    from torch.distributed.tensor import Replicate
+    names = p.device_mesh.mesh_dim_names
+    want = tuple(q if name == "model" else Replicate()
+                 for q, name in zip(p.placements, names))
+    return p if tuple(p.placements) == want else p.redistribute(
+        p.device_mesh, want)
+
+
+def _loss(cfg, params, named, batch):
+    """``loss_fn``; under a mesh each parameter :func:`gathered` for the
+    forward (the module's own, sharded, stay the leaves the gradients are
+    taken for)."""
+    if shd.active_mesh() is None:
+        return transformer.loss_fn(cfg, params, batch)
+    from torch.func import functional_call
+    use = {"params." + k: gathered(p) for k, p in named.items()}
+    return functional_call(_Loss(cfg, params), use, (batch,))
+
+
+# ------------------------------------------------------------------ specs --
+def train_state_specs(cfg: ArchConfig, grad_compress: bool = False) -> dict:
+    """The train state on the meta device: its structure, shapes and
+    dtypes with nothing allocated (the reference's ``eval_shape``)."""
+    state = make_train_state(cfg, 0, "meta")
+    if grad_compress:
+        state["ef"] = compress.init_ef(dict(
+            state["params"].named_parameters()))
+    return state
+
+
+def input_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict:
+    """Meta tensors standing in for every model input of a cell: a train
+    batch's ``tokens`` and ``labels``, a prefill's ``tokens``, a decode
+    step's one token; with K audio codebooks ``(B, K, S)``; a VLM's
+    ``vision_embeds`` (not at decode) and ``mrope_positions`` ``(3, B,
+    S)``."""
+    b, s = spec.global_batch, spec.seq_len
+    meta = lambda shape, dt=torch.int32: torch.empty(shape, dtype=dt,
+                                                     device="meta")
+    tok = lambda seq: ((b, cfg.n_codebooks, seq) if cfg.n_codebooks
+                       else (b, seq))
+    if spec.kind == "train":
+        batch = {"tokens": meta(tok(s)), "labels": meta(tok(s))}
+    elif spec.kind == "prefill":
+        batch = {"tokens": meta(tok(s))}
+    else:
+        batch = {"tokens": meta(tok(1))}
+    if cfg.family == "vlm":
+        seq = s if spec.kind != "decode" else 1
+        if spec.kind != "decode":
+            batch["vision_embeds"] = meta(
+                (b, cfg.vision_tokens, cfg.vision_dim), torch.float32)
+        batch["mrope_positions"] = meta((3, b, seq))
+    return batch
+
+
+def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> list:
+    """The decode cache of a cell on the meta device."""
+    return transformer.init_cache(cfg, spec.global_batch, spec.seq_len,
+                                  device="meta")
+
+
+# ------------------------------------------------------------------ steps --
+def make_prefill_step(cfg: ArchConfig, max_len: int | None = None):
+    def prefill_step(params, batch):
+        return transformer.prefill(cfg, params, batch, max_len=max_len)
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    def decode_step(params, cache, batch, pos):
+        return transformer.decode_step(cfg, params, cache, batch, pos)
+    return decode_step
+
+
+# -------------------------------------------------------------- shardings --
+def train_shardings(cfg: ArchConfig, mesh, spec: ShapeSpec,
+                    grad_compress: bool = False):
+    """``(state shardings, batch shardings)``: trees of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` shaped as
+    :func:`state_tree`'s and the batch's.  Parameters by the rules; AdamW's
+    ``mu``/``nu`` as their parameters; its ``step`` and all of
+    Adafactor's state replicated (the reference's
+    ``_opt_leaf_sharding``); the compressor's residual as its parameter
+    (the reference leaves it to the compiler)."""
+    state = train_state_specs(cfg, grad_compress)
+    named = dict(state["params"].named_parameters())
+    ns = lambda sp: shd.NamedSharding(mesh, sp)
+    params = {k: ns(sp) for k, sp in
+              shd.param_shardings(mesh, cfg, named).items()}
+    opt = state["opt"]
+    rep = ns(shd.replicated(mesh))
+    if cfg.optimizer == "adafactor":
+        opt_sh = adafactor.AdafactorState(rep, {
+            k: adafactor.LeafState(rep, rep) for k in opt.v})
+    else:
+        opt_sh = adamw.AdamWState(rep, dict(params), dict(params))
+    out = {"params": params, "opt": opt_sh}
+    if grad_compress:
+        out["ef"] = compress.EFState(dict(params))
+    batch = {k: ns(sp) for k, sp in
+             shd.batch_shardings(mesh, input_specs(cfg, spec)).items()}
+    return out, batch
+
+
+def serve_shardings(cfg: ArchConfig, mesh, spec: ShapeSpec):
+    """``(parameter, cache, batch)`` shardings of a serving cell: the
+    parameter rules, the cache rules (a list of ``(reference path,
+    NamedSharding)`` in :func:`~repro_torch.distributed.sharding.
+    cache_leaves` order) and the batch's."""
+    named = dict(transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), "meta").named_parameters())
+    ns = lambda sp: shd.NamedSharding(mesh, sp)
+    p_sh = {k: ns(sp) for k, sp in
+            shd.param_shardings(mesh, cfg, named).items()}
+    c_sh = [(path, ns(sp)) for path, sp in
+            shd.cache_shardings(mesh, cfg, cache_specs(cfg, spec))]
+    b_sh = {k: ns(sp) for k, sp in
+            shd.batch_shardings(mesh, input_specs(cfg, spec)).items()}
+    return p_sh, c_sh, b_sh
+
+
+@torch.no_grad()
+def place_state(state: dict, shardings: dict) -> dict:
+    """``state`` (every rank holding the same full values) placed by
+    :func:`train_shardings`' first tree: each parameter of the module
+    replaced by a DTensor parameter holding this rank's shard, every
+    other tensor with a sharding a DTensor, the 0-d ``step`` counters
+    left as the plain tensors every rank holds."""
+    for name, p in list(state["params"].named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        mod = state["params"].get_submodule(mod_name)
+        placed = shardings["params"][name].place(p.detach())
+        setattr(mod, leaf, torch.nn.Parameter(
+            placed, requires_grad=p.requires_grad))
+    rest = {k: v for k, v in state.items() if k != "params"}
+    sh = {k: v for k, v in shardings.items() if k in rest}
+    return {"params": state["params"], **shd.place(rest, sh)}

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import common
 
@@ -159,6 +160,9 @@ def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
     q = (x @ p.wq.to(dt).flatten(1)).view(b, s, cfg.n_heads, hd)
     k = (x @ p.wk.to(dt).flatten(1)).view(b, s, cfg.n_kv_heads, hd)
     v = (x @ p.wv.to(dt).flatten(1)).view(b, s, cfg.n_kv_heads, hd)
+    # under a mesh: the query heads over model, as the reference constrains
+    # them (a no-op on plain tensors)
+    q = shd.constrain(q, batch_dim=0, head_dim=2)
     if cfg.qk_norm:
         q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = common.rms_norm(k, p.k_norm, cfg.norm_eps)

@@ -164,6 +164,20 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return x
 
 
+def _settled(x):
+    """A DTensor's pending reductions done (its ``Partial`` placements
+    made ``Replicate``); a plain tensor as it is.  A gather from
+    vocab-sharded logits leaves a masked partial sum whose mask keeps the
+    gather's rank, which a later ``squeeze`` breaks: it is reduced
+    first."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = -1) -> torch.Tensor:
     """Mean token cross-entropy in float32: logits (..., V), labels (...);
@@ -173,6 +187,6 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None]).squeeze(-1)
+    gold = _settled(torch.gather(logits, -1, safe[..., None])).squeeze(-1)
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)

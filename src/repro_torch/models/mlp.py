@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models import common
 
@@ -128,18 +129,30 @@ def route(cfg: ArchConfig, p: MoEParams, xf: torch.Tensor,
           capacity_factor: float) -> Routing:
     """The router, top-k and the capacity sort of ``xf`` (B, S, D), the
     compute-dtype activations."""
-    b, s, _ = xf.shape
-    e, k = cfg.padded_experts, cfg.top_k
-    dev = xf.device
-    # router in float32; the padded (dead) experts masked out
-    logits = xf.to(torch.float32) @ p.router.to(torch.float32)
-    if e > cfg.n_experts:
+    probs, expert_ids, gate_vals = _router(cfg, p.router, xf)
+    return _sort(cfg, probs, expert_ids, gate_vals, capacity_factor)
+
+
+def _router(cfg: ArchConfig, router: torch.Tensor, xf: torch.Tensor):
+    """(probs (B, S, E), expert_ids, gate_vals (B, S, k)): the float32
+    router, the padded (dead) experts masked out, top-k and the gates
+    renormalised."""
+    logits = xf.to(torch.float32) @ router.to(torch.float32)
+    if cfg.padded_experts > cfg.n_experts:
         logits[..., cfg.n_experts:] = -1e30
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, cfg.top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    return probs, expert_ids, gate_vals
 
+
+def _sort(cfg: ArchConfig, probs, expert_ids, gate_vals,
+          capacity_factor: float) -> Routing:
+    """The assignments sorted stably by expert, and the capacity cut."""
+    b, s, k = expert_ids.shape
+    e = cfg.padded_experts
+    dev = expert_ids.device
     flat = expert_ids.reshape(b, s * k)
     order = torch.argsort(flat, dim=-1, stable=True)
     sorted_experts = torch.gather(flat, 1, order)
@@ -158,16 +171,32 @@ def route(cfg: ArchConfig, p: MoEParams, xf: torch.Tensor,
 def moe(cfg: ArchConfig, p: MoEParams, x: torch.Tensor,
         capacity_factor: float | None = None):
     """Sort-based grouped MoE with per-batch-row dispatch: x (B, S, D) ->
-    ((B, S, D) in the compute dtype, {"aux_loss", "drop_frac"})."""
-    dt = common.dtype_of(cfg.compute_dtype)
-    act = common.activation(cfg.act)
+    ((B, S, D) in the compute dtype, {"aux_loss", "drop_frac"}).  On a
+    DTensor (a train step under a mesh) see :func:`_moe_on_mesh`."""
     if capacity_factor is None:
         capacity_factor = cfg.capacity_factor
-    b, s, d = x.shape
-    e, k = cfg.padded_experts, cfg.top_k
-    dev = x.device
+    if shd.is_dtensor(x):
+        return _moe_on_mesh(cfg, p, x, capacity_factor)
+    dt = common.dtype_of(cfg.compute_dtype)
     xf = x.to(dt)
     r = route(cfg, p, xf, capacity_factor)
+    out = _experts(cfg, r, xf, p.w_gate, p.w_up, p.w_down, 0)
+    return out, _aux(cfg, r.probs, _top1(cfg, r.expert_ids),
+                     r.keep.to(torch.float32))
+
+
+def _experts(cfg: ArchConfig, r: Routing, xf: torch.Tensor, w_gate, w_up,
+             w_down, first: int) -> torch.Tensor:
+    """Dispatch, the expert products of experts ``first .. first + n -
+    1`` (the weights' n), and the combine: (B, S, D).  With every expert
+    (``first`` 0, n = E) the whole layer's output; with fewer, the share
+    of those experts (the others add exact zeros)."""
+    dt = common.dtype_of(cfg.compute_dtype)
+    act = common.activation(cfg.act)
+    b, s, d = xf.shape
+    e, k = cfg.padded_experts, cfg.top_k
+    n = w_gate.shape[0]
+    dev = xf.device
     cap = r.cap
 
     # the kept assignments into a zeroed (B, E, cap, D) buffer; the
@@ -178,24 +207,86 @@ def moe(cfg: ArchConfig, p: MoEParams, x: torch.Tensor,
     buf = torch.zeros((b * e * cap + 1, d), dtype=dt, device=dev)
     buf[dest.reshape(-1)] = xf[rows, r.sorted_tokens].reshape(-1, d)
     grouped = buf[:-1].view(b, e, cap, d)
+    sizes = r.sizes
+    if n != e:
+        grouped = grouped[:, first:first + n].contiguous()
+        sizes = sizes[:, first:first + n].contiguous()
 
     # the expert products, through the grouped-matmul kernel
     w = lambda t: t.to(dt).contiguous()
-    h = (act(gmm_ops.moe_gmm(grouped, w(p.w_gate), r.sizes))
-         * gmm_ops.moe_gmm(grouped, w(p.w_up), r.sizes))
-    out_g = gmm_ops.moe_gmm(h, w(p.w_down), r.sizes).view(b, e * cap, d)
+    h = (act(gmm_ops.moe_gmm(grouped, w(w_gate), sizes))
+         * gmm_ops.moe_gmm(grouped, w(w_up), sizes))
+    out_g = gmm_ops.moe_gmm(h, w(w_down), sizes)
+    if n != e:
+        zeros = lambda m: out_g.new_zeros((b, m, cap, d))
+        out_g = torch.cat([zeros(first), out_g, zeros(e - first - n)], 1)
+    out_g = out_g.view(b, e * cap, d)
 
     # combine: each kept slot's output times its gate, in token order
     gathered = out_g[rows, torch.clamp(slot, max=e * cap - 1)]
     gathered = torch.where(r.keep[..., None], gathered,
                            torch.zeros((), dtype=dt, device=dev))
     weights = torch.gather(r.gate_vals.reshape(b, s * k), 1, r.order)
-    out = combine(gathered * weights[..., None].to(dt), r.sorted_tokens, s)
+    return combine(gathered * weights[..., None].to(dt), r.sorted_tokens, s)
 
-    # aux: Switch-style load-balancing loss and the dropped share
-    me = r.probs.mean(dim=(0, 1))
-    ce = F.one_hot(r.expert_ids[..., 0], e).to(torch.float32).mean(
-        dim=(0, 1))
-    aux_loss = e * torch.sum(me * ce)
-    drop_frac = 1.0 - r.keep.to(torch.float32).mean()
-    return out, {"aux_loss": aux_loss, "drop_frac": drop_frac}
+
+def _top1(cfg: ArchConfig, expert_ids: torch.Tensor) -> torch.Tensor:
+    """One-hot (B, S, E) float32 of each token's first expert."""
+    return F.one_hot(expert_ids[..., 0], cfg.padded_experts).to(
+        torch.float32)
+
+
+def _aux(cfg: ArchConfig, probs, top1, keep) -> dict:
+    """Switch-style load-balancing loss ``E * sum(me * ce)`` (``me`` the
+    mean router probability, ``ce`` the share of first choices, both over
+    the whole batch) and the dropped share of the assignments."""
+    me = probs.mean(dim=(0, 1))
+    ce = top1.mean(dim=(0, 1))
+    aux_loss = cfg.padded_experts * torch.sum(me * ce)
+    drop_frac = 1.0 - keep.mean()
+    return {"aux_loss": aux_loss, "drop_frac": drop_frac}
+
+
+def _moe_on_mesh(cfg: ArchConfig, p: MoEParams, x, capacity_factor: float):
+    """The MoE layer on DTensors: each rank routes its batch rows (the
+    router replicated) and runs the experts it holds (split over model
+    where their count divides, else all of them) through the kernel; the
+    experts' shares are summed over model.  The router's top-k, the sort
+    and the dispatch's gathers and scatters run on each rank's local rows
+    inside ``local_map``, not as DTensor ops.  The load-balancing
+    statistics leave it as DTensors, so their means span the whole
+    batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    dt = common.dtype_of(cfg.compute_dtype)
+    xf = x.to(dt)
+    rows = shd.kernel_placements(mesh, xf.shape, batch_dim=0)
+    rep = (Replicate(),) * mesh.ndim
+    e = cfg.padded_experts
+
+    def local_route(xl, router):
+        probs, ids, gates = _router(cfg, router, xl)
+        r = _sort(cfg, probs, ids, gates, capacity_factor)
+        keep = r.keep.to(torch.float32).view(ids.shape)
+        return probs, ids, gates, _top1(cfg, ids), keep
+
+    probs, ids, gates, top1, keep = shd.local_call(
+        local_route, (xf, p.router), (rows, rep), (rows,) * 5, mesh)
+
+    model = list(mesh.mesh_dim_names).index("model")
+    n = mesh.size(model)
+    split = n > 1 and e % n == 0
+    wp = tuple(Shard(0) if split and i == model else Replicate()
+               for i in range(mesh.ndim))
+    outp = tuple(Partial() if split and i == model else q
+                 for i, q in enumerate(rows))
+    first = mesh.get_local_rank(model) * (e // n) if split else 0
+
+    def local_experts(xl, idl, gl, wg, wu, wd):
+        r = _sort(cfg, None, idl, gl, capacity_factor)
+        return _experts(cfg, r, xl, wg, wu, wd, first)
+
+    out = shd.local_call(local_experts,
+                         (xf, ids, gates, p.w_gate, p.w_up, p.w_down),
+                         (rows, rows, rows, wp, wp, wp), (outp,), mesh)
+    return out, _aux(cfg, probs, top1, keep)

@@ -57,7 +57,16 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
 
 def compress_leaf(gs: list, rs: list):
     """EF-compress one leaf, the tensors ``gs`` stacked (their residuals
-    ``rs``).  Returns (compressed gradients, new residuals), per tensor."""
+    ``rs``).  Returns (compressed gradients, new residuals), per tensor.
+    DTensors (a step under a mesh) are gathered whole, a leaf at a time,
+    and each rank keeps its shards of the results: a block of 256 runs
+    across the flattened stack, across the shards."""
+    from repro_torch.distributed import sharding as shd
+    if gs and shd.is_dtensor(gs[0]):
+        whole = lambda ts: [t.full_tensor() for t in ts]
+        out, res = compress_leaf(whole(gs), whole(rs))
+        back = lambda ts, like: [_like(t, x) for t, x in zip(ts, like)]
+        return back(out, gs), back(res, rs)
     g32 = torch.cat([(g.to(torch.float32) + r).reshape(-1)
                      for g, r in zip(gs, rs)])
     q, scale = quantize_int8(g32)
@@ -69,6 +78,13 @@ def compress_leaf(gs: list, rs: list):
         out.append(d.to(g.dtype))
         at += g.numel()
     return out, res
+
+
+def _like(t: torch.Tensor, x):
+    """``t``, the whole value every rank computed, placed as ``x`` is."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, x.device_mesh, x.placements,
+                             src_data_rank=None)
 
 
 def compress_grads(grads: dict, ef: EFState, leaves=None):
