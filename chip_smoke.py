@@ -289,6 +289,22 @@ with the counts set to 0 before and read after:
     2-3, DTensor's host dispatch included) beside the plain step's, and
     the peak memory.
 
+Then the dry-run (``# ---- 9za.``, ``dryrun_phase``): three
+subprocesses trace on PyTorch's fake process group with fake CUDA
+tensors (``repro_torch.launch.dryrun``), Qwen3-8B's train_4k,
+prefill_32k and decode_32k cells on 16 x 16 = 256 ranks and its train
+cell on 2 x 16 x 16 = 512 (``--no-cost``), each cell's roofline terms
+printed and written under ``chiprun_out/dryrun_torch/``, and
+qwen2-vl-2b's train step at (1, 1) and 4 x 2,048 tokens; meanwhile, with
+the counts set to 0 before and read after, it drives:
+
+  * one more qwen2-vl-2b train step at full width on the one-rank NCCL
+    (1, 1) mesh, untimed, under ``repro_torch.launch.roofline.Counter``:
+    its FLOPs, bytes moved, collective bytes, argument bytes and 28 K3
+    launches must equal the fake trace's; the counted FLOPs over 9z's
+    median step give the step's TFLOP/s and its share of the bf16 peak,
+    printed beside the card's name and power limit.
+
 The faulted MLP instantiation runs on no path (the reference runs MLP
 agents under faults in no figure); it is held against its plain version
 and reported with 0 launches.  Every SoC kernel must equal its plain
@@ -654,6 +670,170 @@ def mesh_phase(torch, np, card, vl, plain_row, lm_train, fa_ops,
           f"through local_map; {wall:.1f} s wall")
     if dist.is_initialized():
         dist.destroy_process_group()
+    return row
+
+
+# the dry-run phase (9za): Qwen3-8B's three cells on a 256-rank fake group
+# and its train cell traced on 512 ranks, each cell's terms printed; the
+# counted (1, 1) qwen2-vl-2b step against its fake trace
+DRYRUN_ARCH = "qwen3-8b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT = 300
+_DRYRUN_SINGLE = """
+import sys
+from repro_torch.launch import dryrun
+for shape in sys.argv[3:]:
+    dryrun.run_cell(sys.argv[1], shape, report_dir=sys.argv[2])
+"""
+_DRYRUN_1X1 = """
+import json, sys
+from repro_torch.configs import get_arch
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+spec = ShapeSpec("qwen2vl_1x1", "train", int(sys.argv[2]), int(sys.argv[3]))
+step, args, *_ = dryrun.lower_cell(None, None, cfg=get_arch(sys.argv[1]),
+                                   spec=spec, mesh_shape=(1, 1))
+c = dryrun.count_step(step, args)
+print(json.dumps(dict(flops=c.flops, bytes=c.bytes, coll=c.coll,
+                      kernels=dict(c.kernels), by_op=c.by_op,
+                      peak_bytes=c.peak_bytes,
+                      arg_bytes=dryrun.argument_bytes(args),
+                      device_type=dryrun.device_type())))
+"""
+
+
+def dryrun_phase(torch, card, vl, step_s, reset_counts, read, counts,
+                 fa_ops) -> dict:
+    """Section 9za: the dry-run's cells in subprocesses (one fake world a
+    process: 256 ranks, 512, and one for the (1, 1) cell), meanwhile one
+    more qwen2-vl-2b step at full width on the card's one-rank (1, 1)
+    mesh under the roofline counter, untimed; its FLOPs, bytes and kernel
+    launches must equal the fake trace of the same cell.  ``step_s`` is
+    9z's median step; the counted FLOPs over it give the step's rate."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.synthetic import DataConfig, host_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as lm_steps
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    py = sys.executable
+    cmds = {
+        "single": [py, "-c", _DRYRUN_SINGLE, DRYRUN_ARCH, str(out_dir),
+                   *DRYRUN_SHAPES],
+        "multi": [py, "-m", "repro_torch.launch.dryrun", "--arch",
+                  DRYRUN_ARCH, "--shape", DRYRUN_SHAPES[0], "--mesh",
+                  "multi", "--no-cost", "--report-dir", str(out_dir)],
+        "1x1": [py, "-c", _DRYRUN_1X1, vl.name, str(VL_SEQ),
+                str(QWEN_BATCH)]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    try:
+        # the same cell on the card, while the CPUs trace
+        spec = ShapeSpec("qwen2vl_1x1", "train", VL_SEQ, QWEN_BATCH)
+        torch.cuda.empty_cache()
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        state_sh, batch_sh = lm_steps.train_shardings(vl, mesh, spec)
+        state = lm_steps.place_state(
+            lm_steps.make_train_state(vl, 0, "cuda"), state_sh)
+        want = lm_steps.input_specs(vl, spec)
+        host = host_batch(vl, DataConfig(VL_SEQ, QWEN_BATCH), 0)
+        if sorted(host) != sorted(want):
+            fail(f"dry-run phase: batch keys {sorted(host)} != "
+                 f"{sorted(want)}")
+        batch = shd.place({k: torch.from_numpy(host[k]).to(want[k].dtype)
+                           for k in want}, batch_sh)
+        step = lm_steps.make_train_step(vl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        counter = roofline.Counter()
+        with counter:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts["qwen2vl_train_counted_1x1"] = read()
+        card_peak = torch.cuda.max_memory_allocated() - base
+        real = dict(flops=counter.flops, bytes=counter.bytes,
+                    coll=counter.coll, kernels=dict(counter.kernels),
+                    peak_bytes=counter.peak_bytes,
+                    arg_bytes=dryrun.argument_bytes((state, batch)),
+                    loss=float(metrics["loss"]))
+        del state, batch, metrics
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        res = {}
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT)
+            res[k] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for k, (rc, stdout, stderr) in res.items():
+        (out_dir.parent / f"dryrun_{k}.log").write_text(stdout + stderr)
+    bad = {k: r for k, r in res.items() if r[0] != 0}
+    if bad:
+        fail("; ".join(f"dry-run {k} exited {rc}: {stderr[-1500:]}"
+                       for k, (rc, _, stderr) in bad.items()))
+    for line in res["single"][1].splitlines() + res["multi"][1].splitlines():
+        if line.startswith(("---", "T_comp")):
+            print(f"dryrun {line}")
+    cells = {}
+    for shape in DRYRUN_SHAPES:
+        for mesh_name in ("pod16x16", "pod2x16x16"):
+            path = out_dir / f"{DRYRUN_ARCH}__{shape}__{mesh_name}.json"
+            if path.exists():
+                cells[f"{shape}|{mesh_name}"] = json.loads(path.read_text())
+    single = [cells.get(f"{s}|pod16x16") for s in DRYRUN_SHAPES]
+    multi = cells.get(f"{DRYRUN_SHAPES[0]}|pod2x16x16")
+    if (None in single or multi is None
+            or not all(c["hlo_flops"] > 0 for c in single + [multi])
+            or single[0]["coll_bytes"] <= 0 or multi["coll_bytes"] <= 0
+            or any(c["device_type"] != "cuda" for c in single + [multi])):
+        fail(f"dry-run cells: {sorted(cells)}: {single} {multi}")
+    fake = json.loads(res["1x1"][1].strip().splitlines()[-1])
+    same = all(real[k] == fake[k] for k in ("flops", "bytes", "coll",
+                                            "kernels", "arg_bytes"))
+    if not same or fake["device_type"] != "cuda":
+        (out_dir.parent / "dryrun_1x1_by_op.json").write_text(json.dumps(
+            {"card": counter.by_op, "fake": fake["by_op"]}, indent=1))
+        fail(f"dry-run (1, 1): the card's count {real} differs from the "
+             f"fake trace's {({k: v for k, v in fake.items() if k != 'by_op'})}"
+             " (by op: chiprun_out/dryrun_1x1_by_op.json)")
+    k3 = KERNELS.index("flash_attention")
+    if counts["qwen2vl_train_counted_1x1"] != launches(
+            flash_attention=vl.n_layers) or fake["kernels"] != {
+            "flash_attention": vl.n_layers}:
+        fail(f"dry-run (1, 1): K3 launched "
+             f"{counts['qwen2vl_train_counted_1x1'][k3]} times on the card,"
+             f" the trace counted {fake['kernels']}; expected "
+             f"{vl.n_layers}")
+    tflops = real["flops"] / step_s / 1e12
+    row = dict(cells=cells, counted_1x1=real, fake_1x1={
+        k: v for k, v in fake.items() if k != "by_op"},
+        step_s=step_s, achieved_tflops=tflops,
+        peak_share=tflops * 1e12 / roofline.PEAK_FLOPS,
+        card_peak_bytes=card_peak, wall_s=wall, card=card)
+    print(f"dry-run (1, 1) {vl.name} train step (B={QWEN_BATCH}, seq "
+          f"{VL_SEQ}) on {card}: the card counted {real['flops']:,} FLOPs, "
+          f"{real['bytes']:,} bytes, K3 {real['kernels']} launches, equal "
+          f"to the fake trace's on {fake['device_type']} tensors; "
+          f"{tflops:.2f} TFLOP/s over 9z's median step {step_s:.4f} s = "
+          f"{row['peak_share'] * 100:.2f}% of {roofline.PEAK_FLOPS / 1e12:g}"
+          f" TFLOP/s (card {card}); traced peak {real['peak_bytes'] / 2**30:.2f}"
+          f" GiB above the arguments' {real['arg_bytes'] / 2**30:.2f} GiB, "
+          f"card peak {card_peak / 2**30:.2f} GiB above what the script "
+          f"held; phase {wall:.1f} s")
     return row
 
 
@@ -3819,6 +3999,15 @@ def main() -> None:
     (ROOT / "chiprun_out" / "mesh_port.json").write_text(json.dumps(
         {"card": card, **mesh_row}, indent=1))
     torch.cuda.empty_cache()
+
+    # ---- 9za. the dry-run: Qwen3-8B's cells traced on fake 256- and
+    # 512-rank groups, and one more qwen2-vl-2b (1, 1) step counted on the
+    # card against its fake trace ------------------------------------------
+    dry_row = dryrun_phase(torch, card, vl, mesh_row["step_s"],
+                           reset_counts, read, counts, fa_ops)
+    train_s["qwen2vl_train_counted_1x1"] = dry_row["wall_s"]
+    (ROOT / "chiprun_out" / "dryrun_port.json").write_text(json.dumps(
+        dry_row, indent=1))
 
     # ---- 10. times and bounds ---------------------------------------------
     def time_kernel(fn):

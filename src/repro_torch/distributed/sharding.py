@@ -188,22 +188,58 @@ def place(tree, shardings):
     return ckpt.rebuild(tree, iter(leaves))
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``want``, and its gradient too."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        return _placed_as(x, want).view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _placed_as(g, ctx.want), None
+
+
+def _placed_as(x, want):
+    return x if tuple(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
+
+
 def constrain(x, *, batch_dim: int = 0, head_dim: int | None = None):
     """``x`` redistributed to :func:`activation_spec`'s placements on the
-    active mesh (the reference's ``with_sharding_constraint``).  Outside
-    an :class:`activation_mesh`, on a mesh without both a data and a
-    model axis, or on a plain tensor, ``x`` itself."""
+    active mesh, and its gradient to the same placements in the backward
+    pass (the reference's ``with_sharding_constraint``, which constrains
+    the cotangent as well: without it a partial sum flows back through
+    the layers and DTensor may gather whole weights to meet it).
+    Outside an :class:`activation_mesh`, on a mesh of one rank or
+    without both a data and a model axis, or on a plain tensor, ``x``
+    itself."""
     mesh = active_mesh()
-    from torch.distributed.tensor import DTensor
-    if (mesh is None or not isinstance(x, DTensor)
+    if (mesh is None or mesh.size() == 1 or not is_dtensor(x)
             or not {"data", "model"} <= set(mesh.mesh_dim_names)):
         return x
     spec = activation_spec(mesh, x.shape, batch_dim=batch_dim,
                            head_dim=head_dim)
     want = placements(spec, mesh)
-    if tuple(x.placements) == want:
+    # an uneven split (heads padded over model) is left to the forward:
+    # DTensor's views refuse a gradient split so
+    if (not (torch.is_grad_enabled() and x.requires_grad)
+            or _fit_spec(spec, x.shape, mesh) != spec):
+        return _placed_as(x, want)
+    return _Constrain.apply(x, want)
+
+
+def whole_heads(x, n_heads: int):
+    """``x`` (B, S, n_heads * hd) as a view into heads can take it: under a
+    mesh whose model axis does not divide ``n_heads``, redistributed to
+    its batch split alone (a last dimension split over model would cut
+    heads, which DTensor's reshape refuses); else ``x`` itself."""
+    mesh = active_mesh()
+    if (mesh is None or not is_dtensor(x)
+            or n_heads % _mesh_axis_sizes(mesh).get("model", 1) == 0):
         return x
-    return x.redistribute(mesh, want)
+    return constrain(x, batch_dim=0)
 
 
 def _expand_pod(spec: tuple, mesh, batch_axes: bool = False) -> tuple:
@@ -407,6 +443,39 @@ def local_call(fn, args, in_placements, out_placements, mesh):
                      in_placements=tuple(in_placements),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def embedding_lookup(table, ids):
+    """``table[ids]`` on DTensors, each rank on its shards: its rows of
+    ``ids`` (the batch over (pod, data)) looked up in its slice of the
+    table's rows (the vocab over model, where the table is split so),
+    rows outside the slice zero, the slices' outputs summed over model
+    (a ``Partial`` the next constraint reduces).  DTensor's own indexing
+    rule lacks a working backward (the gradient's ``index_put``) in some
+    PyTorch releases; this one differentiates on local tensors."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = table.device_mesh
+    tp = tuple(table.placements)
+    model = list(mesh.mesh_dim_names).index("model")
+    split = tp[model].is_shard(0)
+    ip = kernel_placements(mesh, ids.shape, batch_dim=0)
+    op = tuple(Partial() if split and i == model else
+               (Replicate() if i == model else p)
+               for i, p in enumerate(sharded_like(ip, {0: 0})))
+    rows = table.shape[0] // mesh.size(model) if split else 0
+    first = mesh.get_local_rank(model) * rows if split else 0
+
+    def local(t, i):
+        if not split:
+            return t[i]
+        i = i - first
+        inside = (i >= 0) & (i < t.shape[0])
+        out = t[torch.where(inside, i, 0)]
+        return torch.where(inside[..., None], out, 0)
+
+    tp_in = tuple(Replicate() if i != model else p
+                  for i, p in enumerate(tp))
+    return local_call(local, (table, ids), (tp_in, ip), (op,), mesh)
 
 
 def sharded_like(pls: tuple, dims: dict) -> tuple:

@@ -8,7 +8,16 @@ CPU tensors take the plain PyTorch version
 is no fallback between them: a CUDA call that cannot launch raises.
 :data:`launches` counts the wrapper's launches (a split decode's two
 kernels are one) and :data:`body_launches` the same per body, so a run can
-show that it went through the kernels, and through which.  On a tensor
+show that it went through the kernels, and through which.
+
+The kernel is one registered operator, ``repro_torch::flash_attention``:
+its CUDA implementation launches the kernel (and alone counts), its CPU
+implementation is the plain version, its fake implementation gives the
+output's shape and type only (a dry-run's fake tensors build and launch
+nothing), and its FLOP formula (:func:`attention_flops`) counts the
+(query, key) pairs the mask keeps, so a counter
+(:mod:`repro_torch.launch.roofline`) reads one op with the same work on
+the CPU, under fake tensors and on the card.  On a tensor
 that needs a gradient the kernel's backward is autodiff of the plain
 version (:func:`~repro_torch.kernels.autograd.with_ref_grad`); a forward
 run again under activation checkpointing launches the kernel again, and
@@ -19,6 +28,7 @@ version, only ever sees a rank's local tensors.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.autograd import with_ref_grad
@@ -44,12 +54,64 @@ def _plain(q, k, v, **feat):
     return out.transpose(1, 2)
 
 
-def _launch(q, k, v, **feat):
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+        window: int, softcap: float) -> torch.Tensor:
     global launches
-    out, plan = _kernel.launch(q, k, v, **feat)
+    out, plan = _kernel.launch(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
     launches += 1
     body_launches[plan.body] += 1
     return out
+
+
+@_op.register_kernel("cpu")
+def _(q, k, v, causal, window, softcap):
+    # laid out as the kernel's and the fake output are (row-major, size-1
+    # dimensions too): the ops after it then copy alike wherever it runs
+    out = _plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    return torch.empty(out.shape, dtype=out.dtype).copy_(out)
+
+
+@_op.register_fake
+def _(q, k, v, causal, window, softcap):
+    return q.new_empty(q.shape)
+
+
+def key_pairs(sq: int, skv: int, causal: bool = True,
+              window: int = 0) -> int:
+    """The (query, key) pairs the mask keeps: query row ``i`` sits at key
+    position ``p = i + skv - sq`` and sees ``p + 1`` keys when causal
+    (``skv`` otherwise), at most ``window`` of them where ``window`` > 0."""
+    if not causal:
+        if window <= 0:
+            return sq * skv
+        # row i sees the keys after p - window
+        return sum(skv - max(0, i + skv - sq - window + 1)
+                   for i in range(sq))
+    first = skv - sq + 1                   # keys row 0 sees
+    if window <= 0 or window >= skv:
+        return sq * first + sq * (sq - 1) // 2
+    # rows below the window grow by one key a row, then stay at window
+    grow = max(0, min(sq, window - first + 1))
+    grown = grow * first + grow * (grow - 1) // 2
+    return grown + (sq - grow) * window
+
+
+def attention_flops(b: int, h: int, sq: int, skv: int, hd: int, *,
+                    causal: bool = True, window: int = 0) -> int:
+    """A multiply and an add per element of QK^T and of PV over the kept
+    pairs: ``4 hd`` operations a pair, a query head."""
+    return 4 * hd * b * h * key_pairs(sq, skv, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal=True, window=0, softcap=0.0,
+           out_shape=None, **kw) -> int:
+    b, sq, h, hd = q_shape
+    return attention_flops(b, h, sq, k_shape[1], hd, causal=causal,
+                           window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -59,10 +121,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     feat = dict(causal=causal, window=window, softcap=softcap)
     if shd.is_dtensor(q):
         return _on_shards(q, k, v, feat)
-    if q.device.type != "cuda":
-        return _plain(q, k, v, **feat)
-    return with_ref_grad(lambda *t: _launch(*t, **feat),
-                         lambda *t: _plain(*t, **feat), q, k, v)
+    return with_ref_grad(
+        lambda *t: _op(*t, bool(causal), int(window), float(softcap)),
+        lambda *t: _plain(*t, **feat), q, k, v)
 
 
 def _kv_heads(kv: torch.Tensor, first: int, n: int, group: int):

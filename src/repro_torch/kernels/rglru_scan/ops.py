@@ -12,10 +12,19 @@ backward is autodiff of the plain version
 (:func:`~repro_torch.kernels.autograd.with_ref_grad`).  On DTensors (a
 train step under a mesh) it runs on each rank's batch rows and
 channels.
+
+The kernel is one registered operator, ``repro_torch::rglru_scan``: its
+CUDA implementation launches the kernel (and alone counts), its CPU
+implementation is the plain version, its fake implementation gives the
+outputs' shapes and types only, and its FLOP formula counts an
+exponential, a multiply and an add per element.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.autograd import with_ref_grad
@@ -41,16 +50,36 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
         b = b.clone()
         b[:, 0] = b[:, 0] + torch.exp(log_a[:, 0]) * h0
     log_a, b = log_a.to(torch.float32), b.to(torch.float32)
-    if log_a.device.type != "cuda":
-        return _plain(log_a, b)
-    return with_ref_grad(_launch, _plain, log_a, b)
+    return with_ref_grad(_op, _plain, log_a, b)
 
 
-def _launch(log_a, b):
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(),
+                         device_types="cuda")
+def _op(log_a: torch.Tensor,
+        b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
     out = _kernel.rglru_scan(log_a, b)
     launches += 1
     return out
+
+
+@_op.register_kernel("cpu")
+def _(log_a, b):
+    # laid out as the kernel's and the fake outputs are
+    h, h_fin = _plain(log_a, b)
+    return torch.empty_like(log_a.contiguous()).copy_(h), h_fin
+
+
+@_op.register_fake
+def _(log_a, b):
+    return (torch.empty_like(log_a.contiguous()),
+            b.new_empty((b.shape[0], b.shape[2]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _flops(a_shape, b_shape, out_shape=None, **kw) -> int:
+    """An exponential, a multiply and an add per element."""
+    return 3 * math.prod(a_shape)
 
 
 def _plain(log_a, b):

@@ -155,14 +155,17 @@ def _whole(x):
     return x.full_tensor() if shd.is_dtensor(x) else x
 
 
-class _Loss(torch.nn.Module):
-    def __init__(self, cfg, params):
+class _Call(torch.nn.Module):
+    """``fn(params, *args)`` as a module holding ``params``, so that
+    ``functional_call`` can hand ``fn`` other tensors in their place."""
+
+    def __init__(self, fn, params):
         super().__init__()
-        self.cfg = cfg
+        self.fn = fn
         self.params = params
 
-    def forward(self, batch):
-        return transformer.loss_fn(self.cfg, self.params, batch)
+    def forward(self, *args):
+        return self.fn(self.params, *args)
 
 
 def gathered(p):
@@ -177,15 +180,21 @@ def gathered(p):
         p.device_mesh, want)
 
 
-def _loss(cfg, params, named, batch):
-    """``loss_fn``; under a mesh each parameter :func:`gathered` for the
-    forward (the module's own, sharded, stay the leaves the gradients are
-    taken for)."""
+def _gathered_call(fn, params, named, *args):
+    """``fn(params, *args)``; under a mesh with each parameter
+    :func:`gathered` for it (the module's own, sharded, stay the leaves
+    gradients are taken for)."""
     if shd.active_mesh() is None:
-        return transformer.loss_fn(cfg, params, batch)
+        return fn(params, *args)
     from torch.func import functional_call
     use = {"params." + k: gathered(p) for k, p in named.items()}
-    return functional_call(_Loss(cfg, params), use, (batch,))
+    return functional_call(_Call(fn, params), use, args)
+
+
+def _loss(cfg, params, named, batch):
+    """``loss_fn``, the parameters gathered under a mesh."""
+    return _gathered_call(
+        lambda p, b: transformer.loss_fn(cfg, p, b), params, named, batch)
 
 
 # ------------------------------------------------------------------ specs --
@@ -233,15 +242,79 @@ def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> list:
 
 # ------------------------------------------------------------------ steps --
 def make_prefill_step(cfg: ArchConfig, max_len: int | None = None):
+    """Returns ``prefill_step(params, batch) -> (cache, logits)``.  On
+    DTensor parameters (placed by :func:`serve_shardings`) the cache is
+    made on the mesh, each leaf zeroed as its rank's shard
+    (:func:`placed_cache`), the parameters are gathered as the training
+    forward gathers them, and the returned cache leaves are redistributed
+    to their cache shardings (the reference's ``out_shardings``)."""
     def prefill_step(params, batch):
-        return transformer.prefill(cfg, params, batch, max_len=max_len)
+        named = dict(params.named_parameters())
+        mesh = mesh_of(named)
+        if mesh is None:
+            return transformer.prefill(cfg, params, batch, max_len=max_len)
+        with _on_mesh(mesh):
+            tokens = batch["tokens"]
+            s = tokens.shape[-1]
+            cache = placed_cache(cfg, mesh, tokens.shape[0],
+                                 max(max_len or s, s, 1))
+            cache, logits = _gathered_call(
+                lambda p, b: transformer.prefill(cfg, p, b, cache=cache),
+                params, named, batch)
+            return settled_cache(cfg, mesh, cache), logits
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig):
+    """Returns ``decode_step(params, cache, batch, pos) -> (cache,
+    logits)``; on DTensors as :func:`make_prefill_step`'s, with the cache
+    passed in placed by :func:`serve_shardings`."""
     def decode_step(params, cache, batch, pos):
-        return transformer.decode_step(cfg, params, cache, batch, pos)
+        named = dict(params.named_parameters())
+        mesh = mesh_of(named)
+        if mesh is None:
+            return transformer.decode_step(cfg, params, cache, batch, pos)
+        with _on_mesh(mesh):
+            cache, logits = _gathered_call(
+                lambda p, c, b: transformer.decode_step(cfg, p, c, b, pos),
+                params, named, cache, batch)
+            return settled_cache(cfg, mesh, cache), logits
     return decode_step
+
+
+def _cache_placements(cfg: ArchConfig, mesh, cache: list) -> list:
+    """Each leaf's placements on ``mesh``, in ``ckpt.flatten`` order."""
+    return [shd.placements(sp, mesh)
+            for _, sp in shd.cache_shardings(mesh, cfg, cache)]
+
+
+def placed_cache(cfg: ArchConfig, mesh, batch: int, max_len: int) -> list:
+    """:func:`~repro_torch.models.transformer.init_cache`'s cache as
+    DTensors placed by the cache rules, each rank making only its shard:
+    zeros, and ones for an int8 entry's scales."""
+    import re
+    from torch.distributed.tensor import ones, zeros
+    from repro_torch.checkpoint import ckpt
+    meta = transformer.init_cache(cfg, batch, max_len, device="meta")
+    leaves = []
+    for (path, t), pls in zip(ckpt.flatten(meta),
+                              _cache_placements(cfg, mesh, meta)):
+        scale = re.search(r"\.[01]\.1$", path) and t.dtype == torch.float32
+        make = ones if scale else zeros
+        leaves.append(make(t.shape, dtype=t.dtype, device_mesh=mesh,
+                           placements=pls))
+    return ckpt.rebuild(meta, iter(leaves))
+
+
+def settled_cache(cfg: ArchConfig, mesh, cache: list) -> list:
+    """``cache`` with every DTensor leaf redistributed to its cache
+    placements (the attention caches, written in place, are already)."""
+    from repro_torch.checkpoint import ckpt
+    leaves = [t.redistribute(mesh, pls)
+              if shd.is_dtensor(t) and tuple(t.placements) != pls else t
+              for (_, t), pls in zip(ckpt.flatten(cache),
+                                     _cache_placements(cfg, mesh, cache))]
+    return ckpt.rebuild(cache, iter(leaves))
 
 
 # -------------------------------------------------------------- shardings --

@@ -157,9 +157,13 @@ def project_qkv(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
     hd = cfg.resolved_head_dim
     x = x.to(dt)
     b, s, _ = x.shape
-    q = (x @ p.wq.to(dt).flatten(1)).view(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk.to(dt).flatten(1)).view(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv.to(dt).flatten(1)).view(b, s, cfg.n_kv_heads, hd)
+    # under a mesh each projection's heads whole on a rank (no-ops on
+    # plain tensors)
+    proj = lambda w, n: shd.whole_heads(x @ w.to(dt).flatten(1), n).view(
+        b, s, n, hd)
+    q = proj(p.wq, cfg.n_heads)
+    k = proj(p.wk, cfg.n_kv_heads)
+    v = proj(p.wv, cfg.n_kv_heads)
     # under a mesh: the query heads over model, as the reference constrains
     # them (a no-op on plain tensors)
     q = shd.constrain(q, batch_dim=0, head_dim=2)
@@ -242,5 +246,6 @@ def attend(cfg: ArchConfig, p: AttnParams, x: torch.Tensor,
     out = fa_ops.flash_attention(q, keys, values, causal=True,
                                  window=window, softcap=cfg.attn_softcap)
     b = x.shape[0]
-    out = out.reshape(b, s, -1) @ p.wo.to(dt).flatten(0, 1)
+    out = shd.whole_heads(out.reshape(b, s, -1), cfg.n_heads)
+    out = out @ p.wo.to(dt).flatten(0, 1)
     return out, cache_kv

@@ -108,9 +108,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 @functools.lru_cache(maxsize=32)
 def _mrope_sections_on(sections: tuple, device: torch.device) -> torch.Tensor:
-    """The position stream (0 = t, 1 = h, 2 = w) of every rotary dim."""
-    return torch.repeat_interleave(torch.arange(len(sections)),
-                                   torch.tensor(sections)).to(device)
+    """The position stream (0 = t, 1 = h, 2 = w) of every rotary dim, made
+    on the host and copied once (as :func:`_rope_freqs_on`)."""
+    streams = np.repeat(np.arange(len(sections)), sections)
+    return torch.from_numpy(streams).to(device)
 
 
 def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,

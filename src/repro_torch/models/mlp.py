@@ -52,6 +52,9 @@ def mlp(cfg: ArchConfig, p: MLPParams, x: torch.Tensor) -> torch.Tensor:
     act = common.activation(cfg.act)
     x = x.to(dt)
     h = act(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
+    # under a mesh the hidden units over model, and their gradient (a
+    # no-op on plain tensors)
+    h = shd.constrain(h, batch_dim=0, head_dim=2)
     return h @ p.w_down.to(dt)
 
 

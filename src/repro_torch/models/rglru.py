@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.models import common
 
@@ -87,8 +88,10 @@ def causal_conv1d(u: torch.Tensor, conv_w: torch.Tensor,
 
 def _gates(p: RGLRUParams, u: torch.Tensor):
     """(log_a, gated input) of (B, S, W) u."""
-    r = torch.sigmoid(u @ p.wa + p.ba)
-    i = torch.sigmoid(u @ p.wx + p.bx)
+    # the gates' channels over model under a mesh, as ``u``'s
+    split = lambda t: shd.constrain(t, batch_dim=0, head_dim=2)
+    r = torch.sigmoid(split(u @ p.wa + p.ba))
+    i = torch.sigmoid(split(u @ p.wx + p.bx))
     # jax.nn.softplus's form, logaddexp(lam, 0)
     softplus = torch.logaddexp(p.lam, torch.zeros_like(p.lam))
     log_a = -_C * r * softplus                        # (B, S, W), <= 0
@@ -124,11 +127,17 @@ def recurrent_block(cfg: ArchConfig, p: RGLRUParams, x: torch.Tensor,
             torch.zeros((b, cfg.conv1d_width - 1, w), dtype=u.dtype,
                         device=x.device))
     u, new_conv = causal_conv1d(u, p.conv_w, p.conv_b, prev)
+    # under a mesh the channels over model, and their gradient: DTensor
+    # otherwise splits the sequence over model, a split the gates' weight
+    # gradients cannot take on a 2 x 16 x 16 mesh (no-ops on plain
+    # tensors)
+    u = shd.constrain(u, batch_dim=0, head_dim=2)
     h0 = (state.h if state is not None else
           torch.zeros((b, w), dtype=torch.float32, device=x.device))
     step = rglru_step if s == 1 else rglru_scan
     y, h_fin = step(p, u, h0)
-    gate = F.gelu(x32 @ p.w_gate, approximate="tanh")
+    gate = shd.constrain(F.gelu(x32 @ p.w_gate, approximate="tanh"),
+                         batch_dim=0, head_dim=2)
     out = (y * gate) @ p.w_out
     new_state = (RGLRUState(conv=new_conv, h=h_fin) if state is not None
                  else None)

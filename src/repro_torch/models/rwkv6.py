@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 from repro_torch.models import common
 
@@ -114,7 +115,11 @@ def _mix(x: torch.Tensor, x_prev: torch.Tensor, p: TimeMixParams):
 def wkv_sequential(r, k, v, logw, u, s0):
     """The recurrence step by step (decode, and prompts the chunked form
     does not take).  r/k/v/logw: (B, H, T, K); u: (H, K); s0: (B, H, K,
-    V).  Returns (y (B, H, T, V), s_final)."""
+    V).  Returns (y (B, H, T, V), s_final).  On DTensors each rank steps
+    its own batch rows and heads, as the scan kernel does (DTensor has no
+    sharding of the per-step products for the state's placement)."""
+    if shd.is_dtensor(r):
+        return scan_ops.on_shards(wkv_sequential, r, k, v, logw, u, s0)
     s = s0
     ys = []
     for t in range(r.shape[2]):
@@ -138,10 +143,15 @@ def time_mix(cfg: ArchConfig, p: TimeMixParams, x: torch.Tensor,
     x32 = x.to(torch.float32)
     prev = (state.tm_shift.to(torch.float32) if state is not None
             else torch.zeros((b, d), dtype=torch.float32, device=x.device))
-    xr, xk, xv, xw, xg = _mix(x32, _token_shift(x32, prev), p)
+    # under a mesh each stream (and its gradient) split by batch alone:
+    # DTensor otherwise splits the LoRA's gradient along the sequence,
+    # which the weight gradient's product cannot take
+    xr, xk, xv, xw, xg = (shd.constrain(t, batch_dim=0)
+                          for t in _mix(x32, _token_shift(x32, prev), p))
 
     # (B, S, H, hd) seen as (B, H, S, hd): the scan reads them in place
-    heads = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
+    heads = lambda t: shd.whole_heads(t, h).reshape(b, s, h, hd).transpose(
+        1, 2)
     r, k, v = heads(xr @ p.wr), heads(xk @ p.wk), heads(xv @ p.wv)
     g = F.silu(xg @ p.wg)
     ww = p.w_base + torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b
@@ -161,7 +171,7 @@ def time_mix(cfg: ArchConfig, p: TimeMixParams, x: torch.Tensor,
     mean = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(b, s, d) * (1.0 + p.ln_w)
+    y = shd.whole_heads(y.reshape(b, s, d), h) * (1.0 + p.ln_w)
     out = (y * g) @ p.wo
     new_state = None
     if state is not None:

@@ -56,6 +56,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention, common, mlp, rglru, rwkv6
 
 
@@ -299,10 +300,10 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "rwkv":
         out, state = rwkv6.time_mix(cfg, p.tm, h, cache)
-        x = x + post(out, p.post_ln1)
+        x = residual(x + post(residual(out), p.post_ln1))
         h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
         out2, state = rwkv6.channel_mix(cfg, p.cm, h2, state)
-        return x + out2, state
+        return residual(x + residual(out2)), state
     if kind == "rg":
         out, cache = rglru.recurrent_block(cfg, p.rg, h, cache)
     else:
@@ -310,7 +311,7 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                                       layer_window=layer_window(cfg, kind),
                                       cache_kv=cache, cache_pos=cache_pos,
                                       mrope_positions=mrope_positions)
-    x = x + post(out, p.post_ln1)
+    x = residual(x + post(residual(out), p.post_ln1))
     h2 = common.rms_norm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
         out2, moe_aux = mlp.moe(cfg, p.moe, h2)
@@ -320,7 +321,17 @@ def apply_layer(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
             out2 = out2 + mlp.mlp(cfg, p.mlp, h2)
     else:
         out2 = mlp.mlp(cfg, p.mlp, h2)
-    return x + post(out2, p.post_ln2), cache
+    return residual(x + post(residual(out2), p.post_ln2)), cache
+
+
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream, and each branch's output before it joins it,
+    as every layer takes it: under a mesh its batch over (pod, data) and
+    the rest replicated over model (the tensor-parallel layout: each
+    layer's products split over model and their partial sums reduced
+    here, and so their gradients in the backward pass); on a plain tensor
+    ``x`` itself."""
+    return shd.constrain(x, batch_dim=0)
 
 
 def embed_tokens(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
@@ -337,12 +348,14 @@ def embed_tokens(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
     ``0 .. S - 1``) added where ``cfg.pos_emb`` is ``"sinusoidal"``."""
     dt = common.dtype_of(cfg.compute_dtype)
     tokens = tokens.long()
+    look = lambda table, ids: (shd.embedding_lookup(table, ids)
+                               if shd.is_dtensor(table) else table[ids])
     if cfg.n_codebooks:
-        h = params.embed[0][tokens[:, 0]]
+        h = look(params.embed[0], tokens[:, 0])
         for k in range(1, cfg.n_codebooks):
-            h = h + params.embed[k][tokens[:, k]]
+            h = h + look(params.embed[k], tokens[:, k])
     else:
-        h = params.embed[tokens]
+        h = look(params.embed, tokens)
     h = h.to(dt)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
@@ -353,7 +366,7 @@ def embed_tokens(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
         if positions is None:
             positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h = h + common.sinusoidal_pos_emb(positions, cfg.d_model).to(dt)
-    return h
+    return residual(h)
 
 
 def lm_logits(cfg: ArchConfig, params: Transformer,
@@ -364,7 +377,12 @@ def lm_logits(cfg: ArchConfig, params: Transformer,
     dt = h.dtype
     h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
     head = params.lm_head if params.lm_head is not None else params.embed.T
-    if cfg.n_codebooks:
+    if cfg.n_codebooks and shd.is_dtensor(h):
+        # one product a codebook: DTensor's einsum folds the codebooks
+        # into a vocab split over model, a placement no product takes
+        logits = torch.stack([h @ head[k].to(dt)
+                              for k in range(cfg.n_codebooks)], dim=1)
+    elif cfg.n_codebooks:
         logits = torch.einsum("bsd,kdv->bksv", h, head.to(dt))
     else:
         logits = h @ head.to(dt)
@@ -504,7 +522,7 @@ def _run_layers(cfg, params, h, positions, cache, pos, mrope=None):
 
 
 def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
-            max_len: int | None = None):
+            max_len: int | None = None, cache: list | None = None):
     """Forward over the prompt ``batch["tokens"]`` (B, S) (or (B, K, S)
     with K audio codebooks); returns ``(cache, logits)`` with a cache of
     capacity ``max(max_len, S)`` (a local layer's ring ``min`` of that and
@@ -512,7 +530,9 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
     cache quantized), the recurrent layers' states after the prompt, and
     the last token's logits (B, 1, V) (or (B, K, 1, V)).  A VLM's batch
     also carries ``vision_embeds`` and ``mrope_positions`` (3, B, S), as
-    the reference's.
+    the reference's.  ``cache``, where given, is a fresh
+    :func:`init_cache` of that capacity made elsewhere (a mesh's, its
+    leaves placed), filled in its place.
 
     Each layer computes its K/V once, writes them to the cache and
     attends to them as computed (the reference computes them twice, for
@@ -523,7 +543,8 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: dict,
     h = embed_tokens(cfg, params, tokens,
                      vision_embeds=batch.get("vision_embeds"))
     positions = torch.arange(s, device=h.device)[None, :]
-    cache = init_cache(cfg, b, max(max_len or s, s, 1), h.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max(max_len or s, s, 1), h.device)
     h, cache = _run_layers(cfg, params, h, positions, cache, 0,
                            batch.get("mrope_positions"))
     return cache, lm_logits(cfg, params, h[:, -1:, :])

@@ -54,7 +54,8 @@ def test_new_subpackages_are_covered():
     grouped expert-matmul and RG-LRU scan kernels) and LM training (the
     kernels' gradient wrapper, the optimizers, the prefetch pipeline, the
     fault helpers, the train step and launcher, the memory-mode
-    autotuner) are among the modules the import check above loads."""
+    autotuner), the distributed layer and the dry-run and roofline are
+    among the modules the import check above loads."""
     mods = _modules()
     for m in ("repro_torch.soc.faults", "repro_torch.checkpoint",
               "repro_torch.checkpoint.ckpt",
@@ -83,7 +84,9 @@ def test_new_subpackages_are_covered():
               "repro_torch.optim.compress", "repro_torch.optim.schedule",
               "repro_torch.data.pipeline",
               "repro_torch.distributed.fault", "repro_torch.launch.steps",
-              "repro_torch.launch.train", "repro_torch.core.autotune"):
+              "repro_torch.launch.train", "repro_torch.core.autotune",
+              "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+              "repro_torch.launch.roofline", "repro_torch.launch.dryrun"):
         assert m in mods, m
 
 
@@ -102,6 +105,7 @@ def test_chip_smoke_and_port_drivers_load_no_jax():
         "import chip_smoke\n"
         "from benchmarks import torch_fig9_socs, torch_fig11_serving\n"
         "from benchmarks import torch_vecenv_throughput, torch_overhead\n"
+        "from benchmarks import torch_roofline_table\n"
         "from benchmarks import torch_fig10_faults as f10\n"
         "from benchmarks import torch_fig12_dse as f12\n"
         "from benchmarks import torch_fig13_generalize as f13\n"
