@@ -65,6 +65,56 @@ def _traffic(mod, rate: float, deadline: float, backoff: float,
                       device=device)
 
 
+def load_traffic(mult: float, cap: dict, device=None):
+    """The figure's traffic at ``mult`` x the capacity that :func:`run_port`
+    calibrated (its ``_capacity``): the deadline a full queue's service,
+    the backoff a quarter of one."""
+    from repro_torch.soc import traffic
+    svc = cap["effective_service_cycles"]
+    return _traffic(traffic, mult * cap["capacity_per_mcycle"] * 1e-6,
+                    QUEUE_CAP * svc, 0.25 * svc, device=device)
+
+
+def mlp_serving_policies(env, eval_app, n_requests: int = N_REQUESTS,
+                         iters: int = ITERS, n_phases: int = N_PHASES):
+    """The MLP serving path's four policies on ``env``'s SoC: a Q-table
+    trained as the figure trains it (K1) and a (14, 16, 16, 4) sense
+    network (Fig. 13's MLPConfig) trained through K1m for as many
+    iterations, stacked as the learning network, its frozen copy, the
+    Q-table and fixed NON_COH (the last two with placeholder networks).
+    Returns ``(net, specs, cfg)``: the trained network, the stacked specs
+    on ``eval_app``'s schedule and the serving QConfig (its decay runs
+    ``2 * n_requests`` past the network's training steps)."""
+    from repro_torch import random as prng
+    from repro_torch.core import qlearn, rewards
+    from repro_torch.soc import apps, nn as socnn, vecenv
+
+    dev = env.device
+    train_app = apps.make_application(env.soc, seed=0, n_phases=n_phases)
+    t_apps = [vecenv.compile_app(train_app, env.soc, seed=it)
+              for it in range(iters)]
+    cfg_t = qlearn.QConfig(decay_steps=t_apps[0].n_steps * iters,
+                           collapse_frac=0.25)
+    qs_t, _ = env.train_batched(
+        t_apps, cfg_t, rewards.stack_weights([rewards.PAPER_DEFAULT_WEIGHTS]),
+        prng.PRNGKey(np.arange(1)), eval_app=eval_app)
+    net = socnn.init_mlp_qstate(prng.PRNGKey(11, device=dev))
+    for it, ta in enumerate(t_apps):
+        (_, net), _ = env.episode_spec(
+            ta, vecenv.mlp_policy_spec(net, env._sched(ta)), cfg=cfg_t,
+            key=prng.PRNGKey(100 + it, device=dev))
+    sched = env._sched(eval_app)
+    specs = vecenv.stack_specs([
+        vecenv.mlp_policy_spec(net, sched),
+        vecenv.mlp_policy_spec(socnn.freeze(net), sched),
+        vecenv.attach_placeholder_mlp(vecenv.learned_policy_spec(qs_t,
+                                                                 sched)),
+        vecenv.attach_placeholder_mlp(vecenv.fixed_policy_spec(
+            env.params, sched, 0))])
+    cfg = qlearn.QConfig(decay_steps=int(net.step[0]) + 2 * n_requests)
+    return net, specs, cfg
+
+
 def policy_metrics(res, i, t_span, queue_cap, backoff) -> dict:
     """Row ``i`` of a serve_specs batch (numpy leaves), as the reference
     computes it: throughput counts requests finishing inside the arrival

@@ -5,6 +5,8 @@ cycles, and what the operations on its dependent chain cost, on the card.
         [--tree DIR] [--mlp] [--latency] [--vs DIR2]
     PYTHONPATH=src:. python -m benchmarks.torch_soc_step_phases \
         --serve [--tree DIR ...]
+    PYTHONPATH=src:. python -m benchmarks.torch_soc_step_phases \
+        --serve --mlp [--tree DIR] [--vs DIR2]
 
 Builds ``DIR/src/repro_torch/kernels/soc_step/csrc/soc_step.cu`` (default:
 this checkout's) with ``-DSOC_STEP_PHASES``, which turns on the source's
@@ -39,6 +41,22 @@ before its redesign) gets them at the anchors of
 :data:`PARENT_SERVE_STAMPS`.  It prints the cycles a request of row
 staging, admission, the fused step (``step_warp``, by its own phases)
 and the bookkeeping with the trace stores.  Needs a CUDA card.
+
+``--serve --mlp`` splits a request of K2m instead, on the learning
+network's stream at Fig. 11's 0.2x load (the watchdog never trips, so
+the network runs on every admitted request): it builds the MLP serving
+path's four policies as ``chip_smoke.py`` does (a Q-table trained as Fig.
+11 trains it, a (14, 16, 16, 4) sense network trained through K1m for as
+many iterations, the frozen copy, the table and NON_COH with
+placeholders), records the 0.2x launch (B = 4, 1,024 requests) and runs
+the learning stream alone (B = 1) through each tree's stamped kernel.  A
+one-warp body (before the network warp) gets :data:`PARENT_MLP_STAMPS`
+(room for 20 counters, a stamp between the features and the forward);
+the two-warp body stamps each warp's phases itself.  It prints each
+warp's split (admission, the step side, features, forward, selection and
+pick, TD update, the handoff waits) and, with ``--vs DIR``, times DIR's
+and the tree's kernels on the whole B = 4 launch in turns (DIR, tree,
+tree, DIR) after checking their outputs bitwise equal.
 """
 from __future__ import annotations
 
@@ -156,6 +174,40 @@ PARENT_SERVE_STAMPS = [
     ("  for (int i = lane; i < nq; i += 32) q_out[(size_t)b * nq + i] = "
      "q[i];\n", None),
 ]
+# a one-warp MLP serve body (before the network warp): room for 20
+# counters and a stamp between the features and the forward
+PARENT_MLP_STAMPS = [
+    ("constexpr int N_PH = 12;", "constexpr int N_PH = 20;"),
+    ("      __syncwarp();\n      mlp_forward_warp(m, lane);\n",
+     "      PH(12);\n      __syncwarp();\n      mlp_forward_warp(m, lane);\n"),
+]
+N_PH_MAX = 20
+# each body's K2m split, by warp: (name, counters)
+MLP_SPLIT_ONE_WARP = {"one warp": (
+    ("row staging + y flush", (0,)), ("admission", (11,)),
+    ("step side (step_pre)", (1, 2, 3, 4, 5)),
+    ("Q-row read + features (lane 0)", (12,)), ("forward", (6,)),
+    ("selection and pick", (7,)), ("writes", (8,)),
+    ("TD update", (9,)), ("bookkeeping + trace row", (10,)))}
+MLP_SPLIT_TWO_WARPS = {
+    "step warp": (
+        ("row staging + y flush", (0,)), ("admission", (11,)),
+        ("step side (step_pre)", (1, 2, 3, 4, 5)),
+        ("handoff: wait for the network warp to take the inputs "
+         "(its TD update of the request before)", (6,)),
+        ("handoff: wait for the Q-row (features + forward)", (18,)),
+        ("selection and pick", (7,)), ("writes", (8,)),
+        ("handoff: publish the action and reward", (9,)),
+        ("bookkeeping + trace row", (10,))),
+    "network warp": (
+        ("handoff: wait for the row (the step warp's admission)", (12,)),
+        ("row features (lanes 0-2, 10-13: the logs, four divisions)",
+         (17,)),
+        ("handoff: wait for the step's inputs (the step side)", (19,)),
+        ("step features (lanes 3-9)", (13,)),
+        ("forward", (14,)),
+        ("handoff: wait for the action (selection and pick)", (15,)),
+        ("TD update", (16,)))}
 SERVE_GROUPS = (("row staging", (0,)), ("admission", (11,)),
                 ("step_warp", tuple(range(1, 10))),
                 ("bookkeeping + trace stores", (10,)))
@@ -213,6 +265,133 @@ def stamped_serve_source(tree: Path) -> Path:
     return out
 
 
+def stamped_mlp_serve_source(tree: Path, i: int) -> tuple[Path, dict]:
+    """``tree``'s source with K2m's stamps on, and its split by warp
+    (``i`` names the scratch copy)."""
+    source = stamped_serve_source(tree)
+    text = source.read_text()
+    if "PH(13)" in text:
+        return source, MLP_SPLIT_TWO_WARPS
+    for anchor, repl in PARENT_MLP_STAMPS:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"anchor not found once in {source}: "
+                             f"{anchor!r}")
+        text = text.replace(anchor, repl)
+    out = (nvcc.BUILD_ROOT / f"soc_step_mlp_serve_phases_src_{i}"
+           / "soc_step.cu")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out, MLP_SPLIT_ONE_WARP
+
+
+def fig11_mlp_serve_launch(dev, mult: float = 0.2):
+    """The arguments of the MLP serving path's launch at ``mult`` x Fig.
+    11's capacity (B = 4: the learning network, its frozen copy, a
+    Q-table and NON_COH, 1,024 requests), built as ``chip_smoke.py``'s
+    phase 9r builds them (``torch_fig11_serving.mlp_serving_policies``
+    and ``load_traffic``, on the capacity ``run_port`` calibrates)."""
+    from benchmarks import torch_fig11_serving as fig11
+    from repro_torch.kernels.soc_step import kernel as this_kernel
+    from repro_torch.soc.config import SOCS
+    cap = fig11.run_port(dev)["_capacity"]
+    soc = SOCS[fig11.SOC_NAME]
+    env = vec.VecEnv(soc, seed=1, device=dev)
+    app = vec.compile_app(apps.make_application(soc, seed=50,
+                                                n_phases=fig11.N_PHASES),
+                          soc, seed=4)
+    n_req = fig11.N_REQUESTS
+    _, specs, cfg = fig11.mlp_serving_policies(env, app, n_req)
+    seen = []
+    inner = this_kernel.soc_step_serve
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return inner(*args, **kw)
+
+    this_kernel.soc_step_serve = record
+    try:
+        vec.ServeEnv(env, queue_cap=fig11.QUEUE_CAP, n_requests=n_req
+                     ).serve_specs(app, specs,
+                                   fig11.load_traffic(mult, cap, device=dev),
+                                   cfg=cfg)
+    finally:
+        this_kernel.soc_step_serve = inner
+    return seen[-1]
+
+
+def serve_mlp_phases(trees, reps: int = 5) -> list:
+    """Cycles a request of each tree's K2m on the learning network's
+    stream at Fig. 11's 0.2x load, by warp and phase; with two trees,
+    both kernels timed on the whole B = 4 launch in turns."""
+    from repro_torch.kernels.soc_step import kernel as this_kernel
+    args, kw = fig11_mlp_serve_launch(torch.device("cuda"))
+    one = lambda t: t[:1].contiguous()
+    args1 = (*(one(a) for a in args[:4]), args[4].map(one))
+    s = args[0].shape[1]
+    out = []
+    for i, tree in enumerate(trees):
+        source, split = stamped_mlp_serve_source(tree, i)
+        lib_path = nvcc.build(source, f"soc_step_mlp_serve_phases_{i}",
+                              this_kernel.NVCC_FLAGS + ("-DSOC_STEP_PHASES",))
+        mod = load_kernel_module(tree, lib_path)
+        lib = mod._load()
+        lib.soc_step_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_ulonglong * N_PH_MAX)()
+        mod.soc_step_serve(*args1, **kw)
+        torch.cuda.synchronize()
+        lib.soc_step_phase_cycles(buf, 1)
+        _, y = mod.soc_step_serve(*args1, **kw)
+        torch.cuda.synchronize()
+        if lib.soc_step_phase_cycles(buf, 1) != 0:
+            raise SystemExit("reading the phase counters failed")
+        per_req = [v / s for v in buf]
+        served = int(y[0, :, 6].sum())
+        row = {"tree": str(tree), "S": s, "served": served,
+               "card": card_line(), "warps": {}}
+        print(f"K2m phases, {tree}: the learning network's stream (B=1, "
+              f"S={s}, {served} admitted, Fig. 11's 0.2x load) on "
+              f"{row['card']}:")
+        for warp, phases_ in split.items():
+            split_w = {n: sum(per_req[k] for k in ks) for n, ks in phases_}
+            total = sum(split_w.values())
+            row["warps"][warp] = {"phases": split_w, "total": total}
+            print(f"  {warp}:")
+            for n, c in split_w.items():
+                print(f"    {n:72s} {c:9.1f} cycles/request "
+                      f"({100 * c / total:5.1f}%)")
+            print(f"    {'total':72s} {total:9.1f} cycles/request")
+        out.append(row)
+    if len(trees) == 2:
+        mods = []
+        for i, tree in enumerate(trees):
+            spec = importlib.util.spec_from_file_location(
+                f"soc_step_kernel_mlp_plain_{i}", tree / REL_KERNEL)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mods.append(mod)
+        outs = [m.soc_step_serve(*args, **kw) for m in mods]
+        torch.cuda.synchronize()
+        flat = lambda o: [t for t in (*o[0], o[1]) if t is not None]
+        same = all(torch.equal(x, y)
+                   for x, y in zip(flat(outs[0]), flat(outs[1])))
+        times = {str(t): [] for t in trees}
+        for j in (0, 1, 1, 0):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            ev0.record()
+            for _ in range(reps):
+                mods[j].soc_step_serve(*args, **kw)
+            ev1.record()
+            torch.cuda.synchronize()
+            times[str(trees[j])].append(ev0.elapsed_time(ev1) / reps)
+        print(f"K2m at Fig. 11's 0.2x launch (B=4, S={s}) on {card_line()}, "
+              "ms a launch in turns: " + "; ".join(
+                  f"{t}: {v}" for t, v in times.items())
+              + f"; outputs bitwise equal: {same}")
+        out.append({"ms": times, "bitwise_equal": same})
+    return out
+
+
 def fig11_serve_launch(dev):
     """The arguments of Fig. 11's serve launch at 2x load (B = 4
     policies, 1,024 requests), recorded from one run of the path."""
@@ -249,7 +428,7 @@ def serve_phases(trees, reps: int = 5) -> list:
         mod = load_kernel_module(tree, lib_path)
         lib = mod._load()
         lib.soc_step_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        buf = (ctypes.c_ulonglong * 12)()
+        buf = (ctypes.c_ulonglong * N_PH_MAX)()
         mod.soc_step_serve(*args, **kw)
         torch.cuda.synchronize()
         lib.soc_step_phase_cycles(buf, 1)
@@ -356,7 +535,7 @@ def phases(tree: Path, mlp: bool) -> dict:
     args, kw = fig6_inputs(torch.device("cuda"), mlp)
     lib = mod._load()
     lib.soc_step_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    buf = (ctypes.c_ulonglong * 12)()
+    buf = (ctypes.c_ulonglong * N_PH_MAX)()
     mod.soc_step_episode(*args, **kw)
     torch.cuda.synchronize()
     lib.soc_step_phase_cycles(buf, 1)
@@ -473,6 +652,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     trees = [Path(t).resolve() for t in (a.tree or [str(ROOT)])]
+    if a.serve and a.mlp:
+        if a.vs:
+            trees = [Path(a.vs).resolve(), trees[0]]
+        res = {"serve_mlp": serve_mlp_phases(trees)}
+        if a.out:
+            Path(a.out).write_text(json.dumps(res, indent=1))
+        return
     if a.serve:
         res = {"serve": serve_phases(trees)}
         if a.out:

@@ -314,10 +314,17 @@ coverage_case``), at ring edges and with both MLP embeddings, and the
 serve kernel, healthy and faulted, on an edge grid (``coverage.
 serve_edge_case``: a full queue under a priority reserve, retries,
 deadline misses, a watchdog that trips and releases) in one launch and
-in three chained ones.  It times the episode kernel at each path's
-shapes, recorded as the paths launch it, beside its chain bound
-(``kernel.chain_cycles`` at the SM clock), and the serve kernel beside
-its own (``kernel.serve_chain_cycles``); with ``--parent DIR`` (a ``git
+in three chained ones, and so the MLP serve kernel (K2m, K2m-faulted:
+a step warp and a network warp a stream) on the MLP edge grid
+(``coverage.serve_mlp_edge_case``: a learning network, its frozen copy,
+a table and NON_COH beside placeholders, a +inf Q-value, the watchdog,
+at the sense network K2m keeps in registers, a one-hot and the widest
+network in shared memory), packs included.  It times the episode kernel
+at each path's shapes, recorded as the paths launch it, beside its chain
+bound (``kernel.chain_cycles`` at the SM clock), and the serve kernel
+beside its own (``kernel.serve_chain_cycles``; K2m's also as the
+one-warp body's count), K2 and K2m at Fig. 11's 0.2x and 2x loads and
+K2f and K2m-faulted under the storm; with ``--parent DIR`` (a ``git
 archive`` of another commit) it builds that commit's ``soc_step.cu`` and
 ``rwkv6_scan.cu`` too and times its episode, serve and scan kernels on
 the same arguments in turns (parent, this, this, parent), after checking
@@ -1644,7 +1651,7 @@ def main() -> None:
         return err, ev0.elapsed_time(ev1), ((xf, xi, xv, consts, carry0),
                                             kw)
 
-    sv_err, _, _ = serve_vs_plain(0.2, None)
+    sv_err, _, sv_light_packed = serve_vs_plain(0.2, None)
     err, sv_plain_ms, sv_packed = serve_vs_plain(2.0, None)
     sv_err = max(sv_err, err)
     svf_err, _, _ = serve_vs_plain(0.2, storm11)
@@ -1686,6 +1693,50 @@ def main() -> None:
                   f"{ry[..., col['executed']].sum(1).int().tolist()} of "
                   f"{n_}, stream 1 retries {hist}, watchdog steps "
                   f"{ry[3, :, col['degraded']].sum().int().item()}")
+
+    # the MLP edge grid (coverage.serve_mlp_edge_case): a learning network,
+    # its frozen copy, a table and NON_COH beside placeholders, a +inf
+    # Q-value, a watchdog that trips and releases, at the paths' sense
+    # network (K2m's register path), the one-hot and the widest networks
+    # (shared memory); one launch and three chained ones, bitwise, packs
+    # included
+    for net_ in coverage.SERVE_MLP_NETS:
+        for faulted_ in (False, True):
+            mc = coverage.serve_mlp_edge_case(net_, seed=3, faulted=faulted_,
+                                              device=dev)
+            c = mc.case
+            mkw = dict(qfun=mc.qfun, mlp_lr=mc.mlp.lr,
+                       mlp_dims=socnn.mlp_dims(mc.mlp.cfg),
+                       mlp_feats=mc.mlp.cfg.features)
+            rc, ry = soc_ref.serve_episode_ref(
+                c.static, c.learned, c.weights, c.sp, c.carry0, c.xs,
+                c.t_arr, c.deadline, c.priority, **mkw)
+            n_ = c.t_arr.shape[1]
+            what = (f"soc_step_serve_mlp{'_faulted' if faulted_ else ''} "
+                    f"edge grid ({net_} network {mkw['mlp_dims']})")
+            for cuts in ((0, n_), (0, n_ // 3, 2 * n_ // 3, n_)):
+                carry_, ys_ = c.carry0, []
+                for lo, hi in zip(cuts[:-1], cuts[1:]):
+                    sl = slice(lo, hi)
+                    carry_, y_ = soc_ops.fused_serve_episode(
+                        c.static, c.learned, c.weights, c.sp, carry_,
+                        soc_ref.StepInputs(*(None if v is None else v[:, sl]
+                                             for v in c.xs)),
+                        c.t_arr[:, sl], c.deadline[:, sl],
+                        c.priority[:, sl], qfun=mc.qfun, mlp=mc.mlp)
+                    ys_.append(y_)
+                if not (torch.equal(torch.cat(ys_, 1), ry)
+                        and same_carry(torch, carry_, rc)):
+                    fail(f"{what}, {len(cuts) - 1} launches: not bitwise "
+                         "equal to the plain version")
+            col = {nm: i for i, nm in enumerate(soc_ref.SERVE_YCOLS)}
+            print(f"{what}: {'; '.join(coverage.SERVE_MLP_EDGES)}; "
+                  f"{'registers' if soc_kernel.serve_net_in_registers(mkw['mlp_dims']) else 'shared memory'}; "
+                  f"bitwise equal in one launch and three chained, packs "
+                  f"included; served "
+                  f"{ry[..., col['executed']].sum(1).int().tolist()} of "
+                  f"{n_}, degraded "
+                  f"{ry[..., col['degraded']].sum(1).int().tolist()}")
 
     # ---- 8. Fig. 10 at full width -----------------------------------------
     rec_path[0] = "fig10"
@@ -3034,7 +3085,9 @@ def main() -> None:
         MLPConfig) trained through K1m for as many iterations; then four
         policies in one batch, the learning network, its frozen copy, the
         Q-table and fixed NON_COH (the last two with placeholder
-        networks), serve 1,024 requests at Fig. 11's five offered loads
+        networks; ``fig11.mlp_serving_policies``, which the phase split
+        of ``benchmarks/torch_soc_step_phases.py`` builds its launch
+        with too), serve 1,024 requests at Fig. 11's five offered loads
         (5 K2m launches) and under storm(1024, 0.7, PRNGKey(42)) at its
         capacity (1 K2m-faulted).  Returns (path seconds, the launches'
         recorded kernel arguments by label)."""
@@ -3059,38 +3112,13 @@ def main() -> None:
         reset_counts()
         t_m = time.perf_counter()
         iters = fig11.ITERS
-        train_app = apps.make_application(s1, seed=0,
-                                          n_phases=fig11.N_PHASES)
-        t_apps = [vec.compile_app(train_app, s1, seed=it)
-                  for it in range(iters)]
-        cfg_t = qlearn.QConfig(decay_steps=t_apps[0].n_steps * iters,
-                               collapse_frac=0.25)
-        qs_t, _ = env1.train_batched(
-            t_apps, cfg_t, rewards.stack_weights(
-                [rewards.PAPER_DEFAULT_WEIGHTS]),
-            prng.PRNGKey(np.arange(1)), eval_app=app1)
-        net = socnn.init_mlp_qstate(prng.PRNGKey(11, device=dev))
-        for it, ta in enumerate(t_apps):
-            (_, net), _ = env1.episode_spec(
-                ta, vec.mlp_policy_spec(net, env1._sched(ta)), cfg=cfg_t,
-                key=prng.PRNGKey(100 + it, device=dev))
-        trained = int(net.step[0])
-        cfg_s = qlearn.QConfig(decay_steps=trained + 2 * n_req)
-        mspecs = vec.stack_specs([
-            vec.mlp_policy_spec(net, sched1),
-            vec.mlp_policy_spec(socnn.freeze(net), sched1),
-            vec.attach_placeholder_mlp(vec.learned_policy_spec(qs_t,
-                                                               sched1)),
-            vec.attach_placeholder_mlp(vec.fixed_policy_spec(
-                env1.params, sched1, 0))])
+        net, mspecs, cfg_s = fig11.mlp_serving_policies(env1, app1, n_req)
         senv = vec.ServeEnv(env1, queue_cap=fig11.QUEUE_CAP,
                             n_requests=n_req)
         results = {}
         for mult in fig11.LOADS + ["storm"]:
-            tspec = fig11._traffic(
-                traffic, (1.0 if mult == "storm" else mult)
-                * cap["capacity_per_mcycle"] * 1e-6, fig11.QUEUE_CAP * svc,
-                0.25 * svc, device=dev)
+            tspec = fig11.load_traffic(1.0 if mult == "storm" else mult,
+                                       cap, device=dev)
             results[mult] = senv.serve_specs(
                 app1, mspecs, tspec, cfg=cfg_s,
                 faults=storm11 if mult == "storm" else None)
@@ -4089,8 +4117,7 @@ def main() -> None:
         run = lambda: soc_kernel.soc_step_serve(xf, xi, xv, consts, carry,
                                                 **kw)
         row = {"shape": shape}
-        # the parent's serve kernel may have no MLP instantiation
-        if parent_kernel is not None and carry.wpack is None:
+        if parent_kernel is not None:
             old_run = lambda: parent_kernel.soc_step_serve(
                 xf, xi, xv, consts, carry, **kw)
             (nc, ny), (oc, oy) = run(), old_run()
@@ -4111,6 +4138,14 @@ def main() -> None:
             ddr=kw.get("ddr_attribution", False), **mlp)
         chain = cyc * xf.shape[1] / (sm_clock_mhz() * 1e3)
         row.update(chain_cycles=cyc, chain_ms=chain)
+        if mlp:
+            # the one-warp body's count: the admission, then the step with
+            # its network, every piece in a row
+            row["chain_cycles_one_warp"] = soc_kernel.chain_cycles(
+                s1.n_accs, s1.n_mem_tiles, kw["n_actions"],
+                ddr=kw.get("ddr_attribution", False), **mlp) + sum(
+                    n * soc_kernel.LATENCY[k]
+                    for k, n in soc_kernel.ADMISSION.items())
         serve_rows[shape] = row
         nb, ns, nf = xf.shape
         carry_bytes = sum(4 * t.numel() for t in carry if t is not None)
@@ -4130,8 +4165,10 @@ def main() -> None:
         print(f"{shape} on {card}: kernel {ms:.4f} ms/launch, bound "
               f"{max(by, op):.6f} ms ({nbytes} bytes -> {by:.6f} ms; "
               f"{flops} f32 ops -> {op:.6f} ms), chain bound {chain:.4f} ms "
-              f"({ns} dependent requests of {cyc:.1f} cycles); "
-              f"{ms / ns * 1e3:.3f} us/request"
+              f"({ns} dependent requests of {cyc:.1f} cycles"
+              + (f"; {row['chain_cycles_one_warp']:.1f} in a row, the "
+                 "one-warp body's count" if mlp else "")
+              + f"); {ms / ns * 1e3:.3f} us/request"
               + (f"; parent body {row['parent_ms']:.4f} ms (turns parent/"
                  "this/this/parent " + "/".join(f"{x:.4f}"
                                                for x in row["turns"])
@@ -4156,6 +4193,9 @@ def main() -> None:
     mlp_light = serve_numbers(mlp_packed["0.2x"],
                               f"soc_step_serve_mlp B=4 S={n_req} at 0.2x "
                               "load (no watchdog)")
+    # K2 on the same load, so that the network's share is measured
+    sv_light = serve_numbers(sv_light_packed,
+                             f"soc_step_serve B=4 S={n_req} at 0.2x load")
     plain = [ep_plain_ms, sv_plain_ms, epf_plain_ms, svf_plain_ms,
              epm_plain_ms, epmf_plain_ms, mlp_plain["2x"],
              mlp_plain["storm"]]
@@ -4521,7 +4561,10 @@ def main() -> None:
     kernels["kernels"][SOC_KERNELS.index("soc_step_serve_mlp")].update(
         light_load_ms=mlp_light[0], light_load_chain_ms=mlp_light[4],
         light_load="0.2x Fig. 11's capacity: no watchdog, the network on "
-                   "every admitted request of its two streams")
+                   "every admitted request of its two streams",
+        light_load_k2_ms=sv_light[0])
+    kernels["kernels"][SOC_KERNELS.index("soc_step_serve")].update(
+        light_load_ms=sv_light[0], light_load_chain_ms=sv_light[4])
     j = KERNELS.index("flash_attention")
     bound_by = lambda n: "bytes" if n[4] >= n[5] else "operations"
     kernels["kernels"].append({

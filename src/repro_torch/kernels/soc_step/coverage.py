@@ -18,7 +18,10 @@ streams, each driving one edge of its admission and watchdog (a full
 queue under a priority reserve, every retry failing, deadline misses, an
 overload that trips the watchdog and releases it), which the kernel and
 :func:`~repro_torch.kernels.soc_step.ref.serve_episode_ref` must agree
-on bitwise.
+on bitwise.  :func:`serve_mlp_edge_case` gives the MLP serve kernel (K2m,
+K2m-faulted) five streams of networks and placeholders under a watchdog
+that trips and releases, one of them with a non-finite TD delta, at each
+network of :data:`SERVE_MLP_NETS`.
 """
 from __future__ import annotations
 
@@ -27,9 +30,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import random as prng
 from repro_torch.core import rewards
+from repro_torch.kernels.soc_step import kernel
 from repro_torch.kernels.soc_step.ref import (ServeCarry, ServeParams,
                                               StepInputs, init_serve_carry)
+from repro_torch.soc import nn as socnn
 from repro_torch.soc.config import SOC_MOTIV_PAR
 from repro_torch.soc.memsys import SoCStatic
 from repro_torch.soc.vecenv import VecEnv
@@ -183,3 +189,110 @@ def serve_edge_case(S: int = 96, *, queue_cap: int = 2, seed: int = 0,
                      weights=base.weights, sp=sp, carry0=carry0, xs=xs,
                      t_arr=num(t_arr), deadline=num(deadline),
                      priority=num(priority))
+
+
+# the five streams of serve_mlp_edge_case
+SERVE_MLP_EDGES = ("a learning network", "its frozen copy",
+                   "a Q-table beside a placeholder network",
+                   "NON_COH beside a placeholder network",
+                   "a learning network whose NON_COH value is +inf (a "
+                   "non-finite TD delta on every request it decides)")
+# the networks of serve_mlp_edge_case: the paths' (14, 16, 16, 4) sense
+# network (K2m keeps its columns in registers), a one-hot 243-input network
+# and the widest 4-layer sense network the serve kernel's shared memory
+# holds (both in shared memory)
+SERVE_MLP_NETS = ("sense", "onehot", "widest")
+
+
+class ServeMlpCase(NamedTuple):
+    case: ServeCase
+    qfun: torch.Tensor          # (B,) bool
+    mlp: socnn.MLPQState        # the B networks (wpack is carry0's)
+
+
+def widest_serve_hidden(S: int = 96, queue_cap: int = 2) -> int:
+    """The largest w for which a (14, w, w, w, 4) sense network fits the
+    serve kernel's shared memory at :func:`serve_mlp_edge_case`'s shapes,
+    faulted rows included."""
+    n_feat = VecEnv(SOC_MOTIV_PAR, seed=1, device="cpu").pmat.shape[1]
+    for w in range(kernel.MAX_WIDTH, 0, -1):
+        try:
+            kernel.serve_plan(2, n_feat, 4, 243, 12, queue_cap, S,
+                              faulted=True,
+                              mlp_dims=(socnn.N_SENSE_FEATURES, w, w, w, 4))
+            return w
+        except ValueError:
+            pass
+    raise ValueError("no sense network fits")
+
+
+def serve_mlp_edge_case(net: str = "sense", S: int = 96, *,
+                        queue_cap: int = 2, seed: int = 0,
+                        faulted: bool = False,
+                        device=None) -> ServeMlpCase:
+    """Five streams of ``S`` requests on ``SOC_MOTIV_PAR``
+    (:data:`SERVE_MLP_EDGES`), rows from :func:`coverage_case`, all facing
+    :func:`serve_edge_case`'s fourth arrival pattern (a burst, a calm
+    stretch, a second burst) with the watchdog at 0.2 and a fast pressure
+    EMA: shedding trips it, which gates every network off (NON_COH) and
+    rewinds the learning streams' decay, and the calm releases it.
+    ``net`` picks the network of :data:`SERVE_MLP_NETS`; the learning ones
+    start from ``init_mlp_qstate`` with their output weights perturbed
+    (so the Q-rows are not all ties), the placeholders are
+    ``frozen_mlp_qstate``'s, and stream 4's NON_COH bias is +inf: its
+    Q-row is never finite, so it takes NON_COH and its delta is +inf."""
+    if net not in SERVE_MLP_NETS:
+        raise ValueError(f"net must be one of {SERVE_MLP_NETS}")
+    b = len(SERVE_MLP_EDGES)
+    rng = np.random.default_rng(seed + 2)
+    f32 = np.float32
+    base = coverage_case(12, 2, S, b, seed=seed, faulted=faulted,
+                         device=device)
+    i = np.arange(S, dtype=f32)
+    t_arr = np.where(i < S // 3, 100.0 + 0.5 * i,
+                     np.where(i < 2 * S // 3, 1e9 * (i - S // 3 + 1),
+                              1e9 * (S // 3 + 1) + 0.5 * i)).astype(f32)
+    num = lambda v: torch.as_tensor(np.asarray(v, f32), device=device)
+    rows = lambda v: num(np.tile(np.asarray(v, f32), (b, 1)))
+    sp = ServeParams(
+        eps0=num([0.5] * b), alpha0=num([0.2] * b),
+        decay_steps=num([float(S)] * b), reopen_frac=num([0.5] * b),
+        frozen=num([0.0, 1.0, 0.0, 0.0, 0.0]), backoff=num([0.0] * b),
+        overload_frac=num([0.2] * b), pressure_beta=num([0.25] * b),
+        prio_reserve=num([0.0] * b))
+    pre_mode = base.xs.pre_mode.clone()
+    pre_mode[3] = 0
+    xs = base.xs._replace(
+        others=torch.zeros((b, S, 12), dtype=torch.bool, device=device),
+        pre_mode=pre_mode)
+    cfg = (socnn.MLPConfig() if net == "sense"
+           else socnn.MLPConfig(features="onehot") if net == "onehot"
+           else socnn.MLPConfig(hidden=(widest_serve_hidden(
+               S, queue_cap),) * 3))
+    dims = socnn.mlp_dims(cfg)
+    learner = socnn.init_mlp_qstate(prng.PRNGKey(seed + 11, device=device),
+                                    cfg).wpack[0]
+    off = sum(d + 1 for d in dims[:-2])   # the output layer's first row
+    learner[off:off + dims[-2], :dims[-1]] = torch.as_tensor(rng.normal(
+        0.0, 0.3, (dims[-2], dims[-1])).astype(f32), device=device)
+    holder = socnn.frozen_mlp_qstate(cfg, device=device).wpack[0]
+    stuck = learner.clone()
+    stuck[off + dims[-2], 0] = float("inf")
+    wpack = torch.stack([learner, learner, holder, holder, stuck])
+    qfun = torch.tensor([True, True, False, False, True], device=device)
+    mlp = socnn.MLPQState(
+        wpack=wpack,
+        lr=torch.where(qfun, torch.tensor(cfg.lr, device=device),
+                       torch.tensor(0.0, device=device)).to(torch.float32),
+        step=torch.zeros(b, dtype=torch.int32, device=device),
+        frozen=torch.tensor([False, True, True, True, False],
+                            device=device), cfg=cfg)
+    carry0 = init_serve_carry(base.qtable0, base.extrema0, 12, 2, queue_cap,
+                              torch.zeros(b, dtype=torch.int32,
+                                          device=device), wpack)
+    learned = torch.tensor([True, True, True, False, True], device=device)
+    case = ServeCase(static=base.static, learned=learned,
+                     weights=base.weights, sp=sp, carry0=carry0, xs=xs,
+                     t_arr=rows(t_arr), deadline=rows(np.full(S, 3e38)),
+                     priority=rows(np.ones(S)))
+    return ServeMlpCase(case=case, qfun=qfun, mlp=mlp)

@@ -45,12 +45,15 @@ MAX_RING = 32            # steps a ring chunk stages
 SMEM_LIMIT = 232448      # shared memory a block can use on an H100
 N_TBL_COLS, N_YCOLS, N_SUMS, N_MLP_SUMS = 6, 6, 4, 5
 WARP = 32
+N_PUB = 11               # a K2m request's words for the network warp
+NET_WORDS = 2 * N_PUB + 2  # two requests' (by parity), action and reward
 
 
 class Plan(NamedTuple):
-    """The episode kernel's launch: ``threads`` a block (one warp per
-    episode), ``ring`` steps staged a chunk (two chunks in flight) and the
-    block's ``smem_bytes``."""
+    """A kernel's launch: ``threads`` a block (one warp an episode or a
+    stream; two, a step warp and a network warp, a K2m stream), ``ring``
+    steps staged a chunk (two chunks in flight) and the block's
+    ``smem_bytes``."""
 
     threads: int
     ring: int
@@ -121,8 +124,9 @@ def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
     (``csrc/soc_step.cu::serve_words`` counts the same words): one warp a
     stream, a two-chunk ring of ``ring`` requests' xf, xi and xv rows
     (the largest of 32, S and what fits), the carry's tables and rings,
-    the step's scratch for ``n_accs`` slots and, with ``mlp_dims``, the
-    network.  Raises ValueError past the kernel's limits."""
+    the step's scratch for ``n_accs`` slots and, with ``mlp_dims`` (K2m),
+    the network and its handoff words, run by a second warp (64
+    threads).  Raises ValueError past the kernel's limits."""
     if not (1 <= n_accs <= MAX_T and 1 <= n_tiles <= MAX_TILES
             and n_actions == N_MODES and queue_cap >= 1):
         raise ValueError(f"n_accs={n_accs}, n_tiles={n_tiles}, n_actions="
@@ -136,7 +140,7 @@ def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
              + n_accs * (N_TBL_COLS + n_tiles) + n_accs + n_accs * queue_cap
              + N_SERVE_CONSTS + (2 if mlp else 0) + n_accs + N_YCOLS + n_accs
              + _scratch_words(n_accs, n_tiles, mlp)
-             + (_mlp_words(mlp_dims) if mlp else 0))
+             + (_mlp_words(mlp_dims) + NET_WORDS if mlp else 0))
     ring = max(1, min(MAX_RING, S))
     words = lambda r: (fixed + 2 * r * (nf + 5 + N_SERVE_V)
                        + r * len(SERVE_YCOLS))
@@ -145,7 +149,15 @@ def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
     if 4 * words(ring) > SMEM_LIMIT:
         raise ValueError(f"the stream needs {4 * words(ring)} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
-    return Plan(threads=WARP, ring=ring, smem_bytes=4 * words(ring))
+    return Plan(threads=2 * WARP if mlp else WARP, ring=ring,
+                smem_bytes=4 * words(ring))
+
+
+def serve_net_in_registers(mlp_dims) -> bool:
+    """Whether K2m's network warp keeps its copy of the pack in registers
+    (``csrc/soc_step.cu::sense_regs_fit``): the paths' (14, 16, 16, 4)
+    sense network; every other network runs from shared memory."""
+    return tuple(int(d) for d in mlp_dims) == (14, 16, 16, N_MODES)
 
 
 # Latency in cycles of the operations on a step's chain, measured on an
@@ -156,6 +168,53 @@ def serve_plan(n_tiles: int, n_feat: int, n_actions: int, n_states: int,
 # store and load across __syncwarp.
 LATENCY = dict(add=4.10, mul=4.03, div=25.38, log=132.75, tmin=17.22,
                smem=29.01, shfl=26.0, sync=33.0)
+
+
+def _ops(**kw) -> dict:
+    return {k: kw.get(k, 0) for k in LATENCY}
+
+
+def _add(*ds) -> dict:
+    return {k: sum(d[k] for d in ds) for k in LATENCY}
+
+
+def _cyc(d) -> float:
+    return sum(d[k] * LATENCY[k] for k in LATENCY)
+
+
+def _chain_parts(T: int, n_tiles: int, n_actions: int, ddr: bool,
+                 mlp_dims, mlp_feats: str) -> dict:
+    """The pieces of a step's chain, by kind (see :func:`chain_ops`)."""
+    nt, A = n_tiles, n_actions
+    ops = _ops
+    parts = dict(slots=ops(smem=1, add=nt - 1, tmin=1, div=1, mul=1, sync=1),
+                 sums=ops(add=T - 1, sync=1))
+    timing = ops(add=8, mul=4, div=3, tmin=6)
+    if ddr:
+        attrib = ops(add=1 + (T - 1) + 1 + (nt - 1), shfl=1, div=2, mul=2,
+                     sync=2)
+        reward = ops(div=2, tmin=2, add=4, mul=1)
+        parts["path_a"] = _add(timing, attrib, reward)
+    else:
+        parts["path_a"] = _add(timing, ops(tmin=2, div=2, add=3, mul=1))
+    parts["observe"] = ops(smem=2, add=nt - 1 + 2, div=1)
+    parts["select"] = ops(smem=1, tmin=A - 1, add=2 + A)
+    parts["pick"] = ops(shfl=1, mul=1, add=1, sync=1)
+    if mlp_dims is not None:
+        dims = [int(d) for d in mlp_dims]
+        parts["feats"] = (ops(add=1, log=1, div=1, mul=1, sync=1)
+                          if mlp_feats == "sense" else ops(smem=1, sync=1))
+        parts["fwd"] = _add(*(ops(smem=1, mul=1, add=nin + 1, tmin=1, sync=1)
+                              for nin in dims[:-1]))
+        # K2m's register forward: each layer's inputs by __shfl_sync
+        parts["fwd_regs"] = _add(*(ops(shfl=1, mul=1, add=nin + 1, tmin=1)
+                                   for nin in dims[:-1]))
+        parts["td"] = _add(
+            ops(smem=1, mul=2, add=dims[-1] + 1, sync=1),
+            *(_add(ops(smem=1, mul=2, add=nout, sync=1) if l > 0 else ops(),
+                   ops(smem=1, mul=2, add=1, sync=1))
+              for l, nout in enumerate(dims[1:])))
+    return parts
 
 
 def chain_ops(T: int, n_tiles: int, n_actions: int, *, ddr: bool = False,
@@ -187,46 +246,26 @@ def chain_ops(T: int, n_tiles: int, n_actions: int, *, ddr: bool = False,
       ``__syncwarp``; with ``mlp_dims`` the TD update (Q(s, a), delta, per
       layer the gradient sum and the weight update, each ending in
       ``__syncwarp``)."""
-    nt, A = n_tiles, n_actions
-    ops = lambda **kw: {k: kw.get(k, 0) for k in LATENCY}
-    add = lambda *ds: {k: sum(d[k] for d in ds) for k in LATENCY}
-    cyc = lambda d: sum(d[k] * LATENCY[k] for k in LATENCY)
-    slots = ops(smem=1, add=nt - 1, tmin=1, div=1, mul=1, sync=1)
-    sums = ops(add=T - 1, sync=1)
-    timing = ops(add=8, mul=4, div=3, tmin=6)
-    if ddr:
-        attrib = ops(add=1 + (T - 1) + 1 + (nt - 1), shfl=1, div=2, mul=2,
-                     sync=2)
-        reward = ops(div=2, tmin=2, add=4, mul=1)
-        path_a = add(timing, attrib, reward)
-    else:
-        path_a = add(timing, ops(tmin=2, div=2, add=3, mul=1))
-    observe = ops(smem=2, add=nt - 1 + 2, div=1)
-    select = ops(smem=1, tmin=A - 1, add=2 + A)
-    path_b = add(observe, select)
-    td = ops()
+    p = _chain_parts(T, n_tiles, n_actions, ddr, mlp_dims, mlp_feats)
+    path_b = _add(p["observe"], p["select"])
+    td = _ops()
     if mlp_dims is not None:
-        dims = [int(d) for d in mlp_dims]
-        feats = (ops(add=1, log=1, div=1, mul=1, sync=1)
-                 if mlp_feats == "sense" else ops(smem=1, sync=1))
-        fwd = add(*(ops(smem=1, mul=1, add=nin + 1, tmin=1, sync=1)
-                    for nin in dims[:-1]))
-        path_b = add(observe, feats, fwd, ops(smem=1), select)
-        td = add(ops(smem=1, mul=2, add=dims[-1] + 1, sync=1),
-                 *(add(ops(smem=1, mul=2, add=nout, sync=1) if l > 0
-                       else ops(),
-                       ops(smem=1, mul=2, add=1, sync=1))
-                   for l, nout in enumerate(dims[1:])))
-    longer = path_a if cyc(path_a) >= cyc(path_b) else path_b
-    return add(slots, sums, longer, ops(shfl=1, mul=1, add=1, sync=1), td)
+        path_b = _add(p["observe"], p["feats"], p["fwd"], _ops(smem=1),
+                      p["select"])
+        td = p["td"]
+    longer = p["path_a"] if _cyc(p["path_a"]) >= _cyc(path_b) else path_b
+    return _add(p["slots"], p["sums"], longer, p["pick"], td)
 
 
 def chain_cycles(T: int, n_tiles: int, n_actions: int, **kw) -> float:
     """Cycles of one step's chain (:func:`chain_ops` priced at
     :data:`LATENCY`); times S over the SM clock, the least time an
     episode can take."""
-    ops = chain_ops(T, n_tiles, n_actions, **kw)
-    return sum(n * LATENCY[k] for k, n in ops.items())
+    return _cyc(chain_ops(T, n_tiles, n_actions, **kw))
+
+
+# the admission's part of a request's chain (serve_chain_ops)
+ADMISSION = dict(smem=2, add=5, shfl=1, tmin=1, sync=2)
 
 
 def serve_chain_ops(n_accs: int, n_tiles: int, n_actions: int, *,
@@ -240,13 +279,34 @@ def serve_chain_ops(n_accs: int, n_tiles: int, n_actions: int, *,
     count's compare, the start time's ``tmax``, the first admissible
     retry's select), the ``oth`` flags (the busy times' load, the compare,
     the store and ``__syncwarp``), then the gated step over ``n_accs``
-    slots (:func:`chain_ops`; with ``mlp_dims`` a ``qfun`` stream's
-    features, forward and TD update), the finish time's add and the ring
-    write's store and ``__syncwarp``."""
-    ops = chain_ops(n_accs, n_tiles, n_actions, ddr=ddr, mlp_dims=mlp_dims,
-                    mlp_feats=mlp_feats)
-    extra = dict(smem=2, add=5, shfl=1, tmin=1, sync=2)
-    return {k: ops[k] + extra.get(k, 0) for k in ops}
+    slots (:func:`chain_ops`), the finish time's add and the ring write's
+    store and ``__syncwarp``.
+
+    With ``mlp_dims`` (a ``qfun`` stream of K2m) the network runs in a
+    second warp and the chain is the longer of two loops over two
+    consecutive requests: the step warp's (the admission, the step up to
+    the observation, the handoff to the network warp (a named barrier,
+    priced as ``sync``), the features, the forward (in registers, each
+    layer's inputs by ``__shfl_sync``, for the paths' sense network), the
+    Q-row's handoff and read, the selection and pick) and the network
+    warp's (request i's TD update, then request i + 1's handoff,
+    features, forward, Q-row handoff, selection and pick and the action's
+    handoff): request i's update runs beside request i + 1's admission and
+    step."""
+    if mlp_dims is None:
+        return _add(chain_ops(n_accs, n_tiles, n_actions, ddr=ddr),
+                    _ops(**ADMISSION))
+    p = _chain_parts(n_accs, n_tiles, n_actions, ddr, mlp_dims, mlp_feats)
+    handoff = _ops(sync=1)
+    fwd = (p["fwd_regs"] if serve_net_in_registers(mlp_dims)
+           else p["fwd"])
+    net = _add(handoff, p["feats"], fwd, handoff, _ops(smem=1), p["select"])
+    path_b = _add(p["observe"], net)
+    longer = p["path_a"] if _cyc(p["path_a"]) >= _cyc(path_b) else path_b
+    step_loop = _add(_ops(**ADMISSION), p["slots"], p["sums"], longer,
+                     p["pick"])
+    net_loop = _add(p["td"], net, p["pick"], handoff)
+    return step_loop if _cyc(step_loop) >= _cyc(net_loop) else net_loop
 
 
 def serve_chain_cycles(n_accs: int, n_tiles: int, n_actions: int,
@@ -254,8 +314,7 @@ def serve_chain_cycles(n_accs: int, n_tiles: int, n_actions: int,
     """Cycles of one request's chain (:func:`serve_chain_ops` priced at
     :data:`LATENCY`); times S over the SM clock, the least time a stream
     can take."""
-    ops = serve_chain_ops(n_accs, n_tiles, n_actions, **kw)
-    return sum(n * LATENCY[k] for k, n in ops.items())
+    return _cyc(serve_chain_ops(n_accs, n_tiles, n_actions, **kw))
 
 
 def build(verbose: bool = False) -> Path:

@@ -115,7 +115,8 @@ def forward_layers(wpack, x, dims):
     last = len(dims) - 2
     for l, (off, nin, nout) in enumerate(_layers(dims)):
         w = wpack[:, off:off + nin, :nout]
-        z = seqsum(w * hs[-1][:, :, None], 1) + wpack[:, off + nin, :nout]
+        z = (xla_sum((w * hs[-1][:, :, None]).transpose(1, 2))
+             + wpack[:, off + nin, :nout])
         hs.append(z if l == last else torch.clamp(z, min=0.0))
     return hs
 
@@ -123,8 +124,10 @@ def forward_layers(wpack, x, dims):
 def forward_packed(wpack, x, dims) -> torch.Tensor:
     """Q-rows ``(B, n_actions)`` of ``B`` networks ``wpack (B, R, C)`` at
     features ``x (B, n_in)``; each layer's product is the broadcast sum
-    ``sum(W * h[:, None], 0)`` over the rows in order (exact for one-hot
-    inputs: the off rows add signed zeros)."""
+    ``sum(W * h[:, None], 0)`` over the rows in the order the reference's
+    ``jnp.sum`` takes on the CPU (:func:`~repro_torch.ordered.xla_sum`: in
+    order up to 32 rows, in windows of 32 past that; exact for one-hot
+    inputs, where the off rows add signed zeros)."""
     return forward_layers(wpack, x, dims)[-1]
 
 
@@ -141,7 +144,11 @@ def td_update_packed(wpack, x, action, reward, lr_eff, dims, gate):
 
 def td_update_from(wpack, hs, action, reward, lr_eff, dims, gate):
     """:func:`td_update_packed` from the forward's layer outputs ``hs``
-    (:func:`forward_layers`), which the fused step has already computed."""
+    (:func:`forward_layers`), which the fused step has already computed.
+    The backward sums a row over a layer's outputs as the reference's
+    ``jnp.sum`` over that minor axis runs on the CPU
+    (:func:`~repro_torch.ordered.xla_sum`: in order up to 32 outputs, in
+    windows of 32 past that)."""
     f32 = torch.float32
     n_act = dims[-1]
     hot = (torch.arange(n_act, device=wpack.device)[None, :]
@@ -156,7 +163,7 @@ def td_update_from(wpack, hs, action, reward, lr_eff, dims, gate):
         grad[:, off + nin, :nout] = g
         if l > 0:
             w = wpack[:, off:off + nin, :nout]
-            g = seqsum(w * g[:, None, :], -1) * (hs[l] > 0.0).to(f32)
+            g = xla_sum(w * g[:, None, :]) * (hs[l] > 0.0).to(f32)
     ok = gate & torch.isfinite(delta) & (lr_eff > 0.0)
     return torch.where(ok[:, None, None],
                        wpack - lr_eff[:, None, None] * grad, wpack)

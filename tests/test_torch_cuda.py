@@ -566,6 +566,51 @@ def test_cuda_serve_kernel_bitwise_on_the_edge_grid(faulted):
                                getattr(rc, name)), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("faulted", [False, True])
+@pytest.mark.parametrize("net", coverage.SERVE_MLP_NETS)
+def test_cuda_mlp_serve_kernel_bitwise_on_the_edge_grid(net, faulted):
+    """K2m / K2m-faulted (a step warp and a network warp a stream) on
+    ``coverage.serve_mlp_edge_case``: a learning network, its frozen copy,
+    a table and NON_COH beside placeholders, a +inf Q-value, a watchdog
+    that trips and releases, at the paths' sense network (the register
+    path), the one-hot network and the widest one (shared memory); in one
+    launch and in three chained ones, every trace column and carry leaf,
+    the packs included, bitwise equal to ``ref.serve_episode_ref`` on the
+    CPU."""
+    _need_card()
+    mc = coverage.serve_mlp_edge_case(net, seed=3, faulted=faulted,
+                                      device="cuda")
+    c = mc.case
+    cpu = lambda t: t.cpu()
+    rc, ry = ref.serve_episode_ref(
+        c.static, cpu(c.learned), rewards.RewardWeights(
+            *map(cpu, c.weights)), ref.ServeParams(*map(cpu, c.sp)),
+        c.carry0.map(cpu),
+        ref.StepInputs(*(None if v is None else cpu(v) for v in c.xs)),
+        cpu(c.t_arr), cpu(c.deadline), cpu(c.priority),
+        qfun=cpu(mc.qfun), mlp_lr=cpu(mc.mlp.lr),
+        mlp_dims=socnn.mlp_dims(mc.mlp.cfg), mlp_feats=mc.mlp.cfg.features)
+    n = c.t_arr.shape[1]
+    ops.reset_launches()
+    for cuts in ((0, n), (0, n // 3, 2 * n // 3, n)):
+        carry, ys = c.carry0, []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            sl = slice(lo, hi)
+            carry, y = ops.fused_serve_episode(
+                c.static, c.learned, c.weights, c.sp, carry, _slice(c.xs, sl),
+                c.t_arr[:, sl], c.deadline[:, sl], c.priority[:, sl],
+                qfun=mc.qfun, mlp=mc.mlp)
+            ys.append(y)
+        assert torch.equal(torch.cat(ys, 1).cpu(), ry)
+        for name in ref.ServeCarry._fields:
+            assert torch.equal(getattr(carry, name).cpu(),
+                               getattr(rc, name)), name
+    torch.cuda.synchronize()
+    assert (ops.mlp_fault_serve_launches if faulted
+            else ops.mlp_serve_launches) == 4
+
+
 # ------------------------------------------------------- flash attention
 FA_SHAPES = [
     # (B, H, Hkv, Sq, Skv, hd): tests/test_kernels.py's shapes, decode

@@ -197,6 +197,18 @@ def test_chain_ops_follow_the_shapes():
     assert ddr["div"] == base["div"] + 2 and ddr["sync"] == base["sync"] + 2
     mlp = kernel.chain_ops(12, 2, 4, mlp_dims=(14, 16, 16, 4))
     assert mlp["log"] == 1
+    # K2m's network warp: one log on either loop, the TD update's
+    # __syncwarps on the network warp's only
+    for na, nt in ((7, 4), (12, 2)):
+        k2m = kernel.serve_chain_ops(na, nt, 4, mlp_dims=(14, 16, 16, 4))
+        assert k2m["log"] == 1
+        # the one-warp body's count: the step, network included, after the
+        # admission, every piece in a row
+        one_warp = kernel.chain_cycles(na, nt, 4, mlp_dims=(
+            14, 16, 16, 4)) + sum(n * kernel.LATENCY[k]
+                                  for k, n in kernel.ADMISSION.items())
+        assert kernel.serve_chain_cycles(na, nt, 4, mlp_dims=(
+            14, 16, 16, 4)) < one_warp
     assert kernel.chain_cycles(12, 2, 4, mlp_dims=(14, 16, 16, 4)) > (
         kernel.chain_cycles(12, 2, 4))
     # the count prices each kind at its measured latency

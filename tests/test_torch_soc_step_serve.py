@@ -19,7 +19,7 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core import qlearn, rewards
 from repro_torch.kernels.soc_step import coverage, kernel, ref
-from repro_torch.soc import traffic, vecenv
+from repro_torch.soc import nn as socnn, traffic, vecenv
 from repro_torch.soc.apps import make_application
 from repro_torch.soc.config import SOCS
 
@@ -168,6 +168,33 @@ def test_serve_plan_ring_and_bytes():
         kernel.serve_plan(soc.n_mem_tiles, 9, 4, 243, 65, 8, 10)
 
 
+@pytest.mark.parametrize("mlp_dims", [(14, 16, 16, 4), (243, 16, 16, 4),
+                                      (14, 64, 64, 64, 4)])
+def test_serve_plan_runs_k2m_in_two_warps(mlp_dims):
+    """K2m's block: a step warp and a network warp (64 threads, the
+    table instantiations one warp); its words are the table stream's plus
+    the network's (``serve_words``: the MLP sense sums, the pack, the
+    layers' outputs, two backward rows) and the handoff's (two requests'
+    inputs, action and reward), and the two consts [qfun, mlp_lr]."""
+    soc = SOCS["SoC1"]
+    na = soc.n_accs
+    args = (soc.n_mem_tiles, 9, 4, 243, na, 8, 32)
+    table = kernel.serve_plan(*args)
+    assert table.threads == 32
+    m = kernel.serve_plan(*args, mlp_dims=mlp_dims)
+    assert m.threads == 64
+    rows, cols = socnn.pack_shape(mlp_dims)
+    tp = -(-na // 32) * 32 + 1
+    net = rows * cols + sum(mlp_dims) + 2 * kernel.MAX_WIDTH
+    assert kernel.NET_WORDS == 2 * 11 + 2
+    if m.ring == table.ring:
+        assert m.smem_bytes - table.smem_bytes == 4 * (
+            2 + kernel.N_MLP_SUMS * (tp + 1) + net + kernel.NET_WORDS)
+    assert m.smem_bytes <= kernel.SMEM_LIMIT
+    assert kernel.serve_plan(*args, faulted=True,
+                             mlp_dims=mlp_dims).threads == 64
+
+
 def test_serve_chain_adds_the_admission_to_the_step():
     """A request's chain is the episode step's over n_accs slots plus the
     admission's ring read, ballot, start time and ring write."""
@@ -209,3 +236,87 @@ def test_serve_edge_case_reaches_its_edges(seed, faulted):
     falls = ((d3[1:] == 0) & (d3[:-1] == 1)).sum()
     assert rises >= 2 and falls >= 1
     assert carry.step[3] < (executed[3] == 1).sum()   # the rewinds
+
+
+@pytest.mark.parametrize("faulted", [False, True])
+@pytest.mark.parametrize("net", coverage.SERVE_MLP_NETS)
+def test_serve_mlp_edge_case_reaches_its_edges(net, faulted):
+    """Each stream of ``coverage.serve_mlp_edge_case`` drives the edge it
+    is named for, in the plain version: the watchdog trips and releases
+    (so every network is gated off and on again), the learning network's
+    pack moves and the frozen copy's and the placeholders' stay bitwise,
+    the table stream learns its table, NON_COH serves NON_COH, and the
+    stream with a +inf NON_COH value takes NON_COH on every request it
+    decides and never updates (its delta is not finite).  The paths'
+    sense network runs K2m's register path, the others its
+    shared-memory path."""
+    mc = coverage.serve_mlp_edge_case(net, seed=1, faulted=faulted)
+    c = mc.case
+    dims = tuple(socnn.mlp_dims(mc.mlp.cfg))
+    assert kernel.serve_net_in_registers(dims) == (net == "sense")
+    if net == "onehot":
+        assert dims[0] == 243
+    if net == "widest":
+        w = dims[1]
+        assert w > 2 * kernel.WARP and len(dims) == 5
+        with pytest.raises(ValueError):
+            kernel.serve_plan(2, c.xs.profile.shape[-1], 4, 243, 12, 2, 96,
+                              faulted=True,
+                              mlp_dims=(14, w + 1, w + 1, w + 1, 4))
+    carry, y = ref.serve_episode_ref(
+        c.static, c.learned, c.weights, c.sp, c.carry0, c.xs, c.t_arr,
+        c.deadline, c.priority, qfun=mc.qfun, mlp_lr=mc.mlp.lr,
+        mlp_dims=dims, mlp_feats=mc.mlp.cfg.features)
+    col = {n: i for i, n in enumerate(ref.SERVE_YCOLS)}
+    executed = y[..., col["executed"]] == 1
+    degraded = y[..., col["degraded"]] == 1
+    for s in range(len(coverage.SERVE_MLP_EDGES)):
+        d = degraded[s].int()
+        assert ((d[1:] - d[:-1]) == 1).sum() >= 1, s      # trips
+        assert ((d[1:] - d[:-1]) == -1).sum() >= 1, s     # releases
+    decided = executed & ~degraded
+    assert decided[0].sum() > 10 and decided[4].sum() > 10
+    w0 = c.carry0.wpack
+    assert not torch.equal(carry.wpack[0], w0[0])
+    for s in (1, 2, 3, 4):
+        assert torch.equal(carry.wpack[s], w0[s]), s
+    assert not torch.equal(carry.qtable[2], c.carry0.qtable[2])
+    assert (y[3, executed[3], col["mode"]] == 0).all()
+    assert (y[4, decided[4], col["action"]] == 0).all()
+    assert torch.isinf(w0[4]).sum() == 1
+
+
+@pytest.mark.parametrize("na,nt,ddr", [(7, 4, False), (7, 4, True),
+                                       (12, 2, False)])
+def test_k2m_chain_overlaps_the_update_with_the_next_request(na, nt, ddr):
+    """K2m's chain (a network warp beside the step warp) is the longer of
+    the step warp's loop (the admission and the step up to the
+    observation, the handoffs, features, forward, Q-row read, selection
+    and pick) and the network warp's (the TD update, then the next
+    request's handoff, features, forward, Q-row, selection, pick and the
+    action's handoff); the one-warp body's ran everything in a row
+    (1,857 cycles at SoC1's shape, Fig. 11), so the new count is shorter
+    and at least the table stream's."""
+    dims = (14, 16, 16, 4)
+    # the one-warp body's count: the admission, then the step with its
+    # network, every piece in a row
+    serial = kernel.chain_ops(na, nt, 4, ddr=ddr, mlp_dims=dims)
+    old = sum(n * kernel.LATENCY[k] for k, n in serial.items()) + sum(
+        n * kernel.LATENCY[k] for k, n in kernel.ADMISSION.items())
+    new = kernel.serve_chain_cycles(na, nt, 4, ddr=ddr, mlp_dims=dims)
+    table = kernel.serve_chain_cycles(na, nt, 4, ddr=ddr)
+    assert table < new < old
+    # without a network the serve chain is the admission and the step
+    assert kernel.serve_chain_ops(na, nt, 4, ddr=ddr) == {
+        k: v + kernel.ADMISSION.get(k, 0)
+        for k, v in kernel.chain_ops(na, nt, 4, ddr=ddr).items()}
+    if (na, nt, ddr) == (7, 4, False):
+        assert old == pytest.approx(1856.75)
+    # the register forward trades each layer's shared load and __syncwarp
+    # for one shuffle; a network in shared memory keeps them
+    regs = kernel.serve_chain_ops(na, nt, 4, ddr=ddr, mlp_dims=dims)
+    wide = kernel.serve_chain_ops(na, nt, 4, ddr=ddr,
+                                  mlp_dims=(14, 16, 16, 16, 4))
+    assert wide["smem"] > regs["smem"] and wide["sync"] > regs["sync"]
+    assert kernel.serve_net_in_registers(dims)
+    assert not kernel.serve_net_in_registers((14, 16, 16, 16, 4))
